@@ -5,16 +5,25 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
 for ``sm_90a``, holds each kernel against its plain PyTorch version on the
-card, then drives the main path through ``sivf_torch.Index(device="cuda")``
+card, then drives two main paths through ``sivf_torch.Index(device="cuda")``
 at the shape of the SIFT1M benchmark (ann-benchmarks ``sift-128-euclidean``:
-1,000,000 base vectors, dim 128, L2, k=10) with Faiss's ``IVF4096,Flat``
-list count. The data is a synthetic 128-wide Gaussian mixture made from
-``--seed`` with numpy; no dataset file is read.
+1,000,000 base vectors, dim 128, L2, k=10), both with the filter
+attributes ``tenant`` (uniform over 100) and ``ts`` (uniform over 1000):
+
+  * the raw fp32 index with Faiss's ``IVF4096,Flat`` list count;
+  * the PQ index with Faiss's ``IVF4096,PQ32`` layout (32 one-byte codes of
+    4 dims each, nbits=8), trained on a 65,536-row sample.
+
+Each path ingests, overwrites, removes, runs unfiltered searches and one
+filtered search at each of three selectivities (about 1 %, 10 % and 50 %),
+and is read against the exact top-10 over the live set (within each
+predicate for the filtered searches). The data is a synthetic 128-wide
+Gaussian mixture made from ``--seed`` with numpy; no dataset file is read.
 
 Output: one JSON object per line, in this order: the card and toolchain,
-the kernel build, the kernel-vs-plain checks, each main-path phase, the
-full-size kernel checks and timings, the ``{"kernels": [...]}`` summary,
-the card's ``nvidia-smi`` name and power limit, and last
+the kernel build, the kernel-vs-plain checks, the workload, each path's
+phases and full-size kernel checks and timings, the ``{"kernels": [...]}``
+summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
 result. It imports nothing of the JAX package.
@@ -35,14 +44,29 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # SIFT1M shape (ann-benchmarks sift-128-euclidean) with Faiss IVF4096,Flat
+# and IVF4096,PQ32; two filter attributes as in benchmarks/paper.py
 N_BASE, DIM, N_LISTS, K = 1_000_000, 128, 4096, 10
+ATTRS = ("tenant", "ts")
+N_TENANTS, N_TS = 100, 1000
 CFG = dict(dim=DIM, n_lists=N_LISTS, n_slabs=16384, capacity=128,
-           n_max=1 << 21, max_chain=32, metric="l2")
+           n_max=1 << 21, max_chain=32, metric="l2", attributes=ATTRS)
+PQ_M, PQ_NBITS = 32, 8
 INGEST_BATCH, OVERWRITE_ROWS = 16384, 16384
 REMOVE_ROWS, REMOVE_BATCH = 100_000, 65536
 N_QUERIES, NPROBE, TRAIN_ROWS = 1024, 32, 65536
-RTOL = 1e-5                       # distance tolerance, kernel vs plain
+N_SEARCH = 6                      # unfiltered search batches per path
+CHECK_QUERIES = 64                # full-size queries held against plain
+RTOL = 1e-5                       # distance tolerance, card vs CPU state
 FP32_PEAK = 67e12                 # H100 SXM fp32 (non-tensor) FLOP/s
+REPRESENTATIVE = "in_10pct"       # filtered selectivity in the kernels line
+
+
+def filters_of():
+    """The three filtered searches of each path, by selectivity."""
+    import sivf_torch as s
+    return {"eq_1pct": s.Eq("tenant", 7),
+            "in_10pct": s.In("tenant", tuple(range(10))),
+            "range_50pct": s.Range("ts", 0, 500)}
 
 
 class CheckFailed(AssertionError):
@@ -70,11 +94,12 @@ def hbm_bytes_per_s(name: str) -> float:
     return 2.0e12 if "PCIe" in name else 3.35e12
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+    after one warm-up run unless ``warm`` is False."""
     import torch
-    fn()
+    if warm:
+        fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -84,8 +109,55 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_median_ms(fn, reps: int) -> float:
+    """Median device milliseconds of ``reps`` launches of ``fn()``, each
+    between its own pair of CUDA events, after one warm-up launch."""
+    import torch
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def timed(fn):
+    """(result, ms between CUDA events around ``fn()``)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    r = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(end)
+
+
+def check_equal(what: str, dk, lk, dp, lp) -> float:
+    """A kernel's top-k equals its plain version's on the same inputs:
+    distances ``==`` bit for bit and labels ``==``. Returns the largest
+    absolute distance difference over finite entries (0.0)."""
+    dk, lk, dp, lp = (t.cpu().numpy() for t in (dk, lk, dp, lp))
+    check(dk.shape == dp.shape and lk.shape == lp.shape, f"{what}: shape")
+    same_d = (dk.view(np.int32) == dp.view(np.int32))
+    same = same_d & (lk == lp)
+    if not same.all():
+        r, j = np.argwhere(~same)[0]
+        raise CheckFailed(
+            f"{what}: {int((~same).sum())} of {same.size} entries differ; "
+            f"first at row {r} pos {j}: kernel {dk[r, j]!r} label "
+            f"{lk[r, j]} vs plain {dp[r, j]!r} label {lp[r, j]}; kernel "
+            f"row {dk[r].tolist()} {lk[r].tolist()} plain row "
+            f"{dp[r].tolist()} {lp[r].tolist()}")
+    fin = np.isfinite(dp)
+    return float(np.abs(dk[fin] - dp[fin]).max()) if fin.any() else 0.0
+
+
 def compare_topk(dk, lk, dp, lp) -> tuple[float, int]:
-    """Hold a kernel's top-k against the plain version's.
+    """Hold a card search against a CPU search of a state built by the same
+    ops on the CPU (``norms`` may differ in the last bit: reduction order).
 
     Distances: allclose(rtol=atol=1e-5). Labels: equal, except inside
     near-tie groups (adjacent plain distances within 1e-5 relative) where
@@ -101,8 +173,7 @@ def compare_topk(dk, lk, dp, lp) -> tuple[float, int]:
             f"{int((~close).sum())} of {close.size} distances differ beyond "
             f"rtol=atol=1e-5; first at row {r} pos {j}: kernel "
             f"{dk[r, j]!r} label {lk[r, j]} vs plain {dp[r, j]!r} label "
-            f"{lp[r, j]}; kernel row {dk[r].tolist()} plain row "
-            f"{dp[r].tolist()}")
+            f"{lp[r, j]}")
     fin = np.isfinite(dp)
     err = float(np.abs(dk[fin] - dp[fin]).max()) if fin.any() else 0.0
     groups = 0
@@ -123,6 +194,14 @@ def compare_topk(dk, lk, dp, lp) -> tuple[float, int]:
         check(len(set(lk[r][lk[r] >= 0])) == int((lk[r] >= 0).sum()),
               f"row {r}: duplicate labels")
     return err, groups
+
+
+def compiled(torch, pred):
+    """(structure, constants on the card) of a predicate over ATTRS."""
+    import sivf_torch
+    cf = sivf_torch.compile_filter(pred, ATTRS)
+    return cf.structure, torch.tensor(cf.consts, dtype=torch.int32,
+                                      device="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -155,17 +234,22 @@ def phase_build() -> dict:
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
              for n in b.KERNELS}
     return {"phase": "build", "seconds": secs, "kernels": list(b.KERNELS),
             "arch": b.ARCH, "ptxas": ptxas}
 
 
-def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac):
-    """Random slab planes with dead slots (bit 31 of a word included)."""
+def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
+    """Random slab planes with dead slots (bit 31 of a word included),
+    attributes (tenant in [0, 5), ts in [0, 100)) and, with ``m``, PQ
+    codes. Rows 1/0, 1/1 and 2/5 are exact duplicates: forced ties."""
     data = rng.normal(size=(n_slabs, c, d)).astype(np.float32)
-    data[1, 1] = data[1, 0]               # exact duplicates: forced ties
+    data[1, 1] = data[1, 0]
     data[2, 5] = data[1, 0]
+    codes = rng.integers(0, ksub, (n_slabs, c, m)).astype(np.uint8)
+    codes[1, 1] = codes[1, 0]
+    codes[2, 5] = codes[1, 0]
     ids = rng.permutation(n_slabs * c).astype(np.int32).reshape(n_slabs, c)
     live = rng.random((n_slabs, c)) >= dead_frac
     live[3, :] = False                    # one empty slab
@@ -175,48 +259,139 @@ def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac):
     words = np.packbits(live.reshape(n_slabs, c // 32, 32)[..., ::-1],
                         axis=-1).view(">u4")[..., 0].astype(np.uint32)
     norms = (data.astype(np.float32) ** 2).sum(-1)
+    attrs = np.stack([rng.integers(0, 5, (n_slabs, c)),
+                      rng.integers(0, 100, (n_slabs, c))], -1)
     dev = "cuda"
-    return (torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev),
-            torch.from_numpy(norms).to(dev),
-            torch.from_numpy(words.view(np.int32)).to(dev))
+    t = {"data": data, "ids": ids, "norms": norms,
+         "bitmap": words.view(np.int32), "codes": codes,
+         "attrs": attrs.astype(np.int32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+
+
+def synthetic_table(rng, n_slabs, q, t):
+    """A [q, t] slab table with -1 pads, an empty row (0), tied rows and
+    the empty slab (1), and a row with fewer live slots than k (2)."""
+    table = np.stack([rng.permutation(n_slabs)[:t] for _ in
+                      range(q)]).astype(np.int32)
+    table[rng.random((q, t)) < 0.3] = -1
+    table[0] = -1
+    table[1, :3] = (1, 2, 3)
+    table[2] = -1
+    table[2, -1] = 4
+    return table
+
+
+def edge_filters():
+    """Predicates over the synthetic attributes, with the k each uses."""
+    import sivf_torch as s
+    return {"eq": (s.Eq("tenant", 2), 10),
+            "in": (s.In("tenant", (0, 3)), 10),
+            "range": (s.Range("ts", 20, 70), 10),
+            "nested_and": (s.And(s.In("tenant", (1, 2, 4)),
+                                 s.And(s.Range("ts", 10, 90),
+                                       s.Eq("tenant", 1))), 10),
+            "none_pass": (s.Eq("tenant", 99), 10),
+            "k_over_passing": (s.And(s.Eq("tenant", 1),
+                                     s.Range("ts", 0, 10)), 64)}
 
 
 def phase_kernel_checks(torch) -> dict:
-    """sivf_fused_search vs its plain version on small synthetic cases,
-    and a small op sequence (reclaim-heavy delete included) on the card
-    against the same sequence on the CPU's plain versions."""
+    """Each scan kernel vs its plain version on small synthetic cases
+    (``==`` distances and labels), and a small op sequence (reclaim-heavy
+    delete included) on the card against the same sequence on the CPU's
+    plain versions."""
+    from repro_torch.core import pq
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
-    from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
+    from repro_torch.kernels.sivf_scan.pq_fused import (
+        sivf_pq_fused_search_cuda,
+    )
+    from repro_torch.kernels.sivf_scan.ref import (
+        sivf_fused_search_ref,
+        sivf_pq_fused_search_ref,
+    )
     rng = np.random.default_rng(1234)
-    cases, max_err, groups = [], 0.0, 0
+    out = {"phase": "kernel_checks"}
+    cases, max_err = [], 0.0
     for metric in ("l2", "ip"):
         for c in (32, 128):
             for d, k, q, t in ((128, 10, 33, 12), (37, 64, 8, 5)):
-                data, ids, norms, bitmap = synthetic_pool(
-                    torch, rng, 24, c, d, dead_frac=0.3)
-                table = np.stack([rng.permutation(24)[:t] for _ in
-                                  range(q)]).astype(np.int32)
-                table[rng.random((q, t)) < 0.3] = -1  # -1 pads
-                table[0] = -1                        # an empty row
-                table[1, :3] = (1, 2, 3)             # ties + empty slab
-                table[2] = -1
-                table[2, -1] = 4                     # fewer live than k
+                p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
+                table = synthetic_table(rng, 24, q, t)
                 qs = rng.normal(size=(q, d)).astype(np.float32)
-                qs[1] = data[1, 0].cpu().numpy() + 0.5 * rng.normal(
+                qs[1] = p["data"][1, 0].cpu().numpy() + 0.5 * rng.normal(
                     size=d).astype(np.float32)       # near the tied rows
                 args = (torch.from_numpy(qs).cuda(),
-                        torch.from_numpy(table).cuda(), data, ids, norms,
-                        bitmap, k)
+                        torch.from_numpy(table).cuda(), p["data"], p["ids"],
+                        p["norms"], p["bitmap"], k)
                 dk, lk = sivf_fused_search_cuda(*args, metric=metric)
                 torch.cuda.synchronize()
                 dp, lp = sivf_fused_search_ref(*args, metric=metric)
-                err, g = compare_topk(dk, lk, dp, lp)
+                name = f"{metric}/C={c}/D={d}/k={k}"
+                max_err = max(max_err, check_equal(name, dk, lk, dp, lp))
                 check(bool((lk[0] == -1).all()), "empty row not all -1")
-                max_err, groups = max(max_err, err), groups + g
-                cases.append(f"{metric}/C={c}/D={d}/k={k}")
-    return {"phase": "kernel_checks", "sivf_fused_search_cases": cases,
-            "max_abs_err": max_err, "near_tie_groups": groups,
-            "slice_card_vs_cpu": slice_small_check(torch, rng)}
+                cases.append(name)
+                if c == 128 and d == 128:       # the filtered variant
+                    for fname, (pred, fk) in edge_filters().items():
+                        fs, fc = compiled(torch, pred)
+                        fa = args[:-1] + (fk,)
+                        kw = dict(metric=metric, attrs=p["attrs"],
+                                  fstruct=fs, fconsts=fc)
+                        dk, lk = sivf_fused_search_cuda(*fa, **kw)
+                        torch.cuda.synchronize()
+                        dp, lp = sivf_fused_search_ref(*fa, **kw)
+                        fname = f"{name}/filter={fname}"
+                        max_err = max(max_err, check_equal(
+                            fname, dk, lk, dp, lp))
+                        cases.append(fname)
+    out["sivf_fused_search_cases"] = cases
+    cases = []
+    for metric in ("l2", "ip"):
+        for m in (8, 32):
+            for nbits in (4, 8):
+                for c in (32, 128):
+                    ksub = 1 << nbits
+                    p = synthetic_pool(torch, rng, 24, c, 4, dead_frac=0.3,
+                                       m=m, ksub=ksub)
+                    q = 33
+                    table = torch.from_numpy(synthetic_table(
+                        rng, 24, q, 12)).cuda()
+                    cb = torch.from_numpy(rng.normal(
+                        size=(m, ksub, 4)).astype(np.float32)).cuda()
+                    qs = torch.from_numpy(rng.normal(
+                        size=(q, 4 * m)).astype(np.float32)).cuda()
+                    adc = pq.adc_tables(cb, qs, metric).contiguous()
+                    adc[3, 0] = -0.0          # a -0.0 first term
+                    for k in (10, 64):        # 64 > live count of row 2
+                        args = (adc, table, p["codes"], p["ids"],
+                                p["bitmap"], k)
+                        dk, lk = sivf_pq_fused_search_cuda(*args)
+                        torch.cuda.synchronize()
+                        dp, lp = sivf_pq_fused_search_ref(*args)
+                        name = f"{metric}/m={m}/nbits={nbits}/C={c}/k={k}"
+                        max_err = max(max_err, check_equal(
+                            name, dk, lk, dp, lp))
+                        check(bool((lk[0] == -1).all()),
+                              "empty row not all -1")
+                        cases.append(name)
+                    if (m, nbits, c) != (32, 8, 128):
+                        continue
+                    for fname, (pred, fk) in edge_filters().items():
+                        fs, fc = compiled(torch, pred)
+                        args = (adc, table, p["codes"], p["ids"],
+                                p["bitmap"], fk)
+                        kw = dict(attrs=p["attrs"], fstruct=fs, fconsts=fc)
+                        dk, lk = sivf_pq_fused_search_cuda(*args, **kw)
+                        torch.cuda.synchronize()
+                        dp, lp = sivf_pq_fused_search_ref(*args, **kw)
+                        fname = f"{metric}/m={m}/nbits={nbits}/C={c}/" \
+                                f"filter={fname}"
+                        max_err = max(max_err, check_equal(
+                            fname, dk, lk, dp, lp))
+                        cases.append(fname)
+    out["sivf_pq_fused_search_cases"] = cases
+    out["max_abs_err"] = max_err
+    out["slice_card_vs_cpu"] = slice_small_check(torch, rng)
+    return out
 
 
 def slice_small_check(torch, rng) -> dict:
@@ -274,92 +449,181 @@ def make_data(torch, seed: int, n: int):
     return torch.from_numpy(x[:n]).cuda(), torch.from_numpy(x[n:]).cuda(), rng
 
 
-def phase_main(torch, seed: int, out: dict) -> list[dict]:
-    """Drive sivf_torch.Index(device="cuda") through the main path."""
+def phase_workload(torch, seed: int) -> tuple[dict, dict]:
+    """The traffic both paths replay, the coarse centroids, and the exact
+    top-k over the final live set (unfiltered and within each filter)."""
     import sivf_torch
-    from repro_torch.kernels.reclaim import reclaim
-    from repro_torch.kernels.sivf_scan import fused
-    lines = []
+    from repro_torch.core.filters import host_matches
     t0 = time.perf_counter()
     base, queries, rng = make_data(torch, seed, N_BASE)
+    arng = np.random.default_rng(seed + 1)
+    attrs_h = np.stack([arng.integers(0, N_TENANTS, N_BASE),
+                        arng.integers(0, N_TS, N_BASE)], 1).astype(np.int32)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sample = base[torch.randperm(N_BASE, generator=gen, device="cuda")
                   [:TRAIN_ROWS]]
     cents = sivf_torch.train_kmeans(sample, N_LISTS, generator=gen)
+    ow_ids = torch.from_numpy(rng.choice(N_BASE, OVERWRITE_ROWS,
+                                         replace=False).astype(np.int32))
+    ow_vecs = base[ow_ids.cuda().long()] + 0.01
+    rm_ids = torch.from_numpy(rng.choice(N_BASE, REMOVE_ROWS,
+                                         replace=False).astype(np.int32))
     torch.cuda.synchronize()
-    lines.append({"phase": "setup", "seconds": time.perf_counter() - t0,
-                  "n_base": N_BASE, "train_rows": TRAIN_ROWS})
-    cfg = sivf_torch.SIVFConfig(**CFG)
-    index = sivf_torch.Index(cfg, cents, device="cuda")
+    setup_s = time.perf_counter() - t0
+    # exact top-k over the live set after the traffic: every path is
+    # read against it (current vectors: base with the overwrites applied)
+    t0 = time.perf_counter()
+    cur = base.clone()
+    cur[ow_ids.cuda().long()] = ow_vecs
+    removed = torch.zeros(N_BASE, dtype=torch.bool, device="cuda")
+    removed[rm_ids.cuda().long()] = True
+    live_ids = torch.nonzero(~removed).reshape(-1)
+    masks = {"unfiltered": None}
+    for name, pred in filters_of().items():
+        masks[name] = torch.from_numpy(host_matches(
+            pred, ATTRS, attrs_h)).cuda()[live_ids]
+    xs = cur[live_ids].double()
+    best = {name: [] for name in masks}
+    for q0 in range(0, N_QUERIES, 128):
+        dd = torch.cdist(queries[q0:q0 + 128].double(), xs)
+        for name, mask in masks.items():
+            dm = dd if mask is None else dd.masked_fill(~mask, torch.inf)
+            v, i = dm.topk(K, largest=False)
+            best[name].append(torch.where(torch.isinf(v), -1, live_ids[i]))
+    oracle = {name: torch.cat(b) for name, b in best.items()}
+    torch.cuda.synchronize()
+    wl = dict(base=base, queries=queries, cents=cents, sample=sample,
+              attrs=torch.from_numpy(attrs_h).cuda(), attrs_h=attrs_h,
+              ow_ids=ow_ids, ow_vecs=ow_vecs, rm_ids=rm_ids, cur=cur,
+              removed=removed, oracle=oracle, seed=seed)
+    line = {"phase": "workload", "setup_seconds": setup_s,
+            "oracle_seconds": time.perf_counter() - t0, "n_base": N_BASE,
+            "train_rows": TRAIN_ROWS, "n_live_after": int(live_ids.numel()),
+            "selectivity": {name: float(host_matches(
+                pred, ATTRS, attrs_h).mean())
+                for name, pred in filters_of().items()}}
+    return wl, line
 
-    fused.launches = reclaim.launches = 0         # counts of the main path
+
+def recall(torch, lab, best) -> float:
+    """Share of the exact top-k (``best``, -1 padded) found in ``lab``."""
+    lab, best = lab.long(), best.long()
+    hit = ((lab[:, :, None] == best[:, None, :])
+           & (best[:, None, :] >= 0)).any(1).sum()
+    return float(hit) / max(int((best >= 0).sum()), 1)
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.reclaim import reclaim
+    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    fused.launches = fused.filtered_launches = 0
+    pq_fused.launches = pq_fused.filtered_launches = 0
+    reclaim.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.reclaim import reclaim
+    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    return {"sivf_fused_search": fused.launches,
+            "sivf_fused_search[filtered]": fused.filtered_launches,
+            "sivf_pq_fused_search": pq_fused.launches,
+            "sivf_pq_fused_search[filtered]": pq_fused.filtered_launches,
+            "reclaim": reclaim.launches}
+
+
+def drive(torch, index, wl: dict, path: str, out: dict) -> list[dict]:
+    """Ingest, overwrite, remove, unfiltered and filtered searches through
+    ``index``; exact reports; labels live and inside each predicate."""
+    from repro_torch.core.filters import host_matches
+    lines = []
+    base, queries, attrs = wl["base"], wl["queries"], wl["attrs"]
     ids = torch.arange(N_BASE, dtype=torch.int32, device="cuda")
-
-    def timed(fn):
-        """(result, ms between CUDA events around ``fn()``)."""
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        r = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return r, start.elapsed_time(end)
-
     reps, ms = [], 0.0
     for lo in range(0, N_BASE, INGEST_BATCH):
-        r, dt = timed(lambda: index.add(base[lo:lo + INGEST_BATCH],
-                                        ids[lo:lo + INGEST_BATCH]))
+        hi = lo + INGEST_BATCH
+        r, dt = timed(lambda: index.add(base[lo:hi], ids[lo:hi],
+                                        attrs=attrs[lo:hi]))
         reps.append(r)
         ms += dt
     accepted = sum(r.accepted for r in reps)
     check(accepted == N_BASE and all(r.ok for r in reps),
-          f"ingest accepted {accepted}")
-    lines.append({"phase": "ingest", "ms": ms, "batches": len(reps),
+          f"{path}: ingest accepted {accepted}")
+    lines.append({"phase": f"{path}.ingest", "ms": ms, "batches": len(reps),
                   "accepted": accepted, "rows_per_s": N_BASE / ms * 1e3})
 
-    ow_ids = torch.from_numpy(rng.choice(N_BASE, OVERWRITE_ROWS,
-                                         replace=False).astype(np.int32))
-    ow_vecs = base[ow_ids.cuda().long()] + 0.01
-    r, dt = timed(lambda: index.add(ow_vecs, ow_ids.cuda()))
+    ow = wl["ow_ids"].cuda()
+    r, dt = timed(lambda: index.add(wl["ow_vecs"], ow,
+                                    attrs=attrs[ow.long()]))
     check(r.ok and r.overwritten == OVERWRITE_ROWS and r.accepted == 0,
-          f"overwrite report {r}")
-    lines.append({"phase": "overwrite", "ms": dt, "overwritten":
-                  r.overwritten, "accepted": r.accepted})
+          f"{path}: overwrite report {r}")
+    lines.append({"phase": f"{path}.overwrite", "ms": dt,
+                  "overwritten": r.overwritten, "accepted": r.accepted})
 
-    rm_ids = torch.from_numpy(rng.choice(N_BASE, REMOVE_ROWS,
-                                         replace=False).astype(np.int32))
     removed, ms, buckets = 0, 0.0, []
     for lo in range(0, REMOVE_ROWS, REMOVE_BATCH):
         r, dt = timed(lambda: index.remove(
-            rm_ids[lo:lo + REMOVE_BATCH].cuda()))
-        check(r.ok, f"remove report {r}")
+            wl["rm_ids"][lo:lo + REMOVE_BATCH].cuda()))
+        check(r.ok, f"{path}: remove report {r}")
         removed += r.accepted
         ms += dt
         buckets.append(r.padded_to)
-    check(removed == REMOVE_ROWS, f"remove accepted {removed}")
-    lines.append({"phase": "remove", "ms": ms, "accepted": removed,
+    check(removed == REMOVE_ROWS, f"{path}: remove accepted {removed}")
+    lines.append({"phase": f"{path}.remove", "ms": ms, "accepted": removed,
                   "buckets": buckets, "n_live": index.n_live})
 
-    n_search, lat = 6, []
-    for _ in range(n_search):
+    lat = []
+    for _ in range(N_SEARCH):
         res, dt = timed(lambda: index.search(queries, k=K, nprobe=NPROBE))
         lat.append(dt)
-    launches = {"sivf_fused_search": fused.launches,
-                "reclaim": reclaim.launches}
-    check(launches["sivf_fused_search"] == n_search,
-          f"fused launches {launches['sivf_fused_search']} != {n_search}")
-    check(launches["reclaim"] > 0, "reclaim kernel never launched")
-    out["launches"] = launches
-    lines.append({"phase": "search", "queries": N_QUERIES, "k": K,
-                  "nprobe": NPROBE, "searches": n_search,
-                  "ms_each": lat, "ms_median": float(np.median(lat)),
-                  "qps": N_QUERIES / float(np.median(lat)) * 1e3,
-                  "launches": launches})
-    lines.append(check_results(torch, index, base, queries, rm_ids, res))
-    out.update(index=index, base=base, queries=queries, cfg=cfg)
+    out["result"] = res
+    lines.append({"phase": f"{path}.search", "queries": N_QUERIES, "k": K,
+                  "nprobe": NPROBE, "searches": N_SEARCH, "ms_each": lat,
+                  "ms_median": float(np.median(lat)),
+                  "qps": N_QUERIES / float(np.median(lat)) * 1e3})
+
+    filtered = {}
+    for name, pred in filters_of().items():
+        fres, dt = timed(lambda: index.search(queries, k=K, nprobe=NPROBE,
+                                              filter=pred))
+        lab = fres.labels
+        got = lab[lab >= 0].long()
+        check(not bool(wl["removed"][got].any()),
+              f"{path}/{name}: a removed id was returned")
+        check(bool(host_matches(pred, ATTRS,
+                                wl["attrs_h"][got.cpu().numpy()]).all()),
+              f"{path}/{name}: a label fails its predicate")
+        filtered[name] = {"ms": dt, "results": int(got.numel()),
+                          "recall_at_10_vs_oracle": recall(
+                              torch, lab, wl["oracle"][name])}
+        out.setdefault("filtered", {})[name] = fres
+    lines.append({"phase": f"{path}.filtered_search", "queries": N_QUERIES,
+                  "k": K, "nprobe": NPROBE, "by_selectivity": filtered})
     return lines
 
 
-def check_results(torch, index, base, queries, rm_ids, res) -> dict:
+def phase_main(torch, wl: dict, out: dict) -> list[dict]:
+    """Drive the raw fp32 sivf_torch.Index(device="cuda") main path."""
+    import sivf_torch
+    cfg = sivf_torch.SIVFConfig(**CFG)
+    index = sivf_torch.Index(cfg, wl["cents"], device="cuda")
+    zero_counts()                                # counts of this path
+    lines = drive(torch, index, wl, "raw", out)
+    launches = read_counts()
+    check(launches["sivf_fused_search"] == N_SEARCH,
+          f"fused launches {launches['sivf_fused_search']} != {N_SEARCH}")
+    check(launches["sivf_fused_search[filtered]"] == len(filters_of()),
+          "filtered fused launches "
+          f"{launches['sivf_fused_search[filtered]']}")
+    check(launches["reclaim"] > 0, "reclaim kernel never launched")
+    check(launches["sivf_pq_fused_search"] == 0, "PQ kernel on a raw path")
+    out["launches"] = launches
+    lines.append({"phase": "raw.launches", **launches})
+    lines.append(check_results(torch, index, wl, out["result"]))
+    out.update(index=index, cfg=cfg)
+    return lines
+
+
+def check_results(torch, index, wl, res) -> dict:
     """Search output: shape, finite, live labels, distances that match the
     stored vectors, and recall@10 against exact search (reported)."""
     d, lab = res.distances, res.labels
@@ -367,68 +631,126 @@ def check_results(torch, index, base, queries, rm_ids, res) -> dict:
           "result shape")
     check(bool(torch.isfinite(d).all()) and bool((lab >= 0).all()),
           "every query should have k finite results")
-    removed = torch.zeros(N_BASE, dtype=torch.bool, device="cuda")
-    removed[rm_ids.cuda().long()] = True
-    check(not bool(removed[lab.long()].any()), "a removed id was returned")
+    check(not bool(wl["removed"][lab.long()].any()),
+          "a removed id was returned")
     st = index.state
     slab, slot = st.att_slab[lab.long()].long(), st.att_slot[lab.long()].long()
     x = st.data[slab, slot].double()
-    exact = ((x - queries.double()[:, None]) ** 2).sum(-1)
+    exact = ((x - wl["queries"].double()[:, None]) ** 2).sum(-1)
     check(bool(torch.allclose(d.double(), exact, rtol=1e-4, atol=1e-3)),
           "result distances do not match the stored vectors")
-    live = ~removed
-    live_ids = torch.nonzero(live).reshape(-1)
-    # exact top-k over the live base set (stored vectors of live ids)
-    lslab = st.att_slab[live_ids].long()
-    lslot = st.att_slot[live_ids].long()
-    xs = st.data[lslab, lslot]
-    best = []
-    for q0 in range(0, N_QUERIES, 128):
-        dd = torch.cdist(queries[q0:q0 + 128].double(), xs.double())
-        best.append(live_ids[dd.topk(K, largest=False).indices])
-    best = torch.cat(best)
-    hit = (lab.long()[:, :, None] == best[:, None, :]).any(-1).sum()
-    return {"phase": "results", "finite": True, "labels_live": True,
+    check(torch.equal(x.float(), wl["cur"][lab.long()]),
+          "stored vectors are not the current payloads")
+    return {"phase": "raw.results", "finite": True, "labels_live": True,
             "dists_match_stored": True,
-            "recall_at_10_vs_exact": float(hit) / (N_QUERIES * K)}
+            "recall_at_10_vs_exact": recall(torch, lab,
+                                            wl["oracle"]["unfiltered"])}
 
 
-RECLAIM_PLANES = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
-                  "free_stack", "free_top", "tables", "table_len",
-                  "table_pos")
+def phase_pq_main(torch, wl: dict, out: dict) -> list[dict]:
+    """Drive the PQ sivf_torch.Index(device="cuda"): train, then the same
+    traffic as the raw path."""
+    import sivf_torch
+    from repro_torch.core import pq
+    from repro_torch.kernels.sivf_scan.ref import adc_in_order
+    cfg = sivf_torch.SIVFConfig(
+        **CFG, pq=sivf_torch.PQConfig(m=PQ_M, nbits=PQ_NBITS))
+    index = sivf_torch.Index(cfg, wl["cents"], device="cuda")
+    zero_counts()                                # counts of this path
+    gen = torch.Generator(device="cuda").manual_seed(wl["seed"])
+    _, train_ms = timed(lambda: index.train(wl["sample"], generator=gen))
+    lines = [{"phase": "pq.train", "ms": train_ms, "rows": TRAIN_ROWS,
+              "m": PQ_M, "nbits": PQ_NBITS,
+              "state_bytes": sivf_torch.memory_report(cfg)}]
+    lines += drive(torch, index, wl, "pq", out)
+    launches = read_counts()
+    check(launches["sivf_pq_fused_search"] == N_SEARCH,
+          f"PQ launches {launches['sivf_pq_fused_search']} != {N_SEARCH}")
+    check(launches["sivf_pq_fused_search[filtered]"] == len(filters_of()),
+          "filtered PQ launches "
+          f"{launches['sivf_pq_fused_search[filtered]']}")
+    check(launches["reclaim"] > 0, "reclaim kernel never launched")
+    check(launches["sivf_fused_search"] == 0
+          and launches["sivf_fused_search[filtered]"] == 0,
+          "raw kernel on the PQ path")
+    out["launches"] = launches
+    lines.append({"phase": "pq.launches", **launches})
+    # results: k finite live labels whose ADC distance, recomputed from
+    # the stored codes, is the one returned
+    res = out["result"]
+    d, lab = res.distances, res.labels
+    check(bool(torch.isfinite(d).all()) and bool((lab >= 0).all()),
+          "PQ: every query should have k finite results")
+    check(not bool(wl["removed"][lab.long()].any()),
+          "PQ: a removed id was returned")
+    st = index.state
+    check(st.data.shape[2] == 0, "PQ state keeps a payload plane")
+    codes = st.codes[st.att_slab[lab.long()].long(),
+                     st.att_slot[lab.long()].long()]           # [Q, K, m]
+    adc = pq.adc_tables(st.pq_codebooks, wl["queries"], cfg.metric)
+    again = torch.stack([adc_in_order(adc, codes[:, j:j + 1])[:, 0]
+                         for j in range(K)], 1)
+    check(bool(torch.allclose(d, again, rtol=1e-5, atol=1e-5)),
+          "PQ distances do not match the stored codes")
+    lines.append({"phase": "pq.results", "finite": True,
+                  "labels_live": True, "dists_match_codes": True,
+                  "recall_at_10_vs_exact": recall(
+                      torch, lab, wl["oracle"]["unfiltered"])})
+    out.update(index=index, cfg=cfg)
+    return lines
 
 
-def reclaim_bytes(reclaim_ref, ops) -> int:
-    """Bytes a reclaim must move: each distinct int32 word it reads or
-    writes, once. ``ops`` are CPU planes in the kernel's argument order;
-    the plain loop is replayed one slab at a time on copies of them, and
-    the words each slab touches are read off the planes before its step."""
-    import torch
-    p = dict(zip(RECLAIM_PLANES, (t.clone() for t in ops)))
-    words = {("count", 0), ("free_top", 0)}
-    one = torch.ones((), dtype=torch.int32)
-    for i in range(int(p["count"])):
-        si = int(p["slabs"][i])
-        li, prv, nxt = int(p["owner"][si]), int(p["prv"][si]), int(p["nxt"][si])
-        pos = max(int(p["table_pos"][si]), 0)
-        last = max(int(p["table_len"][li]) - 1, 0)
-        moved = int(p["tables"][li, last])
-        words |= {("slabs", i), ("owner", si), ("prv", si), ("nxt", si),
-                  ("cursor", si), ("table_pos", si), ("table_len", li),
-                  ("tables", (li, last)), ("tables", (li, pos)),
-                  ("free_stack", int(p["free_top"]))}
-        words.add(("heads", li) if prv < 0 else ("nxt", prv))
-        if nxt >= 0:
-            words.add(("prv", nxt))
-        if moved >= 0:
-            words.add(("table_pos", moved))
-        reclaim_ref(p["slabs"][i:i + 1], one,
-                    *(p[n] for n in RECLAIM_PLANES[2:]))
-    return 4 * len(words)
+def probe_table(torch, cfg, st, queries):
+    from repro_torch.core import index as ix
+    from repro_torch.core import quantizer
+    lists = quantizer.probe(st.centroids, queries, NPROBE, cfg.metric)
+    return lists, ix.gather_tables(cfg, st, lists)        # [1024, 1024]
 
 
-def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, dict]:
-    """Kernel vs plain at the main path's shapes, with times and bounds."""
+def scan_counts(torch, cfg, st, table, passing=None) -> dict:
+    """What a scan of ``table`` needs: the distinct live probed slabs, the
+    live slots of those, the (query, live slot) pairs scored, and with a
+    predicate's ``passing`` [S, C] mask, the passing ones of each."""
+    from repro_torch.core import bitmap as bm
+    entries = table[table >= 0].long()
+    distinct = torch.unique(entries)
+    live = bm.unpack_batch(st.bitmap[distinct], cfg.capacity)   # [U, C]
+    out = {"live_table_entries": int(entries.numel()),
+           "distinct_live_slabs": int(distinct.numel()),
+           "live_slots_of_distinct_slabs": int(live.sum()),
+           "live_slots_scored": int(st.live[entries].sum())}
+    if passing is not None:
+        ok = passing & bm.unpack_batch(st.bitmap, cfg.capacity)  # [S, C]
+        per_slab = ok.sum(1)
+        out["passing_slots_of_distinct_slabs"] = int(per_slab[distinct].sum())
+        out["passing_slots_scored"] = int(per_slab[entries].sum())
+    return out
+
+
+def passing_plane(torch, st, pred):
+    """[S, C] bool: slots whose attributes pass ``pred``, and the number of
+    distinct attributes it tests."""
+    from repro_torch.core.filters import leaf_program
+    from repro_torch.kernels.sivf_scan.ref import predicate_mask
+    fs, fc = compiled(torch, pred)
+    return predicate_mask(st.attrs, fs, fc), len(set(leaf_program(fs)[1::3]))
+
+
+def row(name, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
+        hbm) -> dict:
+    """A ``kernels`` line entry: the bound is the larger of the bytes over
+    the HBM rate and the operations over fp32 peak."""
+    tb, to = bytes_ / hbm, ops / FP32_PEAK
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None}
+
+
+def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """Raw kernel vs plain at the main path's shapes, with times and
+    bounds, unfiltered and at each selectivity; then the reclaim kernel."""
     from repro_torch.core import index as ix
     from repro_torch.core import quantizer
     from repro_torch.kernels.reclaim import ops as reclaim_ops
@@ -436,63 +758,97 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, dict]:
     from repro_torch.kernels.reclaim.ref import reclaim_ref
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
-    index, queries, cfg = main["index"], main["queries"], main["cfg"]
+    index, cfg = main["index"], main["cfg"]
+    queries = main["queries"]
     st = index.state
-    lists = quantizer.probe(st.centroids, queries, NPROBE, cfg.metric)
-    table = ix.gather_tables(cfg, st, lists)             # [1024, 1024]
+    lists, table = probe_table(torch, cfg, st, queries)
     args = (queries, table, st.data, st.ids, st.norms, st.bitmap, K)
-    sub = (queries[:64], table[:64].contiguous()) + args[2:]
+    sub = (queries[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
+        + args[2:]
     dk, lk = sivf_fused_search_cuda(*sub)
     torch.cuda.synchronize()
     dp, lp = sivf_fused_search_ref(*sub)
-    err, groups = compare_topk(dk, lk, dp, lp)
+    err = check_equal("fused full size", dk, lk, dp, lp)
     # times at the main path's shape (Q=1024, T=1024), and the search's
     # other steps on the same inputs
-    ms = cuda_ms(lambda: sivf_fused_search_cuda(*args), reps=10)
+    ms = cuda_median_ms(lambda: sivf_fused_search_cuda(*args), reps=20)
+    # also the mean over 10 back-to-back launches, the method of the
+    # script's earlier versions, so their readings compare like with like
+    ms_b2b = cuda_ms(lambda: sivf_fused_search_cuda(*args), reps=10)
     probe_ms = cuda_ms(lambda: quantizer.probe(st.centroids, queries, NPROBE,
                                                cfg.metric), reps=10)
     gather_ms = cuda_ms(lambda: ix.gather_tables(cfg, st, lists), reps=10)
-    plain_ms = cuda_ms(lambda: sivf_fused_search_ref(*args), reps=1)
+    plain_ms = cuda_ms(lambda: sivf_fused_search_ref(*args), reps=1,
+                       warm=False)
     # bound: bytes this table needs, each input read once, outputs once.
     # Of a probed slab the function needs its bitmap words, and the row,
     # id and norm of each live slot only; whole-slab and per-entry figures
     # are reported beside it.
     c, d, w = cfg.capacity, cfg.dim, cfg.words
-    live_entries = table[table >= 0].long()
+    n = scan_counts(torch, cfg, st, table)
     slab_bytes = c * d * 4 + c * 8 + w * 4
-    distinct_slabs = torch.unique(live_entries)
-    distinct = int(distinct_slabs.numel())
-    live_of_distinct = int(st.live[distinct_slabs].sum())
     io = N_QUERIES * d * 4 + table.numel() * 4 + N_QUERIES * K * 8
-    bytes_once = live_of_distinct * (d * 4 + 8) + distinct * w * 4 + io
-    live_slots = int(st.live[live_entries].sum())
-    flops = 2 * live_slots * d
-    bound_ms = max(bytes_once / hbm, flops / FP32_PEAK) * 1e3
-    whole_slab_ms = (distinct * slab_bytes + io) / hbm * 1e3
-    per_entry_ms = (live_entries.numel() * slab_bytes + io) / hbm * 1e3
-    fused_row = {"name": "sivf_fused_search", "route": "cuda",
-                 "source": "src/repro_torch/csrc/sivf_fused_search.cu",
-                 "replaces": "src/repro/kernels/sivf_scan/fused.py:158",
-                 "launches": main["launches"]["sivf_fused_search"],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms,
-                 "bound_by": "bytes" if bytes_once / hbm >= flops / FP32_PEAK
-                 else "operations", "library_ms": None}
-    lines = [{"phase": "fused_full_size", "queries_checked": 64,
-              "max_abs_err": err, "near_tie_groups": groups,
+    bytes_once = n["live_slots_of_distinct_slabs"] * (d * 4 + 8) \
+        + n["distinct_live_slabs"] * w * 4 + io
+    flops = 2 * n["live_slots_scored"] * d
+    src = "src/repro_torch/csrc/sivf_fused_search.cu"
+    rep = "src/repro/kernels/sivf_scan/fused.py:158"
+    rows = [row("sivf_fused_search", src, rep,
+                main["launches"]["sivf_fused_search"], err, ms, plain_ms,
+                bytes_once, flops, hbm)]
+    lines = [{"phase": "fused_full_size", "queries_checked": CHECK_QUERIES,
+              "max_abs_err": err,
+              "launches": main["launches"]["sivf_fused_search"],
               "shape": {"Q": N_QUERIES, "T": int(table.shape[1]), "C": c,
-                        "D": d, "k": K},
-              "live_table_entries": int(live_entries.numel()),
-              "distinct_live_slabs": distinct,
-              "live_slots_of_distinct_slabs": live_of_distinct,
-              "live_slots_scored": live_slots, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_ms_whole_slab_once": whole_slab_ms,
-              "bound_ms_whole_slab_each_entry": per_entry_ms,
-              "pct_of_bound": bound_ms / ms * 100,
+                        "D": d, "k": K}, **n, "ms": ms,
+              "ms_mean_back_to_back": ms_b2b,
+              "plain_ms": plain_ms, "bound_ms": rows[0]["bound_ms"],
+              "bound_ms_whole_slab_once": (n["distinct_live_slabs"]
+                                           * slab_bytes + io) / hbm * 1e3,
+              "bound_ms_whole_slab_each_entry": (
+                  n["live_table_entries"] * slab_bytes + io) / hbm * 1e3,
+              "pct_of_bound": rows[0]["bound_ms"] / ms * 100,
               "search_steps_ms": {"probe": probe_ms,
                                   "gather_tables": gather_ms,
                                   "sivf_fused_search": ms}}]
+
+    # the filtered kernel at each selectivity, on the same table
+    by_sel = {}
+    for name, pred in filters_of().items():
+        fs, fc = compiled(torch, pred)
+        kw = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
+        dk, lk = sivf_fused_search_cuda(*sub, **kw)
+        torch.cuda.synchronize()
+        dp, lp = sivf_fused_search_ref(*sub, **kw)
+        ferr = check_equal(f"fused[{name}] full size", dk, lk, dp, lp)
+        check(torch.equal(lk, main["filtered"][name].labels[:CHECK_QUERIES]),
+              f"fused[{name}]: Index.search labels differ from the plain "
+              "version's")
+        fms = cuda_median_ms(lambda: sivf_fused_search_cuda(*args, **kw),
+                             reps=20)
+        passing, n_tested = passing_plane(torch, st, pred)
+        fn = scan_counts(torch, cfg, st, table, passing)
+        fbytes = n["distinct_live_slabs"] * w * 4 \
+            + n["live_slots_of_distinct_slabs"] * 4 * n_tested \
+            + fn["passing_slots_of_distinct_slabs"] * (d * 4 + 8) + io
+        fflops = 2 * fn["passing_slots_scored"] * d
+        entry = row("sivf_fused_search[filtered]", src, rep,
+                    main["launches"]["sivf_fused_search[filtered]"], ferr,
+                    fms, None, fbytes, fflops, hbm)
+        if name == REPRESENTATIVE:
+            entry["plain_ms"] = cuda_ms(
+                lambda: sivf_fused_search_ref(*args, **kw), reps=1,
+                warm=False)
+            rows.append(entry)
+        by_sel[name] = {"ms": fms, "vs_unfiltered": fms / ms,
+                        "max_abs_err": ferr,
+                        "passing_slots_scored": fn["passing_slots_scored"],
+                        "bound_ms": entry["bound_ms"],
+                        "bound_by": entry["bound_by"],
+                        "plain_ms": entry["plain_ms"]}
+    lines.append({"phase": "fused_filtered_full_size",
+                  "queries_checked": CHECK_QUERIES,
+                  "unfiltered_ms": ms, "by_selectivity": by_sel})
 
     # reclaim: a 65,536-id delete that empties whole chains, captured at
     # the kernel boundary so kernel and plain loop get the same inputs
@@ -540,20 +896,144 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, dict]:
         r_err = max(r_err, int((a.long() - b.long()).abs().max()))
         check(torch.equal(a, b), f"reclaim full size: plane {name}")
     r_ms = float(np.median(times))
-    reclaim_row = {"name": "reclaim", "route": "cuda",
-                   "source": "src/repro_torch/csrc/reclaim.cu",
-                   "replaces": "src/repro/core/index.py:361 (fori_loop in "
-                               "_delete_impl; no Pallas kernel)",
-                   "launches": main["launches"]["reclaim"],
-                   "max_abs_err": r_err, "ms": r_ms, "plain_ms": plain_ms_r,
-                   "bound_ms": r_bytes / hbm * 1e3, "bound_by": "bytes",
-                   "library_ms": None}
+    rows.append(row("reclaim", "src/repro_torch/csrc/reclaim.cu",
+                    "src/repro/core/index.py:361 (fori_loop in "
+                    "_delete_impl; no Pallas kernel)",
+                    main["launches"]["reclaim"], r_err, r_ms, plain_ms_r,
+                    r_bytes, 0, hbm))
     lines.append({"phase": "reclaim_full_size", "delete_ids": REMOVE_BATCH,
                   "slabs_reclaimed": count, "distinct_bytes": r_bytes,
                   "delete_ms": del_ms,
                   "kernel_ms": r_ms, "plain_loop_cpu_ms": plain_ms_r,
                   "planes_equal": True})
-    return lines, {"kernels": [fused_row, reclaim_row]}
+    return lines, rows
+
+
+def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """PQ kernel vs plain at the PQ path's shapes on one shared ADC table,
+    with times and bounds, unfiltered and at each selectivity."""
+    from repro_torch.core import pq
+    from repro_torch.kernels.sivf_scan.pq_fused import (
+        sivf_pq_fused_search_cuda,
+    )
+    from repro_torch.kernels.sivf_scan.ref import sivf_pq_fused_search_ref
+    index, cfg, queries = main["index"], main["cfg"], main["queries"]
+    st = index.state
+    m, ksub = cfg.pq.m, cfg.pq.ksub
+    _, table = probe_table(torch, cfg, st, queries)
+    adc = pq.adc_tables(st.pq_codebooks, queries, cfg.metric).contiguous()
+    adc_ms = cuda_ms(lambda: pq.adc_tables(st.pq_codebooks, queries,
+                                           cfg.metric), reps=10)
+    args = (adc, table, st.codes, st.ids, st.bitmap, K)
+    sub = (adc[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
+        + args[2:]
+    dk, lk = sivf_pq_fused_search_cuda(*sub)
+    torch.cuda.synchronize()
+    dp, lp = sivf_pq_fused_search_ref(*sub)
+    err = check_equal("pq full size", dk, lk, dp, lp)
+    check(torch.equal(lk, main["result"].labels[:CHECK_QUERIES]),
+          "pq: Index.search labels differ from the plain version's")
+    ms = cuda_median_ms(lambda: sivf_pq_fused_search_cuda(*args), reps=20)
+    plain_ms = cuda_ms(lambda: sivf_pq_fused_search_ref(*args), reps=1,
+                       warm=False)
+    w = cfg.words
+    n = scan_counts(torch, cfg, st, table)
+    adc_bytes = adc.numel() * 4
+    io = adc_bytes + table.numel() * 4 + N_QUERIES * K * 8
+    bytes_once = n["distinct_live_slabs"] * w * 4 \
+        + n["live_slots_of_distinct_slabs"] * (m + 4) + io
+    adds = n["live_slots_scored"] * m
+    src = "src/repro_torch/csrc/sivf_pq_fused_search.cu"
+    rep = "src/repro/kernels/sivf_scan/pq_fused.py:94"
+    rows = [row("sivf_pq_fused_search", src, rep,
+                main["launches"]["sivf_pq_fused_search"], err, ms, plain_ms,
+                bytes_once, adds, hbm)]
+    lines = [{"phase": "pq_full_size", "queries_checked": CHECK_QUERIES,
+              "max_abs_err": err,
+              "launches": main["launches"]["sivf_pq_fused_search"],
+              "shape": {"Q": N_QUERIES, "T": int(table.shape[1]),
+                        "C": cfg.capacity, "m": m, "ksub": ksub, "k": K},
+              **n, "adc_table_bytes": adc_bytes, "bound_bytes": bytes_once,
+              "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": rows[0]["bound_ms"],
+              "bound_by": rows[0]["bound_by"],
+              "pct_of_bound": rows[0]["bound_ms"] / ms * 100,
+              "adc_tables_ms": adc_ms}]
+    by_sel = {}
+    for name, pred in filters_of().items():
+        fs, fc = compiled(torch, pred)
+        kw = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
+        dk, lk = sivf_pq_fused_search_cuda(*sub, **kw)
+        torch.cuda.synchronize()
+        dp, lp = sivf_pq_fused_search_ref(*sub, **kw)
+        ferr = check_equal(f"pq[{name}] full size", dk, lk, dp, lp)
+        check(torch.equal(lk, main["filtered"][name].labels[:CHECK_QUERIES]),
+              f"pq[{name}]: Index.search labels differ from the plain "
+              "version's")
+        fms = cuda_median_ms(lambda: sivf_pq_fused_search_cuda(*args, **kw),
+                             reps=20)
+        passing, n_tested = passing_plane(torch, st, pred)
+        fn = scan_counts(torch, cfg, st, table, passing)
+        fbytes = n["distinct_live_slabs"] * w * 4 \
+            + n["live_slots_of_distinct_slabs"] * 4 * n_tested \
+            + fn["passing_slots_of_distinct_slabs"] * (m + 4) + io
+        entry = row("sivf_pq_fused_search[filtered]", src, rep,
+                    main["launches"]["sivf_pq_fused_search[filtered]"], ferr,
+                    fms, None, fbytes, fn["passing_slots_scored"] * m, hbm)
+        if name == REPRESENTATIVE:
+            entry["plain_ms"] = cuda_ms(
+                lambda: sivf_pq_fused_search_ref(*args, **kw), reps=1,
+                warm=False)
+            rows.append(entry)
+        by_sel[name] = {"ms": fms, "vs_unfiltered": fms / ms,
+                        "max_abs_err": ferr,
+                        "passing_slots_scored": fn["passing_slots_scored"],
+                        "bound_ms": entry["bound_ms"],
+                        "bound_by": entry["bound_by"],
+                        "plain_ms": entry["plain_ms"]}
+    lines.append({"phase": "pq_filtered_full_size",
+                  "queries_checked": CHECK_QUERIES, "unfiltered_ms": ms,
+                  "by_selectivity": by_sel})
+    return lines, rows
+
+
+RECLAIM_PLANES = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
+                  "free_stack", "free_top", "tables", "table_len",
+                  "table_pos")
+
+
+def reclaim_bytes(reclaim_ref, ops) -> int:
+    """Bytes a reclaim must move: each distinct int32 word it reads or
+    writes, once. ``ops`` are CPU planes in the kernel's argument order;
+    the plain loop is replayed one slab at a time on copies of them, and
+    the words each slab touches are read off the planes before its step."""
+    import torch
+    p = dict(zip(RECLAIM_PLANES, (t.clone() for t in ops)))
+    words = {("count", 0), ("free_top", 0)}
+    one = torch.ones((), dtype=torch.int32)
+    for i in range(int(p["count"])):
+        si = int(p["slabs"][i])
+        li, prv, nxt = int(p["owner"][si]), int(p["prv"][si]), int(p["nxt"][si])
+        pos = max(int(p["table_pos"][si]), 0)
+        last = max(int(p["table_len"][li]) - 1, 0)
+        moved = int(p["tables"][li, last])
+        words |= {("slabs", i), ("owner", si), ("prv", si), ("nxt", si),
+                  ("cursor", si), ("table_pos", si), ("table_len", li),
+                  ("tables", (li, last)), ("tables", (li, pos)),
+                  ("free_stack", int(p["free_top"]))}
+        words.add(("heads", li) if prv < 0 else ("nxt", prv))
+        if nxt >= 0:
+            words.add(("prv", nxt))
+        if moved >= 0:
+            words.add(("table_pos", moved))
+        reclaim_ref(p["slabs"][i:i + 1], one,
+                    *(p[n] for n in RECLAIM_PLANES[2:]))
+    return 4 * len(words)
+
+
+KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
+                "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
+                "reclaim")
 
 
 def main(argv=None) -> int:
@@ -584,22 +1064,32 @@ def main(argv=None) -> int:
     res = run("kernel_checks", lambda: phase_kernel_checks(torch))
     if res:
         emit(res)
-    main_out: dict = {}
-    lines = run("main_path", lambda: phase_main(torch, args.seed, main_out))
-    for ln in lines or []:
-        emit(ln)
-    summary = None
-    if lines:
-        hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
-        got = run("full_size", lambda: phase_full_size(torch, hbm, main_out))
-        if got:
-            for ln in got[0]:
+    hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
+    rows = {}
+    got = run("workload", lambda: phase_workload(torch, args.seed))
+    if got:
+        wl, line = got
+        emit(line)
+        paths = (("main_path", phase_main, "full_size", phase_full_size),
+                 ("pq_main_path", phase_pq_main, "pq_full_size",
+                  phase_pq_full_size))
+        for name, drive_fn, full_name, full_fn in paths:
+            out = {"queries": wl["queries"]}
+            lines = run(name, lambda: drive_fn(torch, wl, out))
+            for ln in lines or []:
                 emit(ln)
-            summary = got[1]
-    if summary:
-        emit(summary)
+            if lines:
+                got = run(full_name, lambda: full_fn(torch, hbm, out))
+                if got:
+                    for ln in got[0]:
+                        emit(ln)
+                    rows.update({r["name"]: r for r in got[1]})
+            out.clear()                 # free the path's index
+            torch.cuda.empty_cache()
+    if rows:
+        emit({"kernels": [rows[n] for n in KERNEL_ORDER if n in rows]})
     print(smi(), flush=True)
-    if failed:
+    if failed or set(rows) != set(KERNEL_ORDER):
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",

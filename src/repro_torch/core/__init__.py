@@ -13,11 +13,20 @@ from repro_torch.core.index import (  # noqa: F401
     gather_tables,
     insert,
     scan_slabs_topk,
+    scan_slabs_topk_pq,
     search,
     stats,
     walk_chains,
 )
-from repro_torch.core.pq import PQConfig  # noqa: F401
+from repro_torch.core.filters import (  # noqa: F401
+    And,
+    CompiledFilter,
+    Eq,
+    In,
+    Range,
+    compile_filter,
+)
+from repro_torch.core.pq import PQConfig, train_pq  # noqa: F401
 from repro_torch.core.quantizer import assign, probe, train_kmeans  # noqa: F401
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,

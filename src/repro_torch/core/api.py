@@ -18,10 +18,16 @@ does, which keeps the shapes its kernels see few), turns the sticky
 ``state.error`` bits into per-batch :class:`MutationReport`s, and resolves
 deferred reports in **one** device->host copy per queue.
 
-What the reference's handle does and this slice does not: mesh backends,
-PQ training, maintenance, persistence, resharding, tiered prefetch,
-filters and telemetry raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them. The reference's ``impl`` / ``block_q`` (TPU kernel
+With ``SIVFConfig(pq=PQConfig(...))`` the handle trains PQ codebooks
+(:meth:`Index.train`, or ``pq_codebooks=`` at construction), ingest
+encodes batches to uint8 codes and search scores them by ADC. With
+``SIVFConfig(attributes=...)`` every ``add`` stamps each row's attributes
+and ``search(filter=...)`` masks failing rows inside the scan.
+
+What the reference's handle does and this port does not yet: mesh
+backends, maintenance, persistence, resharding, tiered prefetch and
+telemetry raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them. The reference's ``impl`` / ``block_q`` (TPU kernel
 and tiling choices) have no counterpart: the tensor's device picks the
 scan path.
 """
@@ -35,13 +41,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import filters as flt
 from repro_torch.core import index as ix
+from repro_torch.core import pq as pqmod
 from repro_torch.core.state import (
     ERR_CHAIN_OVERFLOW,
     ERR_ID_RANGE,
     ERR_POOL_EXHAUSTED,
-    ROADMAP_FILTER,
-    ROADMAP_PQ,
     ROADMAP_TIERED,
     SIVFConfig,
     SlabPoolState,
@@ -261,9 +267,9 @@ class _SingleOps:
         return pb, aux
 
     def insert(self, state: SlabPoolState, vecs: torch.Tensor,
-               ids: torch.Tensor):
+               ids: torch.Tensor, attrs: torch.Tensor | None = None):
         pb, aux = self._pre(state, ids)
-        st = ix.insert(self.cfg, _clear_error(state), vecs, ids)
+        st = ix.insert(self.cfg, _clear_error(state), vecs, ids, attrs=attrs)
         aux["errors"] = _or_bits(st.error)
         aux["n_live_after"] = st.n_live.clone()
         # overwritten == present-before AND the batch committed; on an
@@ -282,9 +288,11 @@ class _SingleOps:
         return _clear_error(st), aux
 
     def search(self, state: SlabPoolState, queries: torch.Tensor, k: int,
-               nprobe: int):
+               nprobe: int, fstruct: tuple | None = None,
+               fconsts: torch.Tensor | None = None):
         return ix.search(self.cfg, state, queries, k, nprobe,
-                         use_tables=self.use_tables)
+                         use_tables=self.use_tables, fstruct=fstruct,
+                         fconsts=fconsts)
 
 
 def _not_ported(what: str, item: str):
@@ -313,6 +321,9 @@ class Index:
                 ``max(min_bucket, next_pow2(B))``.
     deferred:   ``add`` / ``remove`` return :class:`PendingReport` futures
                 resolved by :meth:`flush` (or a clean context exit).
+    pq_codebooks: pre-trained ``[m, ksub, dim//m]`` PQ codebooks (only with
+                ``cfg.pq``), for instance the reference's, carried across;
+                otherwise call :meth:`train` before the first ``add``.
 
     Mutations update the state's planes in place (the reference donated
     them to ``jit``); :attr:`state` always names the current planes.
@@ -321,11 +332,13 @@ class Index:
     def __init__(self, cfg: SIVFConfig, centroids, backend="single", *,
                  device="cuda", use_tables: bool | None = None,
                  strict: bool = False, min_bucket: int = 64,
-                 deferred: bool = False):
+                 deferred: bool = False, pq_codebooks=None):
         if not (isinstance(backend, str) and backend == "single"):
             raise _not_ported(f"backend={backend!r}", ROADMAP_DIST)
         if min_bucket < 1:
             raise ValueError("min_bucket must be >= 1")
+        if pq_codebooks is not None and cfg.pq is None:
+            raise ValueError("pq_codebooks given but cfg.pq is None")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strict = bool(strict)
@@ -335,7 +348,9 @@ class Index:
                                   bool | None]] = []
         self._epoch = 0
         self._ops = _SingleOps(cfg, use_tables)
-        self._state = init_state(cfg, centroids, device=self.device)
+        self._state = init_state(cfg, centroids, pq_codebooks,
+                                 device=self.device)
+        self._pq_trained = cfg.pq is None or pq_codebooks is not None
 
     # -- introspection ------------------------------------------------------
 
@@ -426,10 +441,71 @@ class Index:
             x = np.asarray(x, np_dtype)
         return x.reshape(-1) if flat else x
 
-    # -- not ported in this slice -------------------------------------------
+    def _pad_attrs(self, attrs, bucket: int) -> torch.Tensor:
+        # padding rows carry zeros; their ids are -1 so they never commit
+        if isinstance(attrs, torch.Tensor):
+            attrs = attrs.to(self.device, torch.int32)
+            return attrs if attrs.shape[0] == bucket else F.pad(
+                attrs, (0, 0, 0, bucket - attrs.shape[0]))
+        out = np.zeros((bucket, self.cfg.n_attrs), np.int32)
+        out[: len(attrs)] = attrs
+        return torch.from_numpy(out).to(self.device)
 
-    def train(self, *_, **__):
-        raise _not_ported("Index.train (PQ codebooks)", ROADMAP_PQ)
+    def _normalize_attrs(self, attrs, n: int):
+        """``add``'s ``attrs=`` -> ``[n, n_attrs]`` int32: a tensor of that
+        shape stays where it is, anything else goes through
+        ``filters.normalize_attrs``."""
+        if attrs is None:
+            raise ValueError(
+                f"index has attributes {self.cfg.attributes}: add() "
+                f"requires attrs= for every row (dict of per-attribute "
+                f"values or a [B, {self.cfg.n_attrs}] int array)")
+        if isinstance(attrs, torch.Tensor):
+            if tuple(attrs.shape) != (n, self.cfg.n_attrs):
+                raise ValueError(
+                    f"attrs shape {tuple(attrs.shape)} != "
+                    f"{(n, self.cfg.n_attrs)} (attributes "
+                    f"{list(self.cfg.attributes)})")
+            return attrs
+        return flt.normalize_attrs(self.cfg.attributes, attrs, n)
+
+    # -- PQ training --------------------------------------------------------
+
+    def train(self, xs, *, generator: torch.Generator | None = None,
+              iters: int = 16) -> "Index":
+        """Train the PQ codebooks from a sample (``cfg.pq`` required).
+
+        Runs per-subspace k-means (``core.pq.train_pq``) on the handle's
+        device and installs the codebooks into the state. Must happen on
+        an *empty* index (stored codes would go stale under new codebooks)
+        and before the first ``add``; alternatively pass ``pq_codebooks=``
+        at construction. ``generator`` draws the initial codewords
+        (default: a CPU generator seeded 0). Returns ``self``.
+        """
+        if self.cfg.pq is None:
+            raise RuntimeError("train() needs SIVFConfig(pq=PQConfig(...))")
+        if self.n_live:
+            raise RuntimeError(
+                "train() on a non-empty index: stored codes would go stale "
+                "under new codebooks — train before the first add()")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        xs = xs if isinstance(xs, torch.Tensor) \
+            else torch.from_numpy(np.asarray(xs, np.float32))
+        cb = pqmod.train_pq(xs.to(self.device, torch.float32),
+                            self.cfg.pq.m, self.cfg.pq.nbits, iters=iters,
+                            generator=generator)
+        self._state = dataclasses.replace(self._state, pq_codebooks=cb)
+        self._pq_trained = True
+        return self
+
+    def _require_trained(self) -> None:
+        if not self._pq_trained:
+            raise RuntimeError(
+                "PQ codebooks are untrained: call Index.train(sample) or "
+                "construct with pq_codebooks= before adding vectors")
+
+    # -- not ported yet -----------------------------------------------------
 
     def maintain(self, *_, **__):
         raise _not_ported("Index.maintain", ROADMAP_MAINT)
@@ -457,9 +533,13 @@ class Index:
         within-batch duplicates keep the last row. A batch that hits
         ``POOL_EXHAUSTED`` / ``CHAIN_OVERFLOW`` is atomic: it inserts
         nothing and every previously-live id keeps its old payload.
+
+        With ``SIVFConfig(attributes=...)``, ``attrs`` is **required**: a
+        ``{name: value_or_column}`` dict or a ``[B, n_attrs]`` int array
+        (or tensor) in config order, covering every configured attribute.
+        Without configured attributes, passing ``attrs`` raises.
         """
-        if attrs is not None:
-            raise _not_ported("Index.add(attrs=...)", ROADMAP_FILTER)
+        self._require_trained()
         vecs = self._as_batch(vecs, np.float32)
         ids_a = self._as_batch(ids, np.int32, flat=True)
         if vecs.ndim != 2 or vecs.shape[0] != ids_a.shape[0]:
@@ -468,10 +548,16 @@ class Index:
                 "mismatch")
         if vecs.shape[1] != self.cfg.dim:
             raise ValueError(f"dim {vecs.shape[1]} != cfg.dim {self.cfg.dim}")
+        if self.cfg.n_attrs:
+            attrs = self._normalize_attrs(attrs, int(ids_a.shape[0]))
+        elif attrs is not None:
+            raise ValueError(
+                "attrs= given but SIVFConfig(attributes=...) is empty")
         bucket = self._bucket(ids_a.shape[0])
         self._state, aux = self._ops.insert(
             self._state, self._pad_rows(vecs, bucket),
-            self._pad_ids(ids_a, bucket))
+            self._pad_ids(ids_a, bucket),
+            self._pad_attrs(attrs, bucket) if self.cfg.n_attrs else None)
         return self._emit("add", aux, bucket, strict)
 
     def remove(self, ids, *, strict: bool | None = None
@@ -560,20 +646,35 @@ class Index:
 
     def search(self, queries, k: int, nprobe: int | None = None, *,
                filter=None) -> SearchResult:
-        """Top-k search; ``nprobe=None`` probes every list (exact recall)."""
-        if filter is not None:
-            raise _not_ported("Index.search(filter=...)", ROADMAP_FILTER)
+        """Top-k search; ``nprobe=None`` probes every list (exact recall).
+
+        ``filter`` is a ``core.filters`` predicate (``Eq`` / ``In`` /
+        ``Range`` / ``And``) over the configured attributes, or an already
+        compiled ``CompiledFilter``. Only rows that match it can appear in
+        the result: failing slots mask to ``inf`` / ``-1`` inside the
+        scan, before the top-k, so they never displace passing rows.
+        """
         queries = self._as_batch(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
         if queries.shape[1] != self.cfg.dim:
             raise ValueError(
                 f"dim {queries.shape[1]} != cfg.dim {self.cfg.dim}")
+        fstruct = fconsts = None
+        if filter is not None:
+            if not self.cfg.n_attrs:
+                raise ValueError(
+                    "filtered search needs SIVFConfig(attributes=...)")
+            cf = filter if isinstance(filter, flt.CompiledFilter) \
+                else flt.compile_filter(filter, self.cfg.attributes)
+            fstruct = cf.structure
+            fconsts = torch.tensor(cf.consts, dtype=torch.int32,
+                                   device=self.device)
         nprobe = self.cfg.n_lists if nprobe is None \
             else min(int(nprobe), self.cfg.n_lists)
         q = queries.shape[0]
         bucket = self._bucket(q)
         d, lab = self._ops.search(self._state, self._pad_rows(queries, bucket),
-                                  int(k), nprobe)
+                                  int(k), nprobe, fstruct, fconsts)
         return SearchResult(distances=d[:q], labels=lab[:q], k=int(k),
                             nprobe=nprobe, padded_to=bucket)

@@ -6,7 +6,11 @@ prefix sums give every row of an insert batch a conflict-free
 (slab, slot); a delete clears validity bits and reclaims slabs that
 dropped to zero occupancy; a search probes the coarse quantizer, turns the
 probed lists into a slab table and streams it through the fused
-scan->top-k (``kernels/sivf_scan``).
+scan->top-k (``kernels/sivf_scan``). With ``cfg.pq`` set, inserts encode
+each batch to uint8 codes once and searches score the codes by ADC
+against one table per query batch; with ``cfg.attributes`` set, inserts
+stamp each row's attributes and a compiled predicate masks slots inside
+the scan, before the top-k fold.
 
 The kernels are imported where they are called, as in the reference,
 since they import ``core.bitmap`` themselves.
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.core import pq as pqmod
 from repro_torch.core import quantizer
 from repro_torch.core.state import (
     ERR_CHAIN_OVERFLOW,
@@ -88,8 +93,9 @@ def _dedupe_keep_last(ext_ids: torch.Tensor, valid: torch.Tensor
 
 
 def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
-                 ext_ids: torch.Tensor, lists: torch.Tensor
-                 ) -> SlabPoolState:
+                 ext_ids: torch.Tensor, lists: torch.Tensor,
+                 codes: torch.Tensor | None = None,
+                 attrs: torch.Tensor | None = None) -> SlabPoolState:
     """All-or-nothing batched insert (reference ``_insert_impl``).
 
     The overwrite-deletes run on clones of the delete planes (``staged``)
@@ -99,6 +105,11 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     ``CHAIN_OVERFLOW``) returns ``state`` untouched except for its error
     bits; a committed batch writes its payloads into the shared payload
     planes in place and returns ``staged``.
+
+    With ``cfg.pq``, ``codes`` [B, m] may carry pre-encoded codewords;
+    omitted, the batch's rows are encoded once. With ``cfg.attributes``,
+    ``attrs`` [B, n_attrs] stamps each row (zeros when omitted). Both ride
+    the batch's sort and its commit; an aborted batch writes neither.
     """
     b = vecs.shape[0]
     c = cfg.capacity
@@ -151,6 +162,13 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     sl, rank = sl[:n_valid].long(), rank[:n_valid]
     rows = order[:n_valid]
     sv, sids = vecs[rows], ext_ids[rows]
+    if cfg.pq is not None:
+        new_codes = pqmod.encode(staged.pq_codebooks, sv) if codes is None \
+            else codes[rows].to(torch.uint8)
+    if cfg.n_attrs:
+        sattrs = torch.zeros((n_valid, cfg.n_attrs), dtype=_I32,
+                             device=dev) if attrs is None \
+            else attrs[rows].to(_I32)
     h_item = heads[sl]
     space_item = space_l[sl]
     in_head = (rank < space_item) & (h_item >= 0)
@@ -202,7 +220,12 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
         staged.free_top -= n_new
 
     # -- payload writes + publication (distinct bits per word: add == OR) --
-    staged.data[item_slab, item_slot] = sv[:, :cfg.payload_dim].to(cfg.dtype)
+    if cfg.payload_dim:
+        staged.data[item_slab, item_slot] = sv.to(cfg.dtype)
+    if cfg.pq is not None:
+        staged.codes[item_slab, item_slot] = new_codes
+    if cfg.n_attrs:
+        staged.attrs[item_slab, item_slot] = sattrs
     staged.ids[item_slab, item_slot] = sids
     staged.norms[item_slab, item_slot] = torch.sum(
         sv.to(torch.float32) ** 2, dim=-1)
@@ -219,17 +242,21 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
 
 
 def insert(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
-           ext_ids: torch.Tensor, lists: torch.Tensor | None = None
-           ) -> SlabPoolState:
+           ext_ids: torch.Tensor, lists: torch.Tensor | None = None,
+           codes: torch.Tensor | None = None,
+           attrs: torch.Tensor | None = None) -> SlabPoolState:
     """Batched ingest. ``vecs`` [B, D], ``ext_ids`` [B] (-1 rows = padding).
 
     ``lists`` may pre-route vectors; otherwise the coarse quantizer
-    assigns. Updates ``state`` in place; use the returned state.
+    assigns. With ``cfg.pq``, ``codes`` may carry pre-encoded codewords;
+    otherwise the batch encodes on ingest. With ``cfg.attributes``,
+    ``attrs`` [B, n_attrs] stamps filter attributes (zeros when omitted).
+    Updates ``state`` in place; use the returned state.
     """
     vecs = vecs.to(cfg.dtype)
     if lists is None:
         lists = quantizer.assign(state.centroids, vecs, cfg.metric)
-    return _insert_impl(cfg, state, vecs, ext_ids, lists)
+    return _insert_impl(cfg, state, vecs, ext_ids, lists, codes, attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -320,47 +347,88 @@ def gather_tables(cfg: SIVFConfig, state: SlabPoolState, lists: torch.Tensor
 
 
 def scan_slabs_topk(cfg: SIVFConfig, state: SlabPoolState,
-                    queries: torch.Tensor, table: torch.Tensor, k: int
+                    queries: torch.Tensor, table: torch.Tensor, k: int,
+                    fstruct: tuple | None = None,
+                    fconsts: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Validity-masked distance scan + streaming top-k, plain PyTorch.
 
     The reference's column-by-column scan (``repro/core/index.py:468``);
     it runs on any device and is what the fused kernel is held against.
+    ``fstruct``/``fconsts`` (a compiled predicate, ``core/filters.py``)
+    mask failing slots like deleted ones, before the fold.
     """
     from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
     return sivf_fused_search_ref(
         queries.to(torch.float32), table, state.data, state.ids, state.norms,
-        state.bitmap, k, metric=cfg.metric)
+        state.bitmap, k, metric=cfg.metric, attrs=state.attrs,
+        fstruct=fstruct, fconsts=fconsts)
+
+
+def scan_slabs_topk_pq(cfg: SIVFConfig, state: SlabPoolState,
+                       queries: torch.Tensor, table: torch.Tensor, k: int,
+                       adc: torch.Tensor | None = None,
+                       fstruct: tuple | None = None,
+                       fconsts: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ADC scan + streaming top-k over PQ codes, plain PyTorch
+    (``repro/core/index.py:516``).
+
+    A slot's distance is the sum of its ``m`` lookups in its query's ADC
+    table, in ascending subspace order; fed the same ``adc`` tensor, the
+    PQ kernel and the reference's scan agree with it bit for bit. The
+    table is built here when ``adc`` is omitted.
+    """
+    from repro_torch.kernels.sivf_scan.ref import sivf_pq_fused_search_ref
+    if adc is None:
+        adc = pqmod.adc_tables(state.pq_codebooks, queries, cfg.metric)
+    return sivf_pq_fused_search_ref(
+        adc, table, state.codes, state.ids, state.bitmap, k,
+        attrs=state.attrs, fstruct=fstruct, fconsts=fconsts)
 
 
 def _scan_dispatch(cfg: SIVFConfig, state: SlabPoolState,
-                   queries: torch.Tensor, table: torch.Tensor, k: int
+                   queries: torch.Tensor, table: torch.Tensor, k: int,
+                   fstruct: tuple | None = None,
+                   fconsts: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Route a slab table through the fused scan->top-k for its device.
 
-    A CPU state takes the plain version; a CUDA state launches the
-    hand-written kernel (``kernels/sivf_scan/fused.py``) or raises. This
-    replaces the reference's ``impl="xla" | "pallas"`` switch.
+    A CPU state takes the plain versions; a CUDA state launches the
+    hand-written kernels (``kernels/sivf_scan/fused.py``,
+    ``kernels/sivf_scan/pq_fused.py``) or raises. This replaces the
+    reference's ``impl="xla" | "pallas"`` switch. With ``cfg.pq`` the ADC
+    table is built once per query batch and that one table scores.
     """
-    from repro_torch.kernels.sivf_scan.ops import sivf_fused_search
-    return sivf_fused_search(
+    if fstruct is not None and cfg.n_attrs == 0:
+        raise ValueError("filtered search needs SIVFConfig(attributes=...)")
+    from repro_torch.kernels.sivf_scan import ops
+    filt = dict(attrs=state.attrs, fstruct=fstruct, fconsts=fconsts)
+    if cfg.pq is not None:
+        adc = pqmod.adc_tables(state.pq_codebooks, queries, cfg.metric)
+        return ops.sivf_pq_fused_search(adc, table, state.codes, state.ids,
+                                        state.bitmap, k, **filt)
+    return ops.sivf_fused_search(
         queries.to(torch.float32), table, state.data, state.ids, state.norms,
-        state.bitmap, k, metric=cfg.metric)
+        state.bitmap, k, metric=cfg.metric, **filt)
 
 
 def search(cfg: SIVFConfig, state: SlabPoolState, queries: torch.Tensor,
-           k: int, nprobe: int, use_tables: bool | None = None
+           k: int, nprobe: int, use_tables: bool | None = None,
+           fstruct: tuple | None = None, fconsts: torch.Tensor | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k search. queries [Q, D] -> (distances [Q, k], labels [Q, k]).
 
     ``use_tables`` selects the dense-table slab lookup (default from the
     config) or the pointer walk; both feed the same fused scan->top-k.
+    ``fstruct``/``fconsts`` come from ``filters.compile_filter`` (the
+    constants as an int32 tensor on the state's device).
     """
     ut = cfg.track_tables if use_tables is None else use_tables
     queries = queries.to(cfg.dtype)
     lists = quantizer.probe(state.centroids, queries, nprobe, cfg.metric)
     table = (gather_tables if ut else walk_chains)(cfg, state, lists)
-    return _scan_dispatch(cfg, state, queries, table, k)
+    return _scan_dispatch(cfg, state, queries, table, k, fstruct, fconsts)
 
 
 # ---------------------------------------------------------------------------
@@ -370,9 +438,11 @@ def search(cfg: SIVFConfig, state: SlabPoolState, queries: torch.Tensor,
 def _memory_stats(cfg: SIVFConfig) -> dict:
     """Pool memory footprint (one source of truth: ``memory_report``)."""
     mr = memory_report(cfg)
-    return {k: mr[k] for k in ("payload_bytes", "code_bytes", "attr_bytes",
-                               "host_bytes", "device_bytes",
-                               "device_cache_bytes")}
+    keys = ("payload_bytes", "code_bytes", "attr_bytes", "host_bytes",
+            "device_bytes", "device_cache_bytes")
+    if cfg.pq is not None:
+        keys += ("compression_ratio",)
+    return {k: mr[k] for k in keys}
 
 
 def stats(cfg: SIVFConfig, state: SlabPoolState) -> dict:

@@ -4,7 +4,10 @@
 The state is a dataclass of preallocated dense tensors on one device: the
 same 23 planes, in the same order and with the same dtypes as the
 reference, except that the validity bitmap is stored as ``int32`` words
-with the reference's uint32 bits (``core/bitmap.py``). The mutation
+with the reference's uint32 bits (``core/bitmap.py``). With ``cfg.pq``
+the uint8 ``codes`` plane holds each slot's PQ codewords (and ``data`` is
+zero-width unless ``store_raw``); with ``cfg.attributes`` the int32
+``attrs`` plane holds each slot's filter attributes. The mutation
 functions of ``core/index.py`` update these planes in place where the
 reference donated its buffers to ``jit``.
 
@@ -21,9 +24,7 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core.pq import PQConfig
 from repro_torch.utils import resolve_device
 
-# ROADMAP queue 1 items that will lift each NotImplementedError below
-ROADMAP_PQ = "ROADMAP.md queue 1 item 5 (PQ slice)"
-ROADMAP_FILTER = "ROADMAP.md queue 1 item 6 (filter slice)"
+# ROADMAP queue 1 item that will lift the NotImplementedError below
 ROADMAP_TIERED = "ROADMAP.md queue 1 item 8 (core/tiered.py)"
 
 
@@ -31,9 +32,9 @@ ROADMAP_TIERED = "ROADMAP.md queue 1 item 8 (core/tiered.py)"
 class SIVFConfig:
     """Static configuration; field names and defaults mirror the reference.
 
-    ``pq``, ``attributes`` and ``device_slabs`` are part of the schema so a
-    reference config round-trips (``interop.config_from_dict``), but this
-    slice raises ``NotImplementedError`` for any non-default value.
+    ``device_slabs`` (the tiered pool) is part of the schema so a
+    reference config round-trips (``interop.config_from_dict``), but it
+    raises ``NotImplementedError`` for any value but ``None``.
     """
 
     dim: int                       # vector dimensionality D
@@ -45,8 +46,8 @@ class SIVFConfig:
     max_chain: int = 64            # slabs walked per list (Alg. 3 bound)
     track_tables: bool = True      # dense list->slab tables
     dtype: torch.dtype = torch.float32
-    pq: PQConfig | None = None
-    attributes: tuple[str, ...] = ()
+    pq: PQConfig | None = None     # product-quantized payloads (core/pq.py)
+    attributes: tuple[str, ...] = ()  # named int32 filter attributes
     device_slabs: int | None = None
 
     def __post_init__(self):
@@ -55,15 +56,18 @@ class SIVFConfig:
             raise ValueError(f"unknown metric {self.metric}")
         if self.dtype != torch.float32:
             raise ValueError(f"dtype must be torch.float32, got {self.dtype}")
-        if self.pq is not None:
-            raise NotImplementedError(f"SIVFConfig(pq=...): {ROADMAP_PQ}")
-        if tuple(self.attributes):
-            raise NotImplementedError(
-                f"SIVFConfig(attributes=...): {ROADMAP_FILTER}")
         if self.device_slabs is not None:
             raise NotImplementedError(
                 f"SIVFConfig(device_slabs=...): {ROADMAP_TIERED}")
-        object.__setattr__(self, "attributes", tuple(self.attributes))
+        if self.pq is not None and self.dim % self.pq.m:
+            raise ValueError(
+                f"dim {self.dim} not divisible by pq.m {self.pq.m}")
+        attrs = tuple(self.attributes)
+        if len(set(attrs)) != len(attrs) or any(
+                not (a and isinstance(a, str)) for a in attrs):
+            raise ValueError(
+                f"attributes must be unique non-empty names, got {attrs}")
+        object.__setattr__(self, "attributes", attrs)
 
     @property
     def words(self) -> int:
@@ -75,18 +79,26 @@ class SIVFConfig:
 
     @property
     def payload_dim(self) -> int:
-        """Width of the fp32 ``data`` plane (PQ-only pools come later)."""
-        return self.dim
+        """Width of the fp32 ``data`` plane: 0 when PQ codes replace it."""
+        return 0 if (self.pq is not None and not self.pq.store_raw) \
+            else self.dim
 
     @property
     def code_m(self) -> int:
-        """Width of the uint8 ``codes`` plane (0: PQ is not ported yet)."""
-        return 0
+        """Width of the uint8 ``codes`` plane (0 when PQ is disabled)."""
+        return self.pq.m if self.pq is not None else 0
 
     @property
     def n_attrs(self) -> int:
-        """Width of the int32 ``attrs`` plane (0: filters not ported yet)."""
-        return 0
+        """Width of the int32 ``attrs`` plane (0 when filtering is off)."""
+        return len(self.attributes)
+
+    @property
+    def codebook_shape(self) -> tuple[int, int, int]:
+        """Shape of the ``pq_codebooks`` plane: ``[m, ksub, dim // m]``."""
+        if self.pq is None:
+            return (0, 0, 0)
+        return (self.pq.m, self.pq.ksub, self.dim // self.pq.m)
 
     @property
     def payload_slabs(self) -> int:
@@ -110,7 +122,7 @@ class SlabPoolState:
     (``PLANES``); see ``repro/core/state.py`` for each plane's meaning.
     """
 
-    data: torch.Tensor        # [n_slabs, C, D] f32 payloads
+    data: torch.Tensor        # [n_slabs, C, payload_dim] f32 payloads
     ids: torch.Tensor         # [n_slabs, C] int32 external ids
     norms: torch.Tensor       # [n_slabs, C] f32 cached ||x||^2
     bitmap: torch.Tensor      # [n_slabs, W] int32 validity words
@@ -130,9 +142,9 @@ class SlabPoolState:
     tables: torch.Tensor      # [n_lists, max_chain] int32 slab ids (-1 pad)
     table_len: torch.Tensor   # [n_lists] int32 chain length
     table_pos: torch.Tensor   # [n_slabs] int32 position in its table
-    codes: torch.Tensor       # [n_slabs, C, 0] uint8 (PQ slice)
-    pq_codebooks: torch.Tensor  # [0, 0, 0] f32 (PQ slice)
-    attrs: torch.Tensor       # [n_slabs, C, 0] int32 (filter slice)
+    codes: torch.Tensor       # [n_slabs, C, code_m] uint8 PQ codewords
+    pq_codebooks: torch.Tensor  # [m, ksub, dim // m] f32 trained codebooks
+    attrs: torch.Tensor       # [n_slabs, C, n_attrs] int32 attribute stamps
 
     @property
     def device(self) -> torch.device:
@@ -149,15 +161,33 @@ def clear_error(state: SlabPoolState) -> SlabPoolState:
     return dataclasses.replace(state, error=torch.zeros_like(state.error))
 
 
-def init_state(cfg: SIVFConfig, centroids, device="cuda") -> SlabPoolState:
-    """Fresh empty pool on ``device``. ``centroids`` [n_lists, D]."""
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+
+
+def init_state(cfg: SIVFConfig, centroids, pq_codebooks=None, device="cuda"
+               ) -> SlabPoolState:
+    """Fresh empty pool on ``device``. ``centroids`` [n_lists, D].
+
+    With ``cfg.pq`` set, ``pq_codebooks`` ``[m, ksub, dim//m]`` carries the
+    trained subspace codebooks (``core.pq.train_pq``); omitted, the plane
+    is zeros and must be trained before ingest (``Index.train``).
+    """
     dev = resolve_device(device)
-    cents = centroids if isinstance(centroids, torch.Tensor) \
-        else torch.tensor(np.asarray(centroids))
+    cents = _as_tensor(centroids)
     if tuple(cents.shape) != (cfg.n_lists, cfg.dim):
         raise ValueError(
             f"centroids shape {tuple(cents.shape)} != "
             f"{(cfg.n_lists, cfg.dim)}")
+    cb_shape = cfg.codebook_shape
+    if pq_codebooks is None:
+        cb = torch.zeros(cb_shape, dtype=torch.float32, device=dev)
+    else:
+        cb = _as_tensor(pq_codebooks)
+        if tuple(cb.shape) != cb_shape:
+            raise ValueError(
+                f"pq_codebooks shape {tuple(cb.shape)} != {cb_shape}")
+        cb = cb.to(device=dev, dtype=torch.float32, copy=True)
     ns, c, w = cfg.n_slabs, cfg.capacity, cfg.words
     i32 = dict(dtype=torch.int32, device=dev)
     ps = cfg.payload_slabs
@@ -185,7 +215,7 @@ def init_state(cfg: SIVFConfig, centroids, device="cuda") -> SlabPoolState:
         table_len=torch.zeros((cfg.n_lists,), **i32),
         table_pos=torch.full((ns,), -1, **i32),
         codes=torch.zeros((ps, c, cfg.code_m), dtype=torch.uint8, device=dev),
-        pq_codebooks=torch.zeros((0, 0, 0), dtype=torch.float32, device=dev),
+        pq_codebooks=cb,
         attrs=torch.zeros((ps, c, cfg.n_attrs), **i32),
     )
 
@@ -209,8 +239,10 @@ def host_live_mask(cfg: SIVFConfig, bitmap) -> np.ndarray:
 def memory_report(cfg: SIVFConfig) -> dict:
     """Structural-overhead accounting (paper §5.6.2 / Fig. 12).
 
-    Same keys and byte math as the reference for an all-resident raw fp32
-    pool; the PQ, attribute and tiered terms are zero in this slice.
+    Same keys and byte math as the reference for an all-resident pool:
+    the payload is the fp32 ``data`` plane (zero-width under PQ unless
+    ``store_raw``) plus the uint8 code plane; attributes count raw on both
+    sides of ``compression_ratio``. The tiered terms are zero.
     """
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     slots = cfg.n_slabs * cfg.capacity
@@ -218,7 +250,8 @@ def memory_report(cfg: SIVFConfig) -> dict:
     codes = slots * cfg.code_m
     attrs = slots * cfg.n_attrs * 4
     raw_equiv = slots * cfg.dim * itemsize + attrs
-    codebooks = 0
+    codebooks = cfg.pq.m * cfg.pq.ksub * (cfg.dim // cfg.pq.m) * 4 \
+        if cfg.pq is not None else 0
     ids = slots * 4
     norms = slots * 4
     headers = cfg.n_slabs * (cfg.words * 4 + 4 * 6)  # bitmap + 6 int32 fields

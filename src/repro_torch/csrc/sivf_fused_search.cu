@@ -1,12 +1,14 @@
 // Fused slab scan -> top-k search for Hopper (sm_90a), plain C interface.
 //
-// Replaces repro/kernels/sivf_scan/fused.py::sivf_fused_search_pallas (the
-// unfiltered variant): for each query, score every live slot of every slab
-// in its table row as ||q||^2 - 2 q.x + ||x||^2 (L2) or -q.x (IP) in fp32,
-// mask dead slots with the validity bitmap, and fold the candidates into a
-// running top-k. Only [Q, k] distances and labels reach device memory.
-// The arithmetic is the plain version's (kernels/sivf_scan/ref.py) in the
-// same order with the same roundings, so distances agree bit for bit.
+// Replaces repro/kernels/sivf_scan/fused.py::sivf_fused_search_pallas,
+// unfiltered and filtered: for each query, score every live slot of every
+// slab in its table row as ||q||^2 - 2 q.x + ||x||^2 (L2) or -q.x (IP) in
+// fp32, mask dead slots with the validity bitmap and, when filtered, the
+// slots whose attributes fail the predicate, and fold the candidates into
+// a running top-k (topk_fold.cuh). Only [Q, k] distances and labels reach
+// device memory. The arithmetic is the plain version's
+// (kernels/sivf_scan/ref.py) in the same order with the same roundings,
+// so distances agree bit for bit.
 //
 // Design (simple and correct first):
 //  * one thread block per query, one thread per slab slot (blockDim = C);
@@ -15,14 +17,12 @@
 //    test reads one value that every thread sees, so the skip is uniform.
 //  * thread c reads slot c's payload row, with float4 loads when rows are
 //    16-byte aligned.
-//  * fold: the merge row is [running k | C candidates in slot order],
-//    ordered by (distance, merge-row index). Rank-based selection: a
-//    candidate can enter only if it beats the current k-th entry strictly
-//    (the running entry has the lower index), and __syncthreads_count skips
-//    the fold when none does. Each entering candidate counts the running
-//    entries <= it and the entering candidates that beat it; each running
-//    entry j moves to j + (candidates < it). Ranks are distinct, so every
-//    output position has exactly one writer. Every +inf result carries -1.
+//  * filtered (kFiltered): the predicate is a conjunction of leaves (the
+//    algebra is closed under And only), passed as a flat int32 program of
+//    (kind, attr, n_consts) triples plus its constants, so one compiled
+//    instantiation serves every predicate. A live slot reads its attribute
+//    row in place from the state's [S, C, A] plane; a slot that fails reads
+//    no payload. The unfiltered instantiation compiles the test away.
 //
 // What bounds it on this card: bytes of live slabs read (C*D*4 + C*8 + W*4
 // per live table entry); the FMAs are a small fraction of fp32 peak. The
@@ -31,6 +31,8 @@
 // staging (cp.async / TMA). Later work does those.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "topk_fold.cuh"
 
 namespace {
 
@@ -58,29 +60,24 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ x,
   return acc;
 }
 
-template <bool kL2>
+template <bool kL2, bool kFiltered>
 __global__ void sivf_fused_search_kernel(
     const float* __restrict__ queries, const int* __restrict__ table,
     const float* __restrict__ data, const int* __restrict__ ids,
     const float* __restrict__ norms, const int* __restrict__ bitmap,
+    const int* __restrict__ attrs, const int* __restrict__ prog,
+    int n_leaves, const int* __restrict__ consts, int n_attrs,
     float* __restrict__ out_d, int* __restrict__ out_l,
     int t_len, int cap, int d_dim, int words, int k, bool vec4) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [D] (padded to 4)
-  float* run_d = qs + ((d_dim + 3) & ~3);          // [k]
-  int* run_l = reinterpret_cast<int*>(run_d + k);  // [k]
-  float* new_d = reinterpret_cast<float*>(run_l + k);
-  int* new_l = reinterpret_cast<int*>(new_d + k);
-  float* cand_d = reinterpret_cast<float*>(new_l + k);  // [C]
+  const sivf::Fold fold = sivf::carve_fold(qs + ((d_dim + 3) & ~3), k);
 
   const int q = blockIdx.x;
   const int c = threadIdx.x;
   for (int i = c; i < d_dim; i += blockDim.x)
     qs[i] = queries[(size_t)q * d_dim + i];
-  for (int j = c; j < k; j += blockDim.x) {
-    run_d[j] = CUDART_INF_F;
-    run_l[j] = -1;
-  }
+  sivf::fold_init(fold, k);
   __syncthreads();
   float qq = 0.f;
   if (kL2) {
@@ -94,79 +91,60 @@ __global__ void sivf_fused_search_kernel(
     if (slab < 0) continue;                      // uniform: one value per block
     const size_t slot = (size_t)slab * cap + c;
     const unsigned word = (unsigned)bitmap[(size_t)slab * words + (c >> 5)];
+    bool live = (word >> (c & 31)) & 1u;
+    if (kFiltered && live)
+      live = sivf::passes(attrs + slot * n_attrs, prog, n_leaves, consts);
     float d = CUDART_INF_F;
     int lab = -1;
-    if ((word >> (c & 31)) & 1u) {
+    if (live) {
       const float dot = dot_row(data + slot * d_dim, qs, d_dim, vec4);
       d = kL2 ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.f, dot)), norms[slot])
               : -dot;
       lab = ids[slot];
     }
-    const bool enter = d < run_d[k - 1];
-    if (__syncthreads_count(enter) == 0) continue;   // uniform
-    cand_d[c] = enter ? d : CUDART_INF_F;
-    __syncthreads();
-    if (enter) {
-      int r = 0;
-      for (int j = 0; j < k; ++j) r += run_d[j] <= d;
-      for (int o = 0; o < cap; ++o) {
-        const float e = cand_d[o];
-        r += (e < d) || (e == d && o < c);
-      }
-      if (r < k) {
-        new_d[r] = d;
-        new_l[r] = lab;
-      }
-    }
-    for (int j = c; j < k; j += blockDim.x) {
-      const float dj = run_d[j];
-      int r = j;
-      for (int o = 0; o < cap; ++o) r += cand_d[o] < dj;
-      if (r < k) {
-        new_d[r] = dj;
-        new_l[r] = run_l[j];
-      }
-    }
-    __syncthreads();
-    for (int j = c; j < k; j += blockDim.x) {
-      run_d[j] = new_d[j];
-      run_l[j] = new_l[j];
-    }
-    __syncthreads();
+    sivf::fold_candidates(fold, d, lab, k, cap);
   }
-  for (int j = c; j < k; j += blockDim.x) {
-    const float dj = run_d[j];
-    out_d[(size_t)q * k + j] = dj;
-    out_l[(size_t)q * k + j] = isinf(dj) ? -1 : run_l[j];
-  }
+  sivf::fold_write(fold, out_d + (size_t)q * k, out_l + (size_t)q * k, k);
+}
+
+template <bool kL2, bool kFiltered>
+void launch(const float* queries, const int* table, const float* data,
+            const int* ids, const float* norms, const int* bitmap,
+            const int* attrs, const int* prog, int n_leaves,
+            const int* consts, int n_attrs, float* out_d, int* out_l,
+            int n_queries, int t_len, int cap, int d_dim, int words, int k,
+            bool vec4, size_t smem, cudaStream_t s) {
+  sivf_fused_search_kernel<kL2, kFiltered><<<n_queries, cap, smem, s>>>(
+      queries, table, data, ids, norms, bitmap, attrs, prog, n_leaves,
+      consts, n_attrs, out_d, out_l, t_len, cap, d_dim, words, k, vec4);
 }
 
 }  // namespace
 
 extern "C" size_t sivf_fused_search_smem_bytes(int d_dim, int cap, int k) {
-  return sizeof(float) * (size_t)(((d_dim + 3) & ~3) + 4 * k + cap);
+  return sizeof(float) * (size_t)((d_dim + 3) & ~3) +
+         sivf::fold_smem_bytes(k, cap);
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// `attrs` null selects the unfiltered instantiation (prog, consts unused);
+// otherwise attrs [S, C, n_attrs], prog [3 * n_leaves], consts int32.
 extern "C" int sivf_fused_search_launch(
     const float* queries, const int* table, const float* data,
-    const int* ids, const float* norms, const int* bitmap, float* out_d,
-    int* out_l, int n_queries, int t_len, int cap, int d_dim, int words,
-    int k, int metric_l2, void* stream) {
+    const int* ids, const float* norms, const int* bitmap, const int* attrs,
+    const int* prog, int n_leaves, const int* consts, int n_attrs,
+    float* out_d, int* out_l, int n_queries, int t_len, int cap, int d_dim,
+    int words, int k, int metric_l2, void* stream) {
   if (n_queries == 0) return 0;
   const size_t smem = sivf_fused_search_smem_bytes(d_dim, cap, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // float4 loads need every payload row 16-byte aligned
   const bool vec4 = (d_dim % 4 == 0) &&
                     (reinterpret_cast<size_t>(data) % 16 == 0);
-  if (metric_l2) {
-    sivf_fused_search_kernel<true><<<n_queries, cap, smem, s>>>(
-        queries, table, data, ids, norms, bitmap, out_d, out_l, t_len, cap,
-        d_dim, words, k, vec4);
-  } else {
-    sivf_fused_search_kernel<false><<<n_queries, cap, smem, s>>>(
-        queries, table, data, ids, norms, bitmap, out_d, out_l, t_len, cap,
-        d_dim, words, k, vec4);
-  }
+  auto* fn = metric_l2 ? (attrs ? &launch<true, true> : &launch<true, false>)
+                       : (attrs ? &launch<false, true> : &launch<false, false>);
+  fn(queries, table, data, ids, norms, bitmap, attrs, prog, n_leaves, consts,
+     n_attrs, out_d, out_l, n_queries, t_len, cap, d_dim, words, k, vec4,
+     smem, s);
   return static_cast<int>(cudaGetLastError());
 }

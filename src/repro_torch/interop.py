@@ -4,8 +4,10 @@ numpy only: a reference ``SlabPoolState`` becomes ``{plane: np.ndarray}``
 (``np.asarray`` per field) on its side, and :func:`state_from_numpy`
 builds the port's state from that dict; :func:`state_to_numpy` goes back.
 The bitmap plane's words cross as uint32 (reference) <-> int32 (port)
-with the same bits, through a ``.view``. This module imports nothing of
-the reference package.
+with the same bits, through a ``.view``; the PQ planes (``codes`` uint8,
+``pq_codebooks`` f32, trained codebooks included) and the ``attrs``
+plane (int32) cross as they are, checked against the config. This module
+imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -57,9 +59,17 @@ def state_from_numpy(cfg: SIVFConfig, planes: dict, device="cuda"
             a = a.astype(np.uint32, copy=False).view(np.int32)
         out[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
     state = SlabPoolState(**out)
-    if tuple(state.bitmap.shape) != (cfg.n_slabs, cfg.words):
-        raise ValueError(f"bitmap shape {tuple(state.bitmap.shape)} does not "
-                         f"match the config")
+    c, ps = cfg.capacity, cfg.payload_slabs
+    want = {"bitmap": ((cfg.n_slabs, cfg.words), torch.int32),
+            "data": ((ps, c, cfg.payload_dim), cfg.dtype),
+            "codes": ((ps, c, cfg.code_m), torch.uint8),
+            "pq_codebooks": (cfg.codebook_shape, torch.float32),
+            "attrs": ((ps, c, cfg.n_attrs), torch.int32)}
+    for name, (shape, dtype) in want.items():
+        t = getattr(state, name)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"plane {name} is {t.dtype} {tuple(t.shape)}, "
+                             f"the config wants {dtype} {shape}")
     return state
 
 

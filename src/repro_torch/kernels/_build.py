@@ -8,16 +8,19 @@ use by ``nvcc`` for Hopper::
 
 into ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``), then loaded with ``ctypes``. The library's file name
-carries a hash of its source and flags, so a stale library is never
-loaded; the compiler's output (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside it as ``<lib>.log``. :func:`build_all` starts one
-``nvcc`` per source at once. Nothing here runs at import time.
+carries a hash of its source, of every ``csrc`` header it includes
+(``#include "..."``, followed recursively) and of the flags, so a stale
+library is never loaded; the compiler's output (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside it as ``<lib>.log``.
+:func:`build_all` starts one ``nvcc`` per source at once. Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
          "-fPIC", "-Xptxas", "-v")
-KERNELS = ("sivf_fused_search", "reclaim")
+KERNELS = ("sivf_fused_search", "sivf_pq_fused_search", "reclaim")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -46,11 +50,27 @@ def nvcc() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes with quotes,
+    recursively, in first-seen order."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, named by a hash of source+flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to, named by a hash of its sources
+    (the ``.cu`` and the headers it includes) and the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -1,2 +1,2 @@
-"""Fused scan->top-k search (replaces the TPU kernel in
-``repro/kernels/sivf_scan/fused.py``)."""
+"""Fused scan->top-k searches (replace the TPU kernels in
+``repro/kernels/sivf_scan/fused.py`` and ``pq_fused.py``)."""

@@ -1,14 +1,19 @@
 """Fused slab-scan -> top-k search: the hand-written CUDA kernel's wrapper.
 
-Replaces ``repro/kernels/sivf_scan/fused.py::sivf_fused_search_pallas``
-(unfiltered). The kernel is ``csrc/sivf_fused_search.cu``: one thread
-block per query, one thread per slab slot, the running top-k in shared
-memory, folded by rank with the reference's merge-row order. Its plain
-version is ``ref.sivf_fused_search_ref``.
+Replaces ``repro/kernels/sivf_scan/fused.py::sivf_fused_search_pallas``,
+unfiltered and filtered. The kernel is ``csrc/sivf_fused_search.cu``: one
+thread block per query, one thread per slab slot, the running top-k in
+shared memory, folded by rank with the reference's merge-row order
+(``csrc/topk_fold.cuh``). Its plain version is ``ref.sivf_fused_search_ref``.
+
+A filtered search passes the compiled predicate as a flat int32 leaf
+program (``core.filters.leaf_program``, cached on the card per structure)
+and its constants, and reads the state's ``[S, C, A]`` attribute plane in
+place: one compiled instantiation serves every predicate.
 
 What bounds it on an H100: the bytes of live slabs it reads
 (``C*D*4 + C*8 + W*4`` per live table entry). This first version does
-nothing about that yet; warp-per-row coalesced loads, cp.async / TMA
+nothing about that yet: warp-per-row coalesced loads, cp.async / TMA
 staging of slab tiles and sharing slabs between queries that probe the
 same lists are queued in ROADMAP.md.
 
@@ -22,57 +27,99 @@ import ctypes
 
 import torch
 
+from repro_torch.core.filters import leaf_program
 from repro_torch.kernels import _build
 
-launches = 0        # kernel launches made by this wrapper
+launches = 0            # unfiltered kernel launches made by this wrapper
+filtered_launches = 0   # filtered kernel launches made by this wrapper
 
 _MAX_SMEM = 48 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+_programs: dict[tuple, torch.Tensor] = {}   # (structure, device) -> program
+
 
 def _fn():
     lib = _build.load("sivf_fused_search")
     fn = lib.sivf_fused_search_launch
-    fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 8 + [_I, _P, _I, _P, _P] + [_I] * 7 + [_P]
     fn.restype = _I
     return fn
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
+def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim`` dims
+    on the CUDA ``device``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}; "
-                         "the CPU path is ref.sivf_fused_search_ref")
+                         "the CPU path is kernels/sivf_scan/ref.py")
+    if t.device != device:
+        raise ValueError("all operands must be on one device")
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name}: want contiguous {dtype} with {ndim} dims, "
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def filter_operands(attrs: torch.Tensor | None, fstruct: tuple | None,
+                    fconsts: torch.Tensor | None, n_slabs: int, c: int,
+                    device: torch.device) -> tuple:
+    """The launch's filter arguments ``(attrs, prog, n_leaves, consts,
+    n_attrs, keep)``: pointers (``None`` when unfiltered) and the tensors
+    they point into. ``attrs`` [n_slabs, C, A] int32 on ``device``."""
+    if fstruct is None:
+        return None, None, 0, None, 0, ()
+    check_operand("attrs", attrs, torch.int32, 3, device)
+    if tuple(attrs.shape[:2]) != (n_slabs, c):
+        raise ValueError(f"attrs shape {tuple(attrs.shape)} does not match "
+                         f"the slab planes {(n_slabs, c)}")
+    flat = leaf_program(fstruct)
+    n_leaves = len(flat) // 3
+    if sum(flat[2::3]) != fconsts.numel():
+        raise ValueError(f"{fconsts.numel()} constants for a structure that "
+                         f"takes {sum(flat[2::3])}")
+    if max(flat[1::3]) >= attrs.shape[2]:
+        raise ValueError(f"structure {fstruct} tests an attribute beyond "
+                         f"the plane's {attrs.shape[2]}")
+    key = (fstruct, device)
+    prog = _programs.get(key)
+    if prog is None:
+        prog = _programs[key] = torch.tensor(flat, dtype=torch.int32,
+                                             device=device)
+    consts = fconsts.to(device=device, dtype=torch.int32).contiguous()
+    return (attrs.data_ptr(), prog.data_ptr(), n_leaves, consts.data_ptr(),
+            attrs.shape[2], (attrs, prog, consts))
+
+
 def sivf_fused_search_cuda(queries: torch.Tensor, table: torch.Tensor,
                            data: torch.Tensor, ids: torch.Tensor,
                            norms: torch.Tensor, bitmap: torch.Tensor, k: int,
-                           metric: str = "l2"
+                           metric: str = "l2",
+                           attrs: torch.Tensor | None = None,
+                           fstruct: tuple | None = None,
+                           fconsts: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """queries [Q,D] f32, table [Q,T] i32 -> (dists [Q,k] f32, labels [Q,k]).
 
     data [n_slabs,C,D] f32, ids [n_slabs,C] i32, norms [n_slabs,C] f32,
-    bitmap [n_slabs,C/32] i32, all contiguous on one CUDA device. Launches
-    on the current stream and raises if the launch is refused.
+    bitmap [n_slabs,C/32] i32, all contiguous on one CUDA device. With
+    ``fstruct`` (``core.filters.compile_filter``), ``attrs`` [n_slabs,C,A]
+    i32 and ``fconsts`` [n_consts] i32 select the filtered kernel.
+    Launches on the current stream and raises if the launch is refused.
     """
-    global launches
+    global launches, filtered_launches
+    dev = queries.device
     for name, t, dt, nd in (("queries", queries, torch.float32, 2),
                             ("table", table, torch.int32, 2),
                             ("data", data, torch.float32, 3),
                             ("ids", ids, torch.int32, 2),
                             ("norms", norms, torch.float32, 2),
                             ("bitmap", bitmap, torch.int32, 2)):
-        _check(name, t, dt, nd)
+        check_operand(name, t, dt, nd, dev)
     qn, d_dim = queries.shape
     n_slabs, c, _ = data.shape
     words = c // 32
-    if {t.device for t in (queries, table, data, ids, norms, bitmap)} \
-            != {queries.device}:
-        raise ValueError("all operands must be on one device")
     if c % 32 or not 32 <= c <= 1024:
         raise ValueError(f"slab capacity C={c} must be a multiple of 32 in "
                          "[32, 1024]")
@@ -88,16 +135,22 @@ def sivf_fused_search_cuda(queries: torch.Tensor, table: torch.Tensor,
     if 4 * ((d_dim + 3) // 4 * 4 + 4 * k + c) > _MAX_SMEM:
         raise ValueError(f"D={d_dim}, k={k}, C={c} exceed the kernel's "
                          f"{_MAX_SMEM} bytes of shared memory")
-    dists = torch.empty((qn, k), dtype=torch.float32, device=queries.device)
-    labels = torch.empty((qn, k), dtype=torch.int32, device=queries.device)
+    a_ptr, prog, n_leaves, consts, n_attrs, _keep = filter_operands(
+        attrs, fstruct, fconsts, n_slabs, c, dev)
+    dists = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    labels = torch.empty((qn, k), dtype=torch.int32, device=dev)
     fn = _fn()
-    with torch.cuda.device(queries.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(queries.data_ptr(), table.data_ptr(), data.data_ptr(),
-                 ids.data_ptr(), norms.data_ptr(), bitmap.data_ptr(),
-                 dists.data_ptr(), labels.data_ptr(), qn, table.shape[1], c,
-                 d_dim, words, k, int(metric == "l2"), stream)
+                 ids.data_ptr(), norms.data_ptr(), bitmap.data_ptr(), a_ptr,
+                 prog, n_leaves, consts, n_attrs, dists.data_ptr(),
+                 labels.data_ptr(), qn, table.shape[1], c, d_dim, words, k,
+                 int(metric == "l2"), stream)
     if err:
         raise RuntimeError(f"sivf_fused_search launch failed: cudaError {err}")
-    launches += 1
+    if fstruct is None:
+        launches += 1
+    else:
+        filtered_launches += 1
     return dists, labels

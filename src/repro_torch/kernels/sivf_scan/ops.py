@@ -1,28 +1,63 @@
-"""Public entry point of the fused scan->top-k, dispatched by device.
+"""Public entry points of the fused scans, dispatched by device.
 
-Counterpart of ``repro/kernels/sivf_scan/ops.py::sivf_fused_search``. A
-CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the hand-written kernel (``fused.py``) or raises. There is no fallback
-from the card to the plain version. The launch count lives on the
-kernel's wrapper: ``fused.launches``.
+Counterparts of ``repro/kernels/sivf_scan/ops.py::sivf_fused_search`` and
+of the reference's PQ dispatch (``repro/core/index.py:601-615``). A CPU
+tensor takes the plain version (``ref.py``); a CUDA tensor launches the
+hand-written kernel (``fused.py``, ``pq_fused.py``) or raises. There is
+no fallback from the card to the plain versions. The launch counts live
+on the kernels' wrappers (``fused.launches``, ``pq_fused.launches`` and
+their ``filtered_launches``).
+
+The PQ entry takes a materialized ADC table (``core.pq.adc_tables``),
+never queries and codebooks: the table is built once per query batch and
+the same tensor scores, whichever implementation runs.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.sivf_scan import fused
-from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
+from repro_torch.kernels.sivf_scan import fused, pq_fused
+from repro_torch.kernels.sivf_scan.ref import (
+    sivf_fused_search_ref,
+    sivf_pq_fused_search_ref,
+)
 
 
 def sivf_fused_search(queries: torch.Tensor, table: torch.Tensor,
                       data: torch.Tensor, ids: torch.Tensor,
                       norms: torch.Tensor, bitmap: torch.Tensor, k: int,
-                      metric: str = "l2"
+                      metric: str = "l2", attrs: torch.Tensor | None = None,
+                      fstruct: tuple | None = None,
+                      fconsts: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused scan->top-k: queries [Q,D], table [Q,T] -> ([Q,k], [Q,k])."""
+    """Fused scan->top-k: queries [Q,D], table [Q,T] -> ([Q,k], [Q,k]).
+
+    ``attrs``/``fstruct``/``fconsts`` add the in-scan predicate mask.
+    """
+    filt = dict(attrs=attrs, fstruct=fstruct, fconsts=fconsts)
     if queries.device.type == "cpu":
         return sivf_fused_search_ref(queries, table, data, ids, norms,
-                                     bitmap, k, metric)
+                                     bitmap, k, metric, **filt)
     return fused.sivf_fused_search_cuda(
         queries.contiguous(), table.to(torch.int32).contiguous(), data, ids,
-        norms, bitmap, k, metric)
+        norms, bitmap, k, metric, **filt)
+
+
+def sivf_pq_fused_search(adc: torch.Tensor, table: torch.Tensor,
+                         codes: torch.Tensor, ids: torch.Tensor,
+                         bitmap: torch.Tensor, k: int,
+                         attrs: torch.Tensor | None = None,
+                         fstruct: tuple | None = None,
+                         fconsts: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ADC scan->top-k: adc [Q,m,ksub], table [Q,T] -> ([Q,k], [Q,k]).
+
+    ``attrs``/``fstruct``/``fconsts`` add the in-scan predicate mask.
+    """
+    filt = dict(attrs=attrs, fstruct=fstruct, fconsts=fconsts)
+    if adc.device.type == "cpu":
+        return sivf_pq_fused_search_ref(adc, table, codes, ids, bitmap, k,
+                                        **filt)
+    return pq_fused.sivf_pq_fused_search_cuda(
+        adc.contiguous(), table.to(torch.int32).contiguous(), codes, ids,
+        bitmap, k, **filt)

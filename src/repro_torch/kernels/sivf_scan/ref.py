@@ -1,25 +1,35 @@
-"""Plain PyTorch fused search: the oracle for ``fused.py``'s CUDA kernel.
+"""Plain PyTorch fused searches: the oracles for the CUDA kernels
+``csrc/sivf_fused_search.cu`` (raw fp32) and ``csrc/sivf_pq_fused_search.cu``
+(PQ/ADC).
 
 Counterpart of ``repro/kernels/sivf_scan/ref.py`` plus the running top-k
-fold of ``repro/kernels/sivf_scan/fused.py:61-91`` and
-``repro/core/index.py:468-513``: the slab table is scanned column by
+fold of ``repro/kernels/sivf_scan/fused.py:61-91`` and the column scans of
+``repro/core/index.py:468-571``: the slab table is scanned column by
 column, and each column's ``[Q, C]`` masked candidates are folded into a
 running ``[Q, k]`` list. The merge row is ``[running k | C candidates in
 slot order]`` and a *stable* sort keeps the lowest merge-row index on
 equal distances, as ``lax.top_k`` does; every ``+inf`` result carries
 label ``-1``. The ``[Q, T*C]`` candidate matrix is never built.
 
-Dot products and ``||q||^2`` are summed in index order, one rounded
-product and one rounded sum per term (:func:`dot_in_order`). The CUDA
-kernel does the same arithmetic in the same order, so the two agree bit
-for bit on every device; the reference's ``einsum`` sums in another order
-and agrees within fp32 rounding.
+A slot is a candidate when its validity bit is set, its table entry is
+not ``-1`` and, for a filtered search, its attributes pass the compiled
+predicate (``core/filters.py``); anything else scores ``+inf`` / ``-1``
+before the fold, so it never displaces a passing row.
+
+Raw scores: dot products and ``||q||^2`` are summed in index order, one
+rounded product and one rounded sum per term (:func:`dot_in_order`).
+ADC scores: the ``m`` table lookups are summed in ascending subspace
+order starting from the ``s = 0`` term. The CUDA kernels do the same
+arithmetic in the same order, so each agrees with its plain version bit
+for bit on every device; the reference's raw ``einsum`` sums in another
+order and agrees within fp32 rounding, its ADC scan bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.core.filters import eval_structure
 
 
 def dot_in_order(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +38,25 @@ def dot_in_order(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for i in range(x.shape[2]):
         acc = acc + q[:, i:i + 1] * x[:, :, i]
     return acc
+
+
+def adc_in_order(adc: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``adc [Q, m, ksub]``, ``codes [Q, C, m]`` -> ``[Q, C]``: the sum of
+    ``adc[q, s, codes[q, c, s]]`` over ``s`` in ascending order, starting
+    from the ``s = 0`` term (so a ``-0.0`` first term stays ``-0.0``)."""
+    d = None
+    for s in range(adc.shape[1]):
+        term = torch.gather(adc[:, s, :], 1, codes[..., s].long())
+        d = term if d is None else d + term
+    return d
+
+
+def predicate_mask(attrs_rows: torch.Tensor, fstruct: tuple,
+                   fconsts: torch.Tensor) -> torch.Tensor:
+    """``attrs_rows [..., A]`` int32 -> bool ``[...]``: the compiled
+    predicate (``fstruct`` with constants ``fconsts``) on each row."""
+    return eval_structure(fstruct, lambda j: attrs_rows[..., j],
+                          lambda i: fconsts[i])
 
 
 def fold_topk(run_d: torch.Tensor, run_l: torch.Tensor, d: torch.Tensor,
@@ -41,33 +70,66 @@ def fold_topk(run_d: torch.Tensor, run_l: torch.Tensor, d: torch.Tensor,
     return nd, torch.where(torch.isinf(nd), -1, nl)
 
 
+def _scan_topk(score, table: torch.Tensor, ids: torch.Tensor,
+               bitmap: torch.Tensor, k: int, attrs, fstruct, fconsts
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The column scan both plain versions share: ``score(sc)`` gives the
+    ``[Q, C]`` distances of column slabs ``sc`` [Q] (pads clipped to 0)."""
+    qn = table.shape[0]
+    c = ids.shape[1]
+    run_d = torch.full((qn, k), torch.inf, dtype=torch.float32,
+                       device=table.device)
+    run_l = torch.full((qn, k), -1, dtype=torch.int32, device=table.device)
+    # a column of -1 pads only adds +inf candidates: folding it is a no-op
+    for t in torch.nonzero((table >= 0).any(0)).reshape(-1).tolist():
+        col = table[:, t]
+        sc = col.clamp(min=0).long()
+        ok = bm.unpack_batch(bitmap[sc], c) & (col >= 0).unsqueeze(1)
+        if fstruct is not None:
+            ok &= predicate_mask(attrs[sc], fstruct, fconsts)
+        d = torch.where(ok, score(sc), torch.inf)
+        lab = torch.where(ok, ids[sc], -1)
+        run_d, run_l = fold_topk(run_d, run_l, d, lab, k)
+    return run_d, run_l
+
+
 def sivf_fused_search_ref(queries: torch.Tensor, table: torch.Tensor,
                           data: torch.Tensor, ids: torch.Tensor,
                           norms: torch.Tensor, bitmap: torch.Tensor, k: int,
-                          metric: str = "l2"
+                          metric: str = "l2", attrs: torch.Tensor | None = None,
+                          fstruct: tuple | None = None,
+                          fconsts: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """queries [Q,D], table [Q,T] (-1 pad) -> (dists [Q,k], labels [Q,k]).
 
     data [n_slabs,C,D] f32, ids [n_slabs,C] i32, norms [n_slabs,C] f32,
     bitmap [n_slabs,W] i32 words. L2 scores ``||q||^2 - 2 q.x + ||x||^2``,
-    IP scores ``-q.x``; dead slots and ``-1`` pads score ``+inf``.
+    IP scores ``-q.x``. With ``fstruct``, ``attrs`` [n_slabs,C,A] i32 and
+    ``fconsts`` [n_consts] i32 mask the slots that fail the predicate.
     """
-    qn = queries.shape[0]
-    c = data.shape[1]
     qf = queries.to(torch.float32)
     qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
-    run_d = torch.full((qn, k), torch.inf, dtype=torch.float32,
-                       device=queries.device)
-    run_l = torch.full((qn, k), -1, dtype=torch.int32, device=queries.device)
-    # a column of -1 pads only adds +inf candidates: folding it is a no-op
-    for t in torch.nonzero((table >= 0).any(0)).reshape(-1).tolist():
-        col = table[:, t]
-        sc = col.clamp(min=0).long()
-        x = data[sc].to(torch.float32)                         # [Q, C, D]
-        ok = bm.unpack_batch(bitmap[sc], c) & (col >= 0).unsqueeze(1)
-        dot = dot_in_order(qf, x)
-        d = qq - 2.0 * dot + norms[sc] if metric == "l2" else -dot
-        d = torch.where(ok, d, torch.inf)
-        lab = torch.where(ok, ids[sc], -1)
-        run_d, run_l = fold_topk(run_d, run_l, d, lab, k)
-    return run_d, run_l
+
+    def score(sc):
+        dot = dot_in_order(qf, data[sc].to(torch.float32))
+        return qq - 2.0 * dot + norms[sc] if metric == "l2" else -dot
+
+    return _scan_topk(score, table, ids, bitmap, k, attrs, fstruct, fconsts)
+
+
+def sivf_pq_fused_search_ref(adc: torch.Tensor, table: torch.Tensor,
+                             codes: torch.Tensor, ids: torch.Tensor,
+                             bitmap: torch.Tensor, k: int,
+                             attrs: torch.Tensor | None = None,
+                             fstruct: tuple | None = None,
+                             fconsts: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """adc [Q,m,ksub] f32, table [Q,T] (-1 pad) -> ([Q,k] f32, [Q,k] i32).
+
+    codes [n_slabs,C,m] uint8, ids [n_slabs,C] i32, bitmap [n_slabs,W]
+    i32 words. A slot scores the sum of its ``m`` lookups in its query's
+    ADC table (:func:`adc_in_order`); the table is already metric-shaped
+    (``core.pq.adc_tables``). Filter operands as in the raw version.
+    """
+    return _scan_topk(lambda sc: adc_in_order(adc, codes[sc]), table, ids,
+                      bitmap, k, attrs, fstruct, fconsts)

@@ -35,11 +35,12 @@ def exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def l2_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared L2 distance, ``a [N,D]`` x ``b [M,D]`` -> ``[N,M]``.
+    """Pairwise squared L2 distance, ``a [..., N,D]`` x ``b [..., M,D]`` ->
+    ``[..., N,M]`` (leading dims batch).
 
     Keeps the ||a||^2 - 2 a.b + ||b||^2 expansion of the reference so the
     inner term is one matrix product (full fp32: callers keep TF32 off).
     """
-    aa = torch.sum(a * a, dim=-1, keepdim=True)        # [N,1]
-    bb = torch.sum(b * b, dim=-1, keepdim=True).T      # [1,M]
-    return aa - 2.0 * (a @ b.T) + bb
+    aa = torch.sum(a * a, dim=-1, keepdim=True)                    # [..,N,1]
+    bb = torch.sum(b * b, dim=-1, keepdim=True).transpose(-1, -2)  # [..,1,M]
+    return aa - 2.0 * (a @ b.transpose(-1, -2)) + bb

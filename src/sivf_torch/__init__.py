@@ -8,9 +8,17 @@
     report = index.add(vecs, ids)                  # -> MutationReport
     dists, labels = index.search(queries, k=10, nprobe=32)
 
+    cfg = sivf_torch.SIVFConfig(dim=128, n_lists=4096, n_slabs=16384,
+                                pq=sivf_torch.PQConfig(m=32),
+                                attributes=("tenant", "ts"))
+    index = sivf_torch.Index(cfg, centroids).train(sample)
+    index.add(vecs, ids, attrs={"tenant": tenant, "ts": ts})
+    res = index.search(queries, 10, 32, filter=sivf_torch.Eq("tenant", 7))
+
 Everything re-exported here lives in ``repro_torch.core``. It is the port
-of the single-backend, raw-fp32 main path of ``sivf``; what is not ported
-yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+of the single-backend path of ``sivf`` (raw fp32 or PQ payloads, with or
+without filter attributes); what is not ported yet raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
@@ -21,7 +29,15 @@ from repro_torch.core.api import (  # noqa: F401
     PendingReport,
     SearchResult,
 )
-from repro_torch.core.pq import PQConfig  # noqa: F401
+from repro_torch.core.filters import (  # noqa: F401
+    And,
+    CompiledFilter,
+    Eq,
+    In,
+    Range,
+    compile_filter,
+)
+from repro_torch.core.pq import PQConfig, train_pq  # noqa: F401
 from repro_torch.core.quantizer import train_kmeans  # noqa: F401
 from repro_torch.core.state import (  # noqa: F401
     SIVFConfig,
@@ -30,7 +46,8 @@ from repro_torch.core.state import (  # noqa: F401
 )
 
 __all__ = [
-    "ErrorCode", "Index", "IndexProtocol", "MutationRejected",
-    "MutationReport", "PendingReport", "PQConfig", "SearchResult",
-    "SIVFConfig", "init_state", "memory_report", "train_kmeans",
+    "And", "CompiledFilter", "Eq", "ErrorCode", "In", "Index",
+    "IndexProtocol", "MutationRejected", "MutationReport", "PendingReport",
+    "PQConfig", "Range", "SearchResult", "SIVFConfig", "compile_filter",
+    "init_state", "memory_report", "train_kmeans", "train_pq",
 ]

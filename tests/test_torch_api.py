@@ -157,19 +157,25 @@ def test_strict_mode_raises_on_both(setup):
 def test_unported_surface_names_its_roadmap_item(setup):
     _, cents, _, tcfg = setup
     index = sivf_torch.Index(tcfg, cents, device="cpu")
-    for call, item in ((lambda: index.train(None), "item 5"),
-                       (lambda: index.maintain(), "item 9"),
+    for call, item in ((lambda: index.maintain(), "item 9"),
                        (lambda: index.save("x"), "item 7"),
                        (lambda: sivf_torch.Index.load("x"), "item 7"),
                        (lambda: index.reshard("m"), "item 10"),
                        (lambda: index.prefetch(None), "item 8"),
-                       (lambda: index.search(np.zeros(D), 1, filter=1),
-                        "item 6"),
-                       (lambda: index.add(np.zeros((1, D)), [0], attrs={}),
-                        "item 6"),
+                       (lambda: sivf_torch.SIVFConfig(
+                           dim=D, n_lists=N_LISTS, n_slabs=8,
+                           device_slabs=4), "item 8"),
                        (lambda: sivf_torch.Index(tcfg, cents, backend="mesh",
                                                  device="cpu"), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the PQ and filter surface is ported: on a raw index without
+    # attributes these are the reference's usage errors
+    with pytest.raises(RuntimeError, match="PQConfig"):
+        index.train(np.zeros((4, D)))
+    with pytest.raises(ValueError, match="attributes"):
+        index.search(np.zeros(D), 1, filter=sivf_torch.Eq("tenant", 1))
+    with pytest.raises(ValueError, match="attributes"):
+        index.add(np.zeros((1, D)), [0], attrs={})
     assert isinstance(index, sivf_torch.IndexProtocol)
     assert index.bucket_shapes(300) == [64, 128, 256, 512]

@@ -39,6 +39,8 @@ def test_port_imports_nothing_of_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, sivf_torch, repro_torch.core, repro_torch.interop; "
             "import repro_torch.kernels.sivf_scan.ops; "
+            "import repro_torch.kernels.sivf_scan.pq_fused; "
+            "import repro_torch.core.filters, repro_torch.core.pq; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -81,3 +83,37 @@ def test_kernel_build_is_content_addressed():
     assert all(n.endswith(".so") and "-" in n for n in names)
     assert _build.BUILD_DIR == REPO / "build" / "repro_torch_kernels"
     assert "sm_90a" in _build.ARCH
+
+
+def test_slice_modules_import_nothing_of_the_jax_package():
+    """The PQ and filter modules are among the files checked above, and
+    each imports nothing of JAX or of the JAX package."""
+    port = REPO / "src" / "repro_torch"
+    new = [port / "core" / "filters.py", port / "core" / "pq.py",
+           port / "kernels" / "sivf_scan" / "pq_fused.py",
+           port / "kernels" / "sivf_scan" / "ops.py"]
+    for path in new:
+        assert path in PORT_FILES
+        assert not imported_roots(path) & FORBIDDEN, path
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """Editing ``topk_fold.cuh`` renames the libraries of both kernels that
+    include it (a stale library is never loaded) and no other."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.KERNELS}
+    header = csrc / "topk_fold.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.KERNELS}
+    changed = {n for n in _build.KERNELS if before[n] != after[n]}
+    assert changed == {"sivf_fused_search", "sivf_pq_fused_search"}
+    assert header in _build.sources("sivf_pq_fused_search")
+
+
+def test_kernel_list_names_every_source():
+    assert "sivf_pq_fused_search" in _build.KERNELS
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)

@@ -75,13 +75,22 @@ def test_config_round_trip_and_limits():
     assert d["dtype"] == "float32"
     assert interop.config_from_dict(d) == cfg
     assert jcore.SIVFConfig(**{**d, "dtype": jnp.float32}).words == cfg.words
-    for kw, item in (({"pq": st.PQConfig(m=4)}, "item 5"),
-                     ({"attributes": ("tenant",)}, "item 6"),
-                     ({"device_slabs": 4}, "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        st.SIVFConfig(dim=16, n_lists=4, n_slabs=8, device_slabs=4)
+    for kw in ({"capacity": 48}, {"pq": st.PQConfig(m=5)},
+               {"attributes": ("a", "a")}, {"attributes": ("",)}):
+        with pytest.raises(ValueError):
             st.SIVFConfig(dim=16, n_lists=4, n_slabs=8, **kw)
-    with pytest.raises(ValueError):
-        st.SIVFConfig(dim=16, n_lists=4, n_slabs=8, capacity=48)
+    full = st.SIVFConfig(dim=16, n_lists=4, n_slabs=8,
+                         pq=st.PQConfig(m=4, nbits=5),
+                         attributes=["tenant", "ts"])
+    assert full.attributes == ("tenant", "ts")
+    assert interop.config_from_dict(interop.config_to_dict(full)) == full
+    jfull = jcore.SIVFConfig(**{**interop.config_to_dict(full),
+                                "dtype": jnp.float32,
+                                "pq": jcore.PQConfig(m=4, nbits=5)})
+    assert (full.payload_dim, full.code_m, full.n_attrs) == \
+        (jfull.payload_dim, jfull.code_m, jfull.n_attrs) == (0, 4, 2)
 
 
 @pytest.mark.parametrize("capacity", [32, 64, 128])
