@@ -17,12 +17,18 @@ attributes ``tenant`` (uniform over 100) and ``ts`` (uniform over 1000):
 Each path ingests, overwrites, removes, runs unfiltered searches and one
 filtered search at each of three selectivities (about 1 %, 10 % and 50 %),
 and is read against the exact top-10 over the live set (within each
-predicate for the filtered searches). The data is a synthetic 128-wide
-Gaussian mixture made from ``--seed`` with numpy; no dataset file is read.
+predicate for the filtered searches). On the raw path's index a third
+path, the unfused search (probe, ``gather_tables``, ``ops.sivf_scan``
+writing the whole ``[Q, T*C]`` candidate matrix, ``ops.topk``), is held
+bit for bit against the fused kernel and ``Index.search``, and swept
+against it in time and peak device memory over the batch size. The data
+is a synthetic 128-wide Gaussian mixture made from ``--seed`` with numpy;
+no dataset file is read.
 
 Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, each path's
-phases and full-size kernel checks and timings, the ``{"kernels": [...]}``
+phases and full-size kernel checks and timings (the unfused path's after
+the raw path's phases), the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -145,12 +151,13 @@ def check_equal(what: str, dk, lk, dp, lp) -> float:
     same = same_d & (lk == lp)
     if not same.all():
         r, j = np.argwhere(~same)[0]
+        w = slice(max(j - 8, 0), j + 8)           # the row around the miss
         raise CheckFailed(
             f"{what}: {int((~same).sum())} of {same.size} entries differ; "
             f"first at row {r} pos {j}: kernel {dk[r, j]!r} label "
             f"{lk[r, j]} vs plain {dp[r, j]!r} label {lp[r, j]}; kernel "
-            f"row {dk[r].tolist()} {lk[r].tolist()} plain row "
-            f"{dp[r].tolist()} {lp[r].tolist()}")
+            f"row[{w.start}:{w.stop}] {dk[r, w].tolist()} {lk[r, w].tolist()} "
+            f"plain {dp[r, w].tolist()} {lp[r, w].tolist()}")
     fin = np.isfinite(dp)
     return float(np.abs(dk[fin] - dp[fin]).max()) if fin.any() else 0.0
 
@@ -389,9 +396,106 @@ def phase_kernel_checks(torch) -> dict:
                             fname, dk, lk, dp, lp))
                         cases.append(fname)
     out["sivf_pq_fused_search_cases"] = cases
-    out["max_abs_err"] = max_err
+    out["sivf_scan_cases"], err = scan_edge_checks(torch, rng)
+    max_err = max(max_err, err)
+    out["topk_cases"], err = topk_edge_checks(torch, rng)
+    out["max_abs_err"] = max(max_err, err)
     out["slice_card_vs_cpu"] = slice_small_check(torch, rng)
     return out
+
+
+def scan_edge_checks(torch, rng) -> tuple[list, float]:
+    """The unfused scan kernel vs its plain version (``==``) on the
+    synthetic pools and tables (``-1`` pads, an empty row, dead slots, an
+    empty slab, bit 31 set; L2 and IP; C=32 and 128; D=128 and 37), and on
+    an all-pad table; then ``topk`` of its output vs the fused kernel on
+    the same table (``==``), at k=10 and at k=64 beyond the live rows."""
+    from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
+    from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
+    from repro_torch.kernels.sivf_scan.sivf_scan import sivf_scan_cuda
+    from repro_torch.kernels.topk.topk import topk_cuda
+    cases, max_err = [], 0.0
+    for metric in ("l2", "ip"):
+        for c in (32, 128):
+            for d, q, t in ((128, 33, 12), (37, 8, 5), (16, 4, 3)):
+                p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
+                table = synthetic_table(rng, 24, q, t)
+                if t == 3:
+                    table[:] = -1                       # an all-pad table
+                qs = rng.normal(size=(q, d)).astype(np.float32)
+                args = (torch.from_numpy(qs).cuda(),
+                        torch.from_numpy(table).cuda(), p["data"], p["ids"],
+                        p["norms"], p["bitmap"])
+                dk, lk = sivf_scan_cuda(*args, metric=metric)
+                torch.cuda.synchronize()
+                dp, lp = sivf_scan_ref(*args, metric=metric)
+                name = f"{metric}/C={c}/D={d}/T={t}"
+                max_err = max(max_err, check_equal(name, dk, lk, dp, lp))
+                check(bool(torch.isinf(dk[0]).all() and (lk[0] == -1).all()),
+                      f"{name}: empty row not all +inf / -1")
+                cases.append(name)
+                for k in (10, 64):
+                    fd, fl = sivf_fused_search_cuda(*args, k, metric=metric)
+                    td, tl = topk_cuda(dk, lk, k)
+                    torch.cuda.synchronize()
+                    check_equal(f"{name}/topk(scan) vs fused k={k}", td, tl,
+                                fd, fl)
+                    cases.append(f"{name}/topk(scan)==fused/k={k}")
+    return cases, max_err
+
+
+def topk_rows(rng, q, n, inf_frac=0.2):
+    """Normal distances with ``inf_frac`` of ``+inf``; labels never -1."""
+    d = rng.normal(size=(q, n)).astype(np.float32)
+    d[rng.random((q, n)) < inf_frac] = np.inf
+    return d, rng.integers(0, 1 << 30, (q, n)).astype(np.int32)
+
+
+def topk_edge_rows(rng, n):
+    """Rows of width ``n``: all ``+inf``; three finite entries (fewer than
+    k); all equal; ``-0.0`` among ``+0.0`` with ties; ``-inf`` among
+    finite and ``+inf`` entries; labels never ``-1``."""
+    d = np.full((5, n), np.inf, np.float32)
+    d[1, [n - 1, 2, n // 2]] = (0.5, 0.25, 0.5)
+    d[2] = 1.0
+    d[3] = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), n)
+    d[4] = rng.normal(size=n).astype(np.float32)
+    d[4, rng.random(n) < 0.3] = np.inf
+    d[4, [1, n - 2]] = -np.inf
+    return d, rng.integers(0, 1 << 30, (5, n)).astype(np.int32)
+
+
+def topk_edge_checks(torch, rng) -> tuple[list, float]:
+    """The top-k kernel vs its plain version (``==`` bits and labels): k=1
+    and k=L, L=1, L not a multiple of the block (256), the edge rows, rows
+    whose k smallest all lie in one thread's slice (columns 0 mod 256:
+    refills), and a wide row at the search's k."""
+    from repro_torch.kernels.topk.ref import topk_ref
+    from repro_torch.kernels.topk.topk import topk_cuda
+    strided = topk_rows(rng, 4, 20000, inf_frac=0.0)
+    strided[0][:, ::256] -= 100.0
+    ties = (np.full((3, 3001), 2.0, np.float32),
+            rng.integers(0, 1 << 30, (3, 3001)).astype(np.int32))
+    sets = {"random/L=1000": (topk_rows(rng, 33, 1000), (1, 10, 16, 17,
+                                                          1000)),
+            "L=1": (topk_rows(rng, 4, 1), (1,)),
+            "L=131079": (topk_rows(rng, 8, 131079), (10,)),
+            "refill/L=5000": (topk_rows(rng, 2, 5000), (5000,)),
+            "one_slice/L=20000": (strided, (60, 100)),
+            "all_equal/L=3001": (ties, (50, 3001)),
+            "edge/L=40": (topk_edge_rows(rng, 40), (1, 10, 40)),
+            "edge/L=700": (topk_edge_rows(rng, 700), (10, 300))}
+    cases, max_err = [], 0.0
+    for name, ((d, lab), ks) in sets.items():
+        d, lab = torch.from_numpy(d).cuda(), torch.from_numpy(lab).cuda()
+        for k in ks:
+            dk, lk = topk_cuda(d, lab, k)
+            torch.cuda.synchronize()
+            dp, lp = topk_ref(d, lab, k)
+            max_err = max(max_err, check_equal(f"topk {name}/k={k}", dk, lk,
+                                               dp, lp))
+            cases.append(f"{name}/k={k}")
+    return cases, max_err
 
 
 def slice_small_check(torch, rng) -> dict:
@@ -515,20 +619,23 @@ def recall(torch, lab, best) -> float:
 
 def zero_counts() -> None:
     from repro_torch.kernels.reclaim import reclaim
-    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    from repro_torch.kernels.sivf_scan import fused, pq_fused, sivf_scan
+    from repro_torch.kernels.topk import topk
     fused.launches = fused.filtered_launches = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
-    reclaim.launches = 0
+    reclaim.launches = sivf_scan.launches = topk.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.reclaim import reclaim
-    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    from repro_torch.kernels.sivf_scan import fused, pq_fused, sivf_scan
+    from repro_torch.kernels.topk import topk
     return {"sivf_fused_search": fused.launches,
             "sivf_fused_search[filtered]": fused.filtered_launches,
             "sivf_pq_fused_search": pq_fused.launches,
             "sivf_pq_fused_search[filtered]": pq_fused.filtered_launches,
-            "reclaim": reclaim.launches}
+            "reclaim": reclaim.launches, "sivf_scan": sivf_scan.launches,
+            "topk": topk.launches}
 
 
 def drive(torch, index, wl: dict, path: str, out: dict) -> list[dict]:
@@ -909,6 +1016,139 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     return lines, rows
 
 
+SWEEP_QUERIES = (16, 64, 256, 1024)     # benchmarks/paper.py fused sweep
+
+
+def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The unfused search path on the raw path's index at full width:
+    probe, ``gather_tables``, ``ops.sivf_scan`` (the ``[Q, T*C]`` candidate
+    matrix), ``ops.topk``. Driven once with the launch counts zeroed just
+    before and read just after; held bit for bit against the fused kernel
+    and ``Index.search`` on all queries, each kernel against its plain
+    version; then times, bounds and the fused-vs-unfused sweep of time
+    and peak device bytes over the batch size."""
+    from repro_torch.kernels.sivf_scan import ops as scan_ops
+    from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
+    from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
+    from repro_torch.kernels.sivf_scan.sivf_scan import sivf_scan_cuda
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk.ref import topk_ref
+    from repro_torch.kernels.topk.topk import topk_cuda
+    index, cfg, queries = main["index"], main["cfg"], main["queries"]
+    st = index.state
+    t_phase = time.perf_counter()
+    zero_counts()                                # counts of this path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, table = probe_table(torch, cfg, st, queries)
+    dists, labels = scan_ops.sivf_scan(queries, table, st.data, st.ids,
+                                       st.norms, st.bitmap, cfg.metric)
+    d, lab = topk_ops.topk(dists, labels, K)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    check(launches["sivf_scan"] == 1 and launches["topk"] == 1,
+          f"unfused path launches {launches}")
+    check(sum(launches.values()) == 2, f"other kernels ran: {launches}")
+    qn, t_len = table.shape
+    c, dim, w = cfg.capacity, cfg.dim, cfg.words
+    n_cols = t_len * c
+    check(tuple(dists.shape) == (qn, n_cols) and tuple(d.shape) == (qn, K),
+          "unfused shapes")
+    # the three-way identity: pair == fused kernel == Index.search, all
+    # queries, distances bit for bit and labels
+    args = (queries, table, st.data, st.ids, st.norms, st.bitmap)
+    fd, fl = sivf_fused_search_cuda(*args, K)
+    torch.cuda.synchronize()
+    check_equal("topk(sivf_scan) vs sivf_fused_search, all queries", d, lab,
+                fd, fl)
+    res = main["result"]
+    check_equal("topk(sivf_scan) vs Index.search", d, lab, res.distances,
+                res.labels)
+    # each kernel against its plain version: the scan on the check
+    # queries' rows, the top-k on all rows of the scan's output
+    sub = (queries[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
+        + args[2:]
+    dp, lp = sivf_scan_ref(*sub, metric=cfg.metric)
+    err_scan = check_equal("sivf_scan full size", dists[:CHECK_QUERIES],
+                           labels[:CHECK_QUERIES], dp, lp)
+    del dp, lp
+    tp, tlp = topk_ref(dists, labels, K)
+    err_topk = check_equal("topk full size", d, lab, tp, tlp)
+    lib_d, _ = torch.topk(dists, K, dim=1, largest=False, sorted=True)
+    check(torch.equal(lib_d, d), "torch.topk distances differ from topk's")
+    del tp, tlp, lib_d
+    # times on the same inputs: median of 20 launches each
+    ms_scan = cuda_median_ms(lambda: sivf_scan_cuda(*args, cfg.metric), 20)
+    ms_topk = cuda_median_ms(lambda: topk_cuda(dists, labels, K), 20)
+    lib_ms = cuda_median_ms(lambda: torch.topk(dists, K, dim=1, largest=False,
+                                               sorted=True), 20)
+    ms_fused = cuda_median_ms(lambda: sivf_fused_search_cuda(*args, K), 20)
+    plain_scan = cuda_ms(lambda: sivf_scan_ref(*args, metric=cfg.metric),
+                         reps=1, warm=False)
+    plain_topk = cuda_median_ms(lambda: topk_ref(dists, labels, K), 5)
+    # bounds: each input read once, each output written once. The scan
+    # needs the live rows of each distinct probed slab and writes every
+    # slot; the top-k reads every distance and only the k chosen labels.
+    n = scan_counts(torch, cfg, st, table)
+    out_bytes = qn * n_cols * 8
+    scan_bytes = out_bytes + n["live_slots_of_distinct_slabs"] * (dim * 4 + 8) \
+        + n["distinct_live_slabs"] * w * 4 + qn * dim * 4 + table.numel() * 4
+    topk_bytes = qn * n_cols * 4 + qn * K * 4 + qn * K * 8
+    rows = [row("sivf_scan", "src/repro_torch/csrc/sivf_scan.cu",
+                "src/repro/kernels/sivf_scan/sivf_scan.py:63",
+                launches["sivf_scan"], err_scan, ms_scan, plain_scan,
+                scan_bytes, 2 * n["live_slots_scored"] * dim, hbm),
+            row("topk", "src/repro_torch/csrc/topk.cu",
+                "src/repro/kernels/topk/topk.py:38", launches["topk"],
+                err_topk, ms_topk, plain_topk, topk_bytes, qn * n_cols, hbm)]
+    rows[1]["library_ms"] = lib_ms
+    del dists, labels
+    # fused vs unfused over the batch size (benchmarks/paper.py:329-351):
+    # time, and peak device bytes allocated above what is resident
+    sweep = []
+    for q in SWEEP_QUERIES:
+        a = (queries[:q], table[:q].contiguous()) + args[2:]
+        paths = {"unfused": lambda: topk_cuda(*sivf_scan_cuda(
+                     *a, cfg.metric), K),
+                 "fused": lambda: sivf_fused_search_cuda(*a, K)}
+        entry = {"Q": q, "candidate_bytes": q * n_cols * 8}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = fn()
+            torch.cuda.synchronize()
+            entry[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() \
+                - base
+            del got
+            entry[f"{name}_ms"] = cuda_median_ms(fn, 10)
+        if q >= 64:
+            check(entry["fused_peak_bytes"] < entry["unfused_peak_bytes"],
+                  f"Q={q}: fused allocates no less than unfused {entry}")
+        sweep.append(entry)
+    line = {"phase": "unfused", "path_ms": path_ms,
+            "launches": {"sivf_scan": launches["sivf_scan"],
+                         "topk": launches["topk"]},
+            "shape": {"Q": qn, "T": t_len, "C": c, "D": dim, "k": K},
+            "identity_all_queries": True, "equals_index_search": True,
+            "queries_checked_scan": CHECK_QUERIES, "rows_checked_topk": qn,
+            **n, "ms": {"sivf_scan": ms_scan, "topk": ms_topk,
+                        "pair": ms_scan + ms_topk, "torch_topk": lib_ms,
+                        "sivf_fused_search": ms_fused},
+            "plain_ms": {"sivf_scan": plain_scan, "topk": plain_topk},
+            "bound_ms": {"sivf_scan": rows[0]["bound_ms"],
+                         "topk": rows[1]["bound_ms"],
+                         "topk_labels_read_whole": (
+                             qn * n_cols * 8 + qn * K * 8) / hbm * 1e3},
+            "bound_by": {"sivf_scan": rows[0]["bound_by"],
+                         "topk": rows[1]["bound_by"]},
+            "pct_of_bound": {"sivf_scan": rows[0]["bound_ms"] / ms_scan * 100,
+                             "topk": rows[1]["bound_ms"] / ms_topk * 100},
+            "sweep": sweep, "seconds": time.perf_counter() - t_phase}
+    return [line], rows
+
+
 def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     """PQ kernel vs plain at the PQ path's shapes on one shared ADC table,
     with times and bounds, unfiltered and at each selectivity."""
@@ -1033,7 +1273,7 @@ def reclaim_bytes(reclaim_ref, ops) -> int:
 
 KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
                 "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
-                "reclaim")
+                "reclaim", "sivf_scan", "topk")
 
 
 def main(argv=None) -> int:
@@ -1070,15 +1310,18 @@ def main(argv=None) -> int:
     if got:
         wl, line = got
         emit(line)
-        paths = (("main_path", phase_main, "full_size", phase_full_size),
-                 ("pq_main_path", phase_pq_main, "pq_full_size",
-                  phase_pq_full_size))
-        for name, drive_fn, full_name, full_fn in paths:
+        # each path, then the phases that reuse its index (the unfused path
+        # first: the full-size phase ends with a reclaim-heavy delete)
+        paths = (("main_path", phase_main,
+                  (("unfused", phase_unfused), ("full_size", phase_full_size))),
+                 ("pq_main_path", phase_pq_main,
+                  (("pq_full_size", phase_pq_full_size),)))
+        for name, drive_fn, then in paths:
             out = {"queries": wl["queries"]}
             lines = run(name, lambda: drive_fn(torch, wl, out))
             for ln in lines or []:
                 emit(ln)
-            if lines:
+            for full_name, full_fn in then if lines else ():
                 got = run(full_name, lambda: full_fn(torch, hbm, out))
                 if got:
                     for ln in got[0]:

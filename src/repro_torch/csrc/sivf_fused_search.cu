@@ -32,33 +32,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dot_row.cuh"
 #include "topk_fold.cuh"
 
 namespace {
-
-// q.x summed in index order, each product and sum rounded on its own (no
-// fused multiply-add): the plain version's arithmetic, bit for bit.
-__device__ __forceinline__ float dot_row(const float* __restrict__ x,
-                                         const float* qs, int d_dim,
-                                         bool vec4) {
-  float acc = 0.f;
-  if (vec4) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(qs);
-    for (int i = 0; i < (d_dim >> 2); ++i) {
-      const float4 a = __ldg(x4 + i);
-      const float4 b = q4[i];
-      acc = __fadd_rn(acc, __fmul_rn(b.x, a.x));
-      acc = __fadd_rn(acc, __fmul_rn(b.y, a.y));
-      acc = __fadd_rn(acc, __fmul_rn(b.z, a.z));
-      acc = __fadd_rn(acc, __fmul_rn(b.w, a.w));
-    }
-  } else {
-    for (int i = 0; i < d_dim; ++i)
-      acc = __fadd_rn(acc, __fmul_rn(qs[i], __ldg(x + i)));
-  }
-  return acc;
-}
 
 template <bool kL2, bool kFiltered>
 __global__ void sivf_fused_search_kernel(
@@ -79,11 +56,7 @@ __global__ void sivf_fused_search_kernel(
     qs[i] = queries[(size_t)q * d_dim + i];
   sivf::fold_init(fold, k);
   __syncthreads();
-  float qq = 0.f;
-  if (kL2) {
-    for (int i = 0; i < d_dim; ++i)
-      qq = __fadd_rn(qq, __fmul_rn(qs[i], qs[i]));
-  }
+  const float qq = kL2 ? sivf::query_norm(qs, d_dim) : 0.f;
 
   const int* trow = table + (size_t)q * t_len;
   for (int t = 0; t < t_len; ++t) {
@@ -97,9 +70,8 @@ __global__ void sivf_fused_search_kernel(
     float d = CUDART_INF_F;
     int lab = -1;
     if (live) {
-      const float dot = dot_row(data + slot * d_dim, qs, d_dim, vec4);
-      d = kL2 ? __fadd_rn(__fsub_rn(qq, __fmul_rn(2.f, dot)), norms[slot])
-              : -dot;
+      const float dot = sivf::dot_row(data + slot * d_dim, qs, d_dim, vec4);
+      d = sivf::distance<kL2>(qq, dot, kL2 ? norms[slot] : 0.f);
       lab = ids[slot];
     }
     sivf::fold_candidates(fold, d, lab, k, cap);

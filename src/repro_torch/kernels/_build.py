@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
          "-fPIC", "-Xptxas", "-v")
-KERNELS = ("sivf_fused_search", "sivf_pq_fused_search", "reclaim")
+KERNELS = ("sivf_fused_search", "sivf_pq_fused_search", "reclaim",
+           "sivf_scan", "topk")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -62,6 +62,37 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def raw_scan_operands(queries: torch.Tensor, table: torch.Tensor,
+                      data: torch.Tensor, ids: torch.Tensor,
+                      norms: torch.Tensor, bitmap: torch.Tensor, metric: str
+                      ) -> tuple[int, int, int, int, int]:
+    """Check the operands both raw scans take (fused and unfused) and
+    return ``(Q, D, n_slabs, C, W)``: contiguous on one CUDA device, of
+    consistent shapes, ``C`` a positive multiple of 32, a known metric."""
+    dev = queries.device
+    for name, t, dt, nd in (("queries", queries, torch.float32, 2),
+                            ("table", table, torch.int32, 2),
+                            ("data", data, torch.float32, 3),
+                            ("ids", ids, torch.int32, 2),
+                            ("norms", norms, torch.float32, 2),
+                            ("bitmap", bitmap, torch.int32, 2)):
+        check_operand(name, t, dt, nd, dev)
+    qn, d_dim = queries.shape
+    n_slabs, c, _ = data.shape
+    words = c // 32
+    if c % 32 or c == 0:
+        raise ValueError(f"slab capacity C={c} must be a positive multiple "
+                         "of 32")
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric}")
+    if table.shape[0] != qn or data.shape[2] != d_dim \
+            or tuple(ids.shape) != (n_slabs, c) \
+            or tuple(norms.shape) != (n_slabs, c) \
+            or tuple(bitmap.shape) != (n_slabs, words):
+        raise ValueError("inconsistent operand shapes")
+    return qn, d_dim, n_slabs, c, words
+
+
 def filter_operands(attrs: torch.Tensor | None, fstruct: tuple | None,
                     fconsts: torch.Tensor | None, n_slabs: int, c: int,
                     device: torch.device) -> tuple:
@@ -110,28 +141,13 @@ def sivf_fused_search_cuda(queries: torch.Tensor, table: torch.Tensor,
     """
     global launches, filtered_launches
     dev = queries.device
-    for name, t, dt, nd in (("queries", queries, torch.float32, 2),
-                            ("table", table, torch.int32, 2),
-                            ("data", data, torch.float32, 3),
-                            ("ids", ids, torch.int32, 2),
-                            ("norms", norms, torch.float32, 2),
-                            ("bitmap", bitmap, torch.int32, 2)):
-        check_operand(name, t, dt, nd, dev)
-    qn, d_dim = queries.shape
-    n_slabs, c, _ = data.shape
-    words = c // 32
-    if c % 32 or not 32 <= c <= 1024:
-        raise ValueError(f"slab capacity C={c} must be a multiple of 32 in "
-                         "[32, 1024]")
+    qn, d_dim, n_slabs, c, words = raw_scan_operands(
+        queries, table, data, ids, norms, bitmap, metric)
+    if c > 1024:
+        raise ValueError(f"slab capacity C={c} exceeds 1024 (one thread "
+                         "per slot)")
     if not 1 <= k <= 1024:
         raise ValueError(f"k={k} must be in [1, 1024]")
-    if metric not in ("l2", "ip"):
-        raise ValueError(f"unknown metric {metric}")
-    if table.shape[0] != qn or data.shape[2] != d_dim \
-            or tuple(ids.shape) != (n_slabs, c) \
-            or tuple(norms.shape) != (n_slabs, c) \
-            or tuple(bitmap.shape) != (n_slabs, words):
-        raise ValueError("inconsistent operand shapes")
     if 4 * ((d_dim + 3) // 4 * 4 + 4 * k + c) > _MAX_SMEM:
         raise ValueError(f"D={d_dim}, k={k}, C={c} exceed the kernel's "
                          f"{_MAX_SMEM} bytes of shared memory")

@@ -1,12 +1,14 @@
-"""Public entry points of the fused scans, dispatched by device.
+"""Public entry points of the slab scans, dispatched by device.
 
-Counterparts of ``repro/kernels/sivf_scan/ops.py::sivf_fused_search`` and
-of the reference's PQ dispatch (``repro/core/index.py:601-615``). A CPU
-tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-hand-written kernel (``fused.py``, ``pq_fused.py``) or raises. There is
+Counterparts of ``repro/kernels/sivf_scan/ops.py`` (``sivf_scan``, the
+unfused scan that writes the whole ``[Q, T*C]`` candidate matrix for
+``kernels.topk``, and ``sivf_fused_search``) and of the reference's PQ
+dispatch (``repro/core/index.py:601-615``). A CPU tensor takes the plain
+version (``ref.py``); a CUDA tensor launches the hand-written kernel
+(``sivf_scan.py``, ``fused.py``, ``pq_fused.py``) or raises. There is
 no fallback from the card to the plain versions. The launch counts live
-on the kernels' wrappers (``fused.launches``, ``pq_fused.launches`` and
-their ``filtered_launches``).
+on the kernels' wrappers (``sivf_scan.launches``, ``fused.launches``,
+``pq_fused.launches`` and the latter two's ``filtered_launches``).
 
 The PQ entry takes a materialized ADC table (``core.pq.adc_tables``),
 never queries and codebooks: the table is built once per query batch and
@@ -17,10 +19,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.sivf_scan import fused, pq_fused
+from repro_torch.kernels.sivf_scan import sivf_scan as unfused
 from repro_torch.kernels.sivf_scan.ref import (
     sivf_fused_search_ref,
     sivf_pq_fused_search_ref,
+    sivf_scan_ref,
 )
+
+
+def sivf_scan(queries: torch.Tensor, table: torch.Tensor, data: torch.Tensor,
+              ids: torch.Tensor, norms: torch.Tensor, bitmap: torch.Tensor,
+              metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+    """Validity-masked slab distance scan (unfused): queries [Q,D], table
+    [Q,T] -> (dists [Q,T*C], labels [Q,T*C]); ``+inf`` / ``-1`` for dead
+    and padded slots."""
+    if queries.device.type == "cpu":
+        return sivf_scan_ref(queries, table, data, ids, norms, bitmap, metric)
+    return unfused.sivf_scan_cuda(
+        queries.contiguous(), table.to(torch.int32).contiguous(), data, ids,
+        norms, bitmap, metric)
 
 
 def sivf_fused_search(queries: torch.Tensor, table: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Plain PyTorch fused searches: the oracles for the CUDA kernels
-``csrc/sivf_fused_search.cu`` (raw fp32) and ``csrc/sivf_pq_fused_search.cu``
-(PQ/ADC).
+"""Plain PyTorch scans: the oracles for the CUDA kernels
+``csrc/sivf_fused_search.cu`` (raw fp32), ``csrc/sivf_pq_fused_search.cu``
+(PQ/ADC) and ``csrc/sivf_scan.cu`` (the unfused raw scan).
 
 Counterpart of ``repro/kernels/sivf_scan/ref.py`` plus the running top-k
 fold of ``repro/kernels/sivf_scan/fused.py:61-91`` and the column scans of
@@ -9,7 +9,10 @@ column, and each column's ``[Q, C]`` masked candidates are folded into a
 running ``[Q, k]`` list. The merge row is ``[running k | C candidates in
 slot order]`` and a *stable* sort keeps the lowest merge-row index on
 equal distances, as ``lax.top_k`` does; every ``+inf`` result carries
-label ``-1``. The ``[Q, T*C]`` candidate matrix is never built.
+label ``-1``. The ``[Q, T*C]`` candidate matrix is never built, except
+by :func:`sivf_scan_ref`, whose output it is (counterpart of
+``repro/kernels/sivf_scan/ref.py``): it writes each column's block in
+place of the fold.
 
 A slot is a candidate when its validity bit is set, its table entry is
 not ``-1`` and, for a filtered search, its attributes pass the compiled
@@ -70,27 +73,74 @@ def fold_topk(run_d: torch.Tensor, run_l: torch.Tensor, d: torch.Tensor,
     return nd, torch.where(torch.isinf(nd), -1, nl)
 
 
-def _scan_topk(score, table: torch.Tensor, ids: torch.Tensor,
-               bitmap: torch.Tensor, k: int, attrs, fstruct, fconsts
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The column scan both plain versions share: ``score(sc)`` gives the
-    ``[Q, C]`` distances of column slabs ``sc`` [Q] (pads clipped to 0)."""
-    qn = table.shape[0]
+def _columns(score, table: torch.Tensor, ids: torch.Tensor,
+             bitmap: torch.Tensor, attrs, fstruct, fconsts):
+    """The column scan every plain version shares: yields ``(t, d, lab)``,
+    column ``t``'s masked ``[Q, C]`` candidates, for each column that holds
+    a live entry. ``score(sc)`` gives the ``[Q, C]`` distances of column
+    slabs ``sc`` [Q] (pads clipped to 0); a column of ``-1`` pads only
+    holds ``+inf`` / ``-1`` candidates and is skipped."""
     c = ids.shape[1]
-    run_d = torch.full((qn, k), torch.inf, dtype=torch.float32,
-                       device=table.device)
-    run_l = torch.full((qn, k), -1, dtype=torch.int32, device=table.device)
-    # a column of -1 pads only adds +inf candidates: folding it is a no-op
     for t in torch.nonzero((table >= 0).any(0)).reshape(-1).tolist():
         col = table[:, t]
         sc = col.clamp(min=0).long()
         ok = bm.unpack_batch(bitmap[sc], c) & (col >= 0).unsqueeze(1)
         if fstruct is not None:
             ok &= predicate_mask(attrs[sc], fstruct, fconsts)
-        d = torch.where(ok, score(sc), torch.inf)
-        lab = torch.where(ok, ids[sc], -1)
+        yield t, torch.where(ok, score(sc), torch.inf), \
+            torch.where(ok, ids[sc], -1)
+
+
+def _scan_topk(score, table: torch.Tensor, ids: torch.Tensor,
+               bitmap: torch.Tensor, k: int, attrs, fstruct, fconsts
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold every column's candidates into a running ``[Q, k]`` top-k."""
+    qn = table.shape[0]
+    run_d = torch.full((qn, k), torch.inf, dtype=torch.float32,
+                       device=table.device)
+    run_l = torch.full((qn, k), -1, dtype=torch.int32, device=table.device)
+    for _, d, lab in _columns(score, table, ids, bitmap, attrs, fstruct,
+                              fconsts):
         run_d, run_l = fold_topk(run_d, run_l, d, lab, k)
     return run_d, run_l
+
+
+def _raw_score(queries: torch.Tensor, data: torch.Tensor,
+               norms: torch.Tensor, metric: str):
+    """``score(sc)`` of the raw fp32 scans: L2 ``||q||^2 - 2 q.x + ||x||^2``,
+    IP ``-q.x``, each sum in index order (:func:`dot_in_order`)."""
+    qf = queries.to(torch.float32)
+    qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
+
+    def score(sc):
+        dot = dot_in_order(qf, data[sc].to(torch.float32))
+        return qq - 2.0 * dot + norms[sc] if metric == "l2" else -dot
+
+    return score
+
+
+def sivf_scan_ref(queries: torch.Tensor, table: torch.Tensor,
+                  data: torch.Tensor, ids: torch.Tensor, norms: torch.Tensor,
+                  bitmap: torch.Tensor, metric: str = "l2"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """queries [Q,D], table [Q,T] (-1 pad) -> (dists [Q,T*C] f32, labels
+    [Q,T*C] i32): slot ``c`` of entry ``t`` at column ``t*C + c``.
+
+    Operands as in :func:`sivf_fused_search_ref`. A dead slot or a ``-1``
+    entry's slots are ``+inf`` / ``-1``. Scores column by column (no
+    ``[Q, T, C, D]`` gather), with the fused scan's arithmetic.
+    """
+    qn, t = table.shape
+    c = ids.shape[1]
+    dists = torch.full((qn, t, c), torch.inf, dtype=torch.float32,
+                       device=table.device)
+    labels = torch.full((qn, t, c), -1, dtype=torch.int32,
+                        device=table.device)
+    for col, d, lab in _columns(_raw_score(queries, data, norms, metric),
+                                table, ids, bitmap, None, None, None):
+        dists[:, col] = d
+        labels[:, col] = lab
+    return dists.reshape(qn, t * c), labels.reshape(qn, t * c)
 
 
 def sivf_fused_search_ref(queries: torch.Tensor, table: torch.Tensor,
@@ -107,14 +157,8 @@ def sivf_fused_search_ref(queries: torch.Tensor, table: torch.Tensor,
     IP scores ``-q.x``. With ``fstruct``, ``attrs`` [n_slabs,C,A] i32 and
     ``fconsts`` [n_consts] i32 mask the slots that fail the predicate.
     """
-    qf = queries.to(torch.float32)
-    qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
-
-    def score(sc):
-        dot = dot_in_order(qf, data[sc].to(torch.float32))
-        return qq - 2.0 * dot + norms[sc] if metric == "l2" else -dot
-
-    return _scan_topk(score, table, ids, bitmap, k, attrs, fstruct, fconsts)
+    return _scan_topk(_raw_score(queries, data, norms, metric), table, ids,
+                      bitmap, k, attrs, fstruct, fconsts)
 
 
 def sivf_pq_fused_search_ref(adc: torch.Tensor, table: torch.Tensor,

@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, sivf_torch, repro_torch.core, repro_torch.interop; "
             "import repro_torch.kernels.sivf_scan.ops; "
             "import repro_torch.kernels.sivf_scan.pq_fused; "
+            "import repro_torch.kernels.sivf_scan.sivf_scan; "
+            "import repro_torch.kernels.topk.ops; "
             "import repro_torch.core.filters, repro_torch.core.pq; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
@@ -86,12 +88,16 @@ def test_kernel_build_is_content_addressed():
 
 
 def test_slice_modules_import_nothing_of_the_jax_package():
-    """The PQ and filter modules are among the files checked above, and
-    each imports nothing of JAX or of the JAX package."""
+    """The PQ, filter and unfused-scan modules are among the files checked
+    above, and each imports nothing of JAX or of the JAX package."""
     port = REPO / "src" / "repro_torch"
     new = [port / "core" / "filters.py", port / "core" / "pq.py",
            port / "kernels" / "sivf_scan" / "pq_fused.py",
-           port / "kernels" / "sivf_scan" / "ops.py"]
+           port / "kernels" / "sivf_scan" / "ops.py",
+           port / "kernels" / "sivf_scan" / "sivf_scan.py",
+           port / "kernels" / "sivf_scan" / "ref.py"] + [
+        port / "kernels" / "topk" / f"{name}.py"
+        for name in ("__init__", "ref", "topk", "ops")]
     for path in new:
         assert path in PORT_FILES
         assert not imported_roots(path) & FORBIDDEN, path
@@ -114,6 +120,24 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     assert header in _build.sources("sivf_pq_fused_search")
 
 
+def test_shared_arithmetic_header_renames_both_raw_scans(tmp_path,
+                                                        monkeypatch):
+    """``dot_row.cuh`` holds the raw scans' arithmetic: editing it renames
+    the fused and the unfused raw scan's libraries, and no other."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.KERNELS}
+    header = csrc / "dot_row.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    changed = {n for n in _build.KERNELS
+               if _build.library_path(n) != before[n]}
+    assert changed == {"sivf_fused_search", "sivf_scan"}
+
+
 def test_kernel_list_names_every_source():
     assert "sivf_pq_fused_search" in _build.KERNELS
+    assert {"sivf_scan", "topk"} <= set(_build.KERNELS)
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)
