@@ -25,10 +25,23 @@ against it in time and peak device memory over the batch size. The data
 is a synthetic 128-wide Gaussian mixture made from ``--seed`` with numpy;
 no dataset file is read.
 
+Once the index paths are freed, the ``lm`` phase serves Llama-3-8B at
+full width (32 layers, bf16, random weights from ``init_params`` seeded
+with ``--seed``) through ``repro_torch.serve.paged_lm.PagedLMEngine``: a
+page pool of 1024 pages of 16 slots, eight sequence slots; four prompts
+of 2048, 1000, 517 and 129 tokens, 64 lockstep decode steps, a window
+slide, an eviction, a fifth prompt of 300 tokens onto the freed pages,
+16 more steps, every step fed teacher-forced tokens. Prefill runs the
+flash kernel and decode the paged kernel; both are held against their
+plain versions on the path's own inputs, and the whole traffic is run
+again with ``attn_impl="ref"`` and held to the same page state and to
+the logits tolerance ``LM_LOGIT_RTOL``.
+
 Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, each path's
 phases and full-size kernel checks and timings (the unfused path's after
-the raw path's phases), the ``{"kernels": [...]}``
+the raw path's phases), the ``lm``, ``lm.kernels_full_width`` and
+``lm.vs_ref`` lines, the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -37,6 +50,7 @@ result. It imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -64,6 +78,7 @@ N_SEARCH = 6                      # unfiltered search batches per path
 CHECK_QUERIES = 64                # full-size queries held against plain
 RTOL = 1e-5                       # distance tolerance, card vs CPU state
 FP32_PEAK = 67e12                 # H100 SXM fp32 (non-tensor) FLOP/s
+BF16_PEAK = 989e12                # H100 SXM bf16 dense tensor-core FLOP/s
 REPRESENTATIVE = "in_10pct"       # filtered selectivity in the kernels line
 
 
@@ -123,6 +138,22 @@ def cuda_median_ms(fn, reps: int) -> float:
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def cuda_median_ms_cold(fn, reps: int, flush) -> float:
+    """As :func:`cuda_median_ms`, with ``flush()`` (outside the events)
+    before each launch, so that the launch finds the L2 cache cold."""
+    import torch
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for s, e in ev:
+        flush()
         s.record()
         fn()
         e.record()
@@ -400,6 +431,10 @@ def phase_kernel_checks(torch) -> dict:
     max_err = max(max_err, err)
     out["topk_cases"], err = topk_edge_checks(torch, rng)
     out["max_abs_err"] = max(max_err, err)
+    out["paged_attention_cases"], perr = paged_edge_checks(torch, rng)
+    out["flash_attention_cases"], ferr = flash_edge_checks(torch, rng)
+    out["attention_max_abs_err"] = {
+        dt: max(perr[dt], ferr[dt]) for dt in ("float32", "bfloat16")}
     out["slice_card_vs_cpu"] = slice_small_check(torch, rng)
     return out
 
@@ -618,12 +653,15 @@ def recall(torch, lab, best) -> float:
 
 
 def zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.reclaim import reclaim
     from repro_torch.kernels.sivf_scan import fused, pq_fused, sivf_scan
     from repro_torch.kernels.topk import topk
     fused.launches = fused.filtered_launches = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
+    paged_attention.launches = flash_attention.launches = 0
 
 
 def read_counts() -> dict:
@@ -844,15 +882,15 @@ def passing_plane(torch, st, pred):
 
 
 def row(name, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
-        hbm) -> dict:
+        hbm, peak=FP32_PEAK, library_ms=None) -> dict:
     """A ``kernels`` line entry: the bound is the larger of the bytes over
-    the HBM rate and the operations over fp32 peak."""
-    tb, to = bytes_ / hbm, ops / FP32_PEAK
+    the HBM rate and the operations over ``peak`` (fp32 unless given)."""
+    tb, to = bytes_ / hbm, ops / peak
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(tb, to) * 1e3,
             "bound_by": "bytes" if tb >= to else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
@@ -1271,9 +1309,554 @@ def reclaim_bytes(reclaim_ref, ops) -> int:
     return 4 * len(words)
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path: paged decode (TPU kernel 5) and flash prefill
+# (TPU kernel 6)
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
+PAGED_SRC = "src/repro_torch/csrc/paged_attention.cu"
+PAGED_REP = "src/repro/kernels/paged_attention/paged_attention.py:66"
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REP = "src/repro/kernels/flash_attention/flash_attention.py:68"
+# Llama-3-8B at full width (32 layers, bf16) behind PagedLMEngine: a
+# 16,384-slot page pool (2 GiB of K+V), eight sequence slots
+LM_ARCH = "llama3-8b"
+LM_ENGINE = dict(page_size=16, n_pages=1024, max_seqs=8,
+                 max_pages_per_seq=256)
+LM_PROMPTS = (2048, 1000, 517, 129)    # admitted into slots 0..3
+LM_READMIT = 300                       # into slot 3 once it is evicted
+LM_STEPS = (64, 16)                    # decode steps before / after
+LM_KEEP = 1024                         # slide(0, keep_last=LM_KEEP)
+LM_LOGIT_RTOL = 0.1                    # engine vs attn_impl="ref" (PERF.md)
+
+
+FULL_WIDTH_RTOL = 2.0 ** -7    # one bf16 step of the value compared ...
+FULL_WIDTH_ATOL = 2.0 ** -7    # ... plus one of RMS(plain), its typical size
+
+
+def attn_err(what: str, got, want, dtype: str, full_width: bool = False
+             ) -> float:
+    """Largest |kernel - plain| (float32), held to the dtype's tolerance
+    as ``allclose(rtol=atol=tol)``; at ``full_width`` (bf16 on the path's
+    own inputs) to ``|d| <= 2^-7 |plain| + 2^-7 RMS(plain)``, scaled to
+    the values compared: a kernel that rounds the same float32 value
+    differently passes it and one that drops a slot of a window does
+    not."""
+    import torch
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    if full_width:
+        rms = float(want.square().mean().sqrt()) if want.numel() else 0.0
+        atol, rtol = FULL_WIDTH_ATOL * rms, FULL_WIDTH_RTOL
+    else:
+        atol = rtol = ATTN_TOL[dtype]
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    if bool(bad.any()):
+        i = tuple(int(x) for x in torch.nonzero(bad)[0])
+        raise CheckFailed(f"{what}: {int(bad.sum())} of {bad.numel()} "
+                          f"entries beyond {atol} + {rtol}·|plain|; first "
+                          f"at {i}: kernel {float(got[i])!r} vs plain "
+                          f"{float(want[i])!r}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def planted_control(what: str, got, wrong) -> dict:
+    """Hold the kernel's output ``got`` through the full-width
+    :func:`attn_err` against ``wrong``, the plain version of a planted
+    fault; the check must refuse it. Returns how far the fault moved the
+    output and how much of it the check saw."""
+    try:
+        attn_err(what, got, wrong, "bfloat16", full_width=True)
+    except CheckFailed as e:
+        d = (got.float() - wrong.float()).abs()
+        tol = ATTN_TOL["bfloat16"]
+        return {"refused": True, "max_abs_shift": float(d.max()),
+                "rms_plain": float(wrong.float().square().mean().sqrt()),
+                "entries": d.numel(),
+                "entries_beyond_allclose_2e-2": int(
+                    (d > tol + tol * wrong.float().abs()).sum()),
+                "message": str(e)}
+    raise CheckFailed(f"{what}: the full-width check passed a planted "
+                      "fault")
+
+
+def paged_inputs(torch, rng, b, page, maxp, hq, hkv, dk, dv, dtype,
+                 dev="cuda"):
+    """Random q and pages, and a block table whose rows fold in the edge
+    cases: an all-pad row (row 0 when B > 1), a one-token window, a
+    length exactly at a page end with ``starts`` mid-page, a ``-1`` pad
+    inside the window, a plain random window."""
+    n_pages = b * maxp + 3
+    q = rng.normal(size=(b, hq, dk)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, page, hkv, dk)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, page, hkv, dv)).astype(np.float32)
+    tables = np.full((b, maxp), -1, np.int32)
+    lengths = np.zeros(b, np.int32)
+    starts = np.zeros(b, np.int32)
+    perm = rng.permutation(n_pages)
+    for i in range(b):
+        n = int(rng.integers(1, maxp + 1))
+        tables[i, :n] = perm[i * maxp:i * maxp + n]
+        lengths[i] = int(rng.integers(1, n * page + 1))
+        starts[i] = int(rng.integers(0, lengths[i]))
+        kind = i % 5 if b > 1 else 2
+        if kind == 0:
+            tables[i] = -1
+        elif kind == 1:
+            starts[i] = lengths[i] - 1
+        elif kind == 2:
+            lengths[i], starts[i] = n * page, page // 2 + 1
+        elif kind == 3 and n > 1:
+            tables[i, n // 2] = -1
+            starts[i] = 0
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(a).to(dev) if a.dtype == np.int32 else
+            torch.from_numpy(a).to(dev, dt)
+            for a in (q, kp, vp, tables, lengths, starts)]
+
+
+def paged_edge_checks(torch, rng) -> tuple[list, dict]:
+    """The paged decode kernel vs its plain version: page 8/16/32, g = 1,
+    2, 4, dk = dv and dk != dv, ``-1`` pads, an all-pad row (output 0),
+    ``starts`` mid-page, a length at a page end, one live token, B = 1 and
+    B = 8, float32 and bfloat16."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        paged_attention_cuda,
+    )
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cases, errs = [], {"float32": 0.0, "bfloat16": 0.0}
+    shapes = [(8, 16, 6, 32, 8, 128, 128), (8, 8, 9, 16, 8, 64, 64),
+              (8, 32, 4, 8, 8, 128, 64), (1, 16, 5, 4, 4, 128, 128),
+              (1, 32, 3, 32, 8, 64, 96), (8, 16, 4, 2, 1, 16, 40)]
+    for b, page, maxp, hq, hkv, dk, dv in shapes:
+        for dtype in ("float32", "bfloat16"):
+            args = paged_inputs(torch, rng, b, page, maxp, hq, hkv, dk, dv,
+                                dtype)
+            got = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            want = paged_attention_ref(*args)
+            name = (f"B={b}/page={page}/g={hq // hkv}/dk={dk}/dv={dv}/"
+                    f"{dtype}")
+            errs[dtype] = max(errs[dtype], attn_err(name, got, want, dtype))
+            if b > 1:
+                check(bool((got[0] == 0).all()), f"{name}: all-pad row not 0")
+            cases.append(name)
+    return cases, errs
+
+
+def flash_edge_checks(torch, rng) -> tuple[list, dict]:
+    """The flash kernel vs its plain version: causal and not, Sq = Sk and
+    Sq < Sk, S = 1, 17, 129 and 1000 (ragged tiles), g = 1 and 4, dh 128
+    and 64, float32 and bfloat16."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    cases, errs = [], {"float32": 0.0, "bfloat16": 0.0}
+    lengths = [(1, 1), (17, 17), (129, 129), (1000, 1000), (1, 1000),
+               (17, 129), (129, 1000)]
+    for sq, sk in lengths:
+        for causal in (True, False):
+            for b, hq, hkv, dh in ((1, 8, 2, 128), (2, 2, 2, 64)):
+                for dtype in ("float32", "bfloat16"):
+                    dt = getattr(torch, dtype)
+                    q, k, v = (torch.from_numpy(rng.normal(size=(
+                        b, h, s, dh)).astype(np.float32)).to("cuda", dt)
+                        for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+                    got = flash_attention_cuda(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    want = mha_ref(q, k, v, causal)
+                    name = (f"Sq={sq}/Sk={sk}/causal={causal}/g={hq // hkv}/"
+                            f"dh={dh}/{dtype}")
+                    errs[dtype] = max(errs[dtype],
+                                      attn_err(name, got, want, dtype))
+                    cases.append(name)
+    return cases, errs
+
+
+class Capture:
+    """While entered, record the arguments of the engine's calls of
+    ``mod.<name>`` at the given call indices (layers), cloned, and pass
+    every call through unchanged."""
+
+    def __init__(self, mod, name: str, calls):
+        self.mod, self.name, self.calls = mod, name, set(calls)
+        self.orig, self.n, self.args = getattr(mod, name), 0, {}
+
+    def __enter__(self):
+        def hook(*args, **kwargs):
+            if self.n in self.calls:
+                self.args[self.n] = (
+                    [a.clone() if hasattr(a, "clone") else a for a in args],
+                    dict(kwargs))
+            self.n += 1
+            return self.orig(*args, **kwargs)
+        setattr(self.mod, self.name, hook)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def control_pair(name: str, out, plain, args, kw) -> tuple:
+    """The kernel's output and the plain version of the same call with
+    each window one slot short, without the newest key: for the paged
+    kernel the token the step just wrote (``lengths - 1``), for the
+    causal flash kernel each row's own position (rows 1.. of the output
+    against keys 0..S-2 for queries 1..S-1)."""
+    if name == "paged_attention":
+        q, kp, vp, tables, lengths, starts = args
+        return out, plain(q, kp, vp, tables, lengths - 1, starts, **kw)
+    q, k, v = args
+    check(kw.get("causal", True), "the flash control needs causal inputs")
+    return out[:, :, 1:], plain(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1],
+                                **kw)
+
+
+def lm_traffic(seed: int, vocab: int) -> tuple[list, np.ndarray]:
+    """Prompts (four admits, then the re-admit) and the teacher-forced
+    token of every slot at every decode step, from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32)
+               for n in LM_PROMPTS + (LM_READMIT,)]
+    forced = rng.integers(1, vocab, (sum(LM_STEPS), LM_ENGINE["max_seqs"])
+                          ).astype(np.int32)
+    return prompts, forced
+
+
+def serve_lm(torch, eng, prompts, forced, captures=None,
+             dev="cuda") -> dict:
+    """Drive ``eng`` through the LM traffic: admit the four prompts, decode
+    ``LM_STEPS[0]`` lockstep steps, slide slot 0's window, evict slot 3,
+    admit the fifth prompt into slot 3 (onto the freed pages), decode
+    ``LM_STEPS[1]`` more. Every step's input tokens are the forced ones.
+    ``captures`` maps an operation (``"admit0"``, ``"step64"``) to the
+    :class:`Capture` that records its attention inputs.
+    Returns timings, the page state after each operation, each step's
+    logits and active mask, and the free-stack top around each eviction."""
+    from repro_torch.interop import page_state_to_numpy
+    captures = captures or {}
+    out = {"admit": [], "step_ms": [], "pages": [], "logits": [],
+           "active": []}
+    forced_t = torch.from_numpy(forced).to(dev)
+
+    def run(op, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captures.get(op) or contextlib.nullcontext():
+            r = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["pages"].append((op, page_state_to_numpy(eng.pages)))
+        return r, ms
+
+    def admit(seq, toks):
+        ok, ms = run(f"admit{seq}", lambda: eng.admit(seq, toks))
+        check(ok, f"admit of {len(toks)} tokens into slot {seq} refused")
+        out["admit"].append({"slot": seq, "tokens": len(toks), "ms": ms,
+                             "tokens_per_s": len(toks) / ms * 1e3})
+
+    def step(i):
+        eng.last_tokens = forced_t[i][:, None].clone()
+        _, ms = run(f"step{i}", eng.step)
+        out["step_ms"].append(ms)
+        out["logits"].append(eng.logits[:, 0].clone())
+        out["active"].append(eng.pages.active.clone())
+
+    def lifecycle(name, fn):
+        before = int(eng.pages.free_top)
+        _, ms = run(name, fn)
+        out[name] = {"ms": ms, "free_top_before": before,
+                     "free_top_after": int(eng.pages.free_top)}
+
+    for seq, toks in enumerate(prompts[:len(LM_PROMPTS)]):
+        admit(seq, toks)
+    for i in range(LM_STEPS[0]):
+        step(i)
+    lifecycle("slide", lambda: eng.slide(0, LM_KEEP))
+    lifecycle("evict", lambda: eng.evict(3))
+    admit(3, prompts[len(LM_PROMPTS)])
+    for i in range(LM_STEPS[0], sum(LM_STEPS)):
+        step(i)
+    return out
+
+
+def device_profile(torch, fn, reps: int = 1) -> dict:
+    """Device time of ``reps`` calls of ``fn`` by kernel name
+    (``torch.profiler``): the device-busy milliseconds per call and the
+    five kernels that take most of it. ``None`` where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0) or 0
+
+    # the kernels themselves (device events), not the host ops that
+    # launched them, whose device time would count each kernel twice
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in events) / 1e3
+    return {"calls": reps,
+            "device_ms_per_call": total / reps if total else None,
+            "top": [{"name": e.key[:80], "ms_per_call":
+                     dev_us(e) / 1e3 / reps, "launches": e.count}
+                    for e in events[:5] if dev_us(e)]}
+
+
+def paged_work(q, k_pages, v_pages, tables, lengths, starts) -> tuple:
+    """(bytes, flops) one paged call must move and do on these inputs:
+    each live K/V row of every window read once (a slot whose table entry
+    is -1 is no work), q, the tables and the output once."""
+    page, hkv, dk = k_pages.shape[1:]
+    dv = v_pages.shape[-1]
+    b, hq, _ = q.shape
+    tab = tables.cpu().numpy()
+    ln, st = lengths.cpu().numpy(), starts.cpu().numpy()
+    slot = np.arange(tab.shape[1] * page)
+    live = ((slot[None] < ln[:, None]) & (slot[None] >= st[:, None])
+            & np.repeat(tab >= 0, page, axis=1)).sum()
+    es = q.element_size()
+    bytes_ = int(live) * hkv * (dk + dv) * es + 2 * b * hq * max(dk, dv) \
+        * es + tab.size * 4 + 2 * b * 4
+    flops = int(live) * hq * 2 * (dk + dv)
+    return bytes_, flops, int(live)
+
+
+def flash_work(q, k, causal=True) -> tuple:
+    """(bytes, flops) of one flash call: q, k, v and the output once; two
+    products of dh per visible (q row, k column) pair and q head."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rows = np.arange(sq) + (sk - sq)
+    visible = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
+    es = q.element_size()
+    return (2 * (b * hq * sq * dh + b * hkv * sk * dh) * es,
+            4 * b * hq * dh * visible)
+
+
+def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
+    """Serve Llama-3-8B at full width through PagedLMEngine on the card,
+    hold both attention kernels against their plain versions on the
+    path's own inputs (layers 0 and 31 of the 2048-token admit and of the
+    first step after the re-admit), rerun the traffic with
+    ``attn_impl="ref"`` and hold the engines to each other."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.paged_lm import PagedLMEngine
+    from repro_torch.sharding.rules import unpadded_plan
+    cfg = get_arch(LM_ARCH)
+    plan = unpadded_plan(cfg)
+    last = cfg.n_layers - 1
+    prompts, forced = lm_traffic(seed, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (params, init_ms) = timed(lambda: init_params(cfg, plan, seed=seed,
+                                                  device=dev))
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # a first pass on a throwaway engine: first use of each kernel and
+    # GEMM shape (CUDA's lazy module loading, cuBLAS set-up) is timed
+    # apart; the profiler then reads two decode steps at its end and one
+    # admit of the 129-token prompt into a free slot
+    warm = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE)
+    cold = serve_lm(torch, warm, prompts, forced, dev=dev)
+    profile = {"decode_step": device_profile(torch, warm.step, reps=2),
+               "admit_129": device_profile(
+                   torch, lambda: warm.admit(len(LM_PROMPTS), prompts[3]))}
+    del warm
+    eng = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE)
+    pool_bytes = 2 * eng.k_pool.numel() * eng.k_pool.element_size()
+    readmit_step = f"step{LM_STEPS[0]}"
+    caps = {"admit0": Capture(fops, "flash_attention", (0, last)),
+            readmit_step: Capture(pops, "paged_attention", (0, last))}
+    zero_counts()                                # counts of this path
+    t0 = time.perf_counter()
+    got = serve_lm(torch, eng, prompts, forced, caps, dev)
+    path_s = time.perf_counter() - t0
+    launches = {"paged_attention": pk.launches,
+                "flash_attention": fk.launches}
+    n_admits = len(LM_PROMPTS) + 1
+    n_steps = sum(LM_STEPS)
+    check(launches["flash_attention"] == cfg.n_layers * n_admits,
+          f"flash launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} x {n_admits} admits")
+    check(launches["paged_attention"] == cfg.n_layers * n_steps,
+          f"paged launches {launches['paged_attention']} != "
+          f"{cfg.n_layers} x {n_steps} steps")
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = np.array(got["step_ms"])
+    after = steps[LM_STEPS[0]:]
+    active = [int(a.sum()) for a in got["active"]]
+    lm_line = {
+        "phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "dtype": cfg.dtype, "params": cfg.param_count(),
+        "param_bytes": param_bytes, "pool_bytes": pool_bytes,
+        "engine": LM_ENGINE, "init_params_ms": init_ms,
+        "admit": got["admit"],
+        "decode_steps": n_steps, "step_ms": got["step_ms"],
+        "step_ms_median": float(np.median(steps)),
+        "step_ms_median_before_slide": float(np.median(
+            steps[:LM_STEPS[0]])),
+        "step_ms_median_after_readmit": float(np.median(after)),
+        "decode_tokens_per_s_median": float(np.median(
+            np.array(active) / steps * 1e3)),
+        "first_pass": {"admit_ms": [a["ms"] for a in cold["admit"]],
+                       "step_ms_first": cold["step_ms"][0],
+                       "step_ms_median": float(np.median(cold["step_ms"]))},
+        "profile": profile,
+        "slide": got["slide"], "evict": got["evict"],
+        "peak_device_bytes": peak, "launches": launches,
+        "path_seconds": path_s}
+
+    # each kernel vs its plain version on the path's own inputs
+    full = {}
+    for name, cap, kern, plain in (
+            ("flash_attention", caps["admit0"], fk.flash_attention_cuda,
+             mha_ref),
+            ("paged_attention", caps[readmit_step], pk.paged_attention_cuda,
+             paged_attention_ref)):
+        check(set(cap.args) == {0, last}, f"{name}: captured layers "
+              f"{sorted(cap.args)}")
+        errs, rms, controls = {}, {}, {}
+        for li, (args, kw) in cap.args.items():
+            k_out = kern(*args, **kw)
+            torch.cuda.synchronize()
+            want = plain(*args, **kw)
+            errs[li] = attn_err(f"{name} layer {li} at full width", k_out,
+                                want, "bfloat16", full_width=True)
+            rms[li] = float(want.float().square().mean().sqrt())
+            controls[li] = planted_control(
+                f"{name} layer {li}, window short by one slot",
+                *control_pair(name, k_out, plain, args, kw))
+        full[name] = {"max_abs_err_by_layer": errs,
+                      "rms_plain_by_layer": rms,
+                      "limit": f"{FULL_WIDTH_RTOL}*|plain| + "
+                               f"{FULL_WIDTH_ATOL}*RMS(plain)",
+                      "control_short_window_by_layer": controls,
+                      "shapes": [list(a.shape) for a in cap.args[0][0]
+                                 if hasattr(a, "shape")]}
+    fa, fkw = caps["admit0"].args[0]
+    pa, pkw = caps[readmit_step].args[0]
+    # the path finds a layer's pages (and mostly its q, k, v) out of the
+    # 50 MB L2: each timed launch follows a 256 MB write
+    scratch = torch.empty(1 << 26, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    f_ms = cuda_median_ms_cold(
+        lambda: fk.flash_attention_cuda(*fa, **fkw), 20, flush)
+    f_warm = cuda_median_ms(lambda: fk.flash_attention_cuda(*fa, **fkw), 20)
+    f_plain = cuda_ms(lambda: mha_ref(*fa, **fkw), reps=3)
+    q, k, v = fa
+
+    def sdpa():                 # the library yardstick: rounds P to bf16
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    f_lib = cuda_median_ms(sdpa, 20)
+    lib_err = float((sdpa().float() - mha_ref(q, k, v).float()).abs().max())
+    f_bytes, f_flops = flash_work(q, k)
+    p_ms = cuda_median_ms_cold(
+        lambda: pk.paged_attention_cuda(*pa, **pkw), 20, flush)
+    p_warm = cuda_median_ms(lambda: pk.paged_attention_cuda(*pa, **pkw), 20)
+    del scratch
+    p_plain = cuda_ms(lambda: paged_attention_ref(*pa, **pkw), reps=3)
+    p_bytes, p_flops, live = paged_work(*pa)
+    rows = [row("paged_attention", PAGED_SRC, PAGED_REP,
+                launches["paged_attention"],
+                max(full["paged_attention"]["max_abs_err_by_layer"].values()),
+                p_ms, p_plain, p_bytes, p_flops, hbm),
+            row("flash_attention", FLASH_SRC, FLASH_REP,
+                launches["flash_attention"],
+                max(full["flash_attention"]["max_abs_err_by_layer"].values()),
+                f_ms, f_plain, f_bytes, f_flops, hbm, peak=BF16_PEAK,
+                library_ms=f_lib)]
+    full["paged_attention"].update(
+        ms=p_ms, ms_l2_warm=p_warm, plain_ms=p_plain, live_slots=live, bytes=p_bytes,
+        flops=p_flops, bound_ms=rows[0]["bound_ms"],
+        bound_by=rows[0]["bound_by"],
+        pct_of_bound=rows[0]["bound_ms"] / p_ms * 100,
+        per_step_ms=p_ms * cfg.n_layers)
+    full["flash_attention"].update(
+        ms=f_ms, ms_l2_warm=f_warm, plain_ms=f_plain, flops=f_flops, bytes=f_bytes,
+        bound_ms=rows[1]["bound_ms"], bound_by=rows[1]["bound_by"],
+        bound_ms_fp32_cuda_cores=max(f_flops / FP32_PEAK,
+                                     f_bytes / hbm) * 1e3,
+        pct_of_bound=rows[1]["bound_ms"] / f_ms * 100,
+        achieved_tflops=f_flops / f_ms / 1e9,
+        sdpa_bf16_ms=f_lib, sdpa_max_abs_err_vs_plain=lib_err,
+        per_admit_ms=f_ms * cfg.n_layers)
+    for name, wall in (("decode_step", float(np.median(after))),
+                       ("admit_129", got["admit"][3]["ms"])):
+        busy = profile[name]["device_ms_per_call"]
+        if busy is not None:            # against the unprofiled run's time
+            profile[name]["idle_share"] = 1 - busy / wall
+    del caps, fa, pa, q, k, v
+    full_line = {"phase": "lm.kernels_full_width", **full}
+
+    # the same traffic through the plain versions; the engines agree
+    logits_k, active_k = got["logits"], got["active"]
+    pages_k = got["pages"]
+    del eng, got
+    torch.cuda.empty_cache()
+    ref_eng = PagedLMEngine(cfg, plan, params, device=dev,
+                            attn_impl="ref", **LM_ENGINE)
+    t0 = time.perf_counter()
+    ref = serve_lm(torch, ref_eng, prompts, forced, dev=dev)
+    ref_s = time.perf_counter() - t0
+    check([op for op, _ in ref["pages"]] == [op for op, _ in pages_k],
+          "the two runs took different operations")
+    for (op, a), (_, b) in zip(pages_k, ref["pages"]):
+        for plane in a:
+            check(np.array_equal(a[plane], b[plane]),
+                  f"page state after {op}: plane {plane} differs")
+    worst, top1, n_rows, mean_rel = 0.0, 0, 0, []
+    for i, (lk, lr, ak, ar) in enumerate(zip(logits_k, ref["logits"],
+                                             active_k, ref["active"])):
+        check(torch.equal(ak, ar), f"step {i}: active slots differ")
+        lk, lr = lk[ak].float(), lr[ar].float()
+        check(bool(torch.isfinite(lk).all() and torch.isfinite(lr).all()),
+              f"step {i}: non-finite logits")
+        rel = float((lk - lr).abs().max() / lr.abs().max())
+        worst = max(worst, rel)
+        mean_rel.append(float((lk - lr).abs().mean() / lr.abs().mean()))
+        top1 += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        n_rows += lk.shape[0]
+    check(worst <= LM_LOGIT_RTOL, f"decode logits: max |kernel - ref| is "
+          f"{worst} of max |ref|, above {LM_LOGIT_RTOL}")
+    vs_ref = {"phase": "lm.vs_ref", "ref_path_seconds": ref_s,
+              "ref_step_ms_median": float(np.median(ref["step_ms"])),
+              "ref_admit_ms": [a["ms"] for a in ref["admit"]],
+              "page_states_equal": True, "operations": len(pages_k),
+              "logits_finite": True, "max_rel_logit_err": worst,
+              "mean_rel_logit_err": float(np.mean(mean_rel)),
+              "logit_rtol": LM_LOGIT_RTOL,
+              "top1_agreement": top1 / n_rows, "rows_compared": n_rows}
+    del ref_eng, ref, logits_k, params
+    torch.cuda.empty_cache()
+    return [lm_line, full_line, vs_ref], rows
+
+
 KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
                 "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
-                "reclaim", "sivf_scan", "topk")
+                "reclaim", "sivf_scan", "topk", "paged_attention",
+                "flash_attention")
 
 
 def main(argv=None) -> int:
@@ -1329,6 +1912,11 @@ def main(argv=None) -> int:
                     rows.update({r["name"]: r for r in got[1]})
             out.clear()                 # free the path's index
             torch.cuda.empty_cache()
+    got = run("lm", lambda: phase_lm(torch, args.seed, hbm))
+    if got:
+        for ln in got[0]:
+            emit(ln)
+        rows.update({r["name"]: r for r in got[1]})
     if rows:
         emit({"kernels": [rows[n] for n in KERNEL_ORDER if n in rows]})
     print(smi(), flush=True)

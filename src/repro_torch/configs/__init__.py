@@ -1,0 +1,32 @@
+"""Architecture registry of the port (counterpart of
+``repro/configs/__init__.py``).
+
+``ARCHS`` holds the configs the port can run: the dense GQA decoder
+``llama3-8b`` for now. Any other architecture of the reference raises
+``NotImplementedError`` from :func:`get_arch`, naming the ROADMAP item
+that ports its path; an unknown name raises ``KeyError``.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import llama3_8b
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [llama3_8b.CONFIG]}
+
+# the reference's other architectures, and the ROADMAP item that ports them
+NOT_PORTED: dict[str, str] = {
+    name: "ROADMAP.md queue 2 (TPU kernels to port, the LM paths)"
+    for name in ("minicpm3-4b", "qwen3-14b", "phi3-medium-14b",
+                 "llava-next-34b", "moonshot-v1-16b-a3b",
+                 "granite-moe-3b-a800m", "rwkv6-3b", "jamba-v0.1-52b",
+                 "whisper-base")
+}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: {NOT_PORTED[name]}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_operand
 
 launches = 0        # kernel launches made by this wrapper
 
@@ -39,13 +40,10 @@ def reclaim_cuda(slabs: torch.Tensor, count: torch.Tensor,
     global launches
     ops = (slabs, count, heads, nxt, prv, owner, cursor, free_stack,
            free_top, tables, table_len, table_pos)
-    for t in ops:
-        if not t.is_cuda or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(
-                "reclaim_cuda takes contiguous int32 CUDA tensors, got "
-                f"{t.dtype} on {t.device}; the CPU path is ref.reclaim_ref")
-    if {t.device for t in ops} != {slabs.device}:
-        raise ValueError("all operands must be on one device")
+    names = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
+             "free_stack", "free_top", "tables", "table_len", "table_pos")
+    for name, t in zip(names, ops):
+        check_operand(name, t, slabs.device, torch.int32)
     if count.numel() != 1 or free_top.numel() != 1 or tables.dim() != 2:
         raise ValueError("count and free_top hold one value; tables is 2-D")
     fn = _fn()

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.filters import leaf_program
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_operand
 
 launches = 0            # unfiltered kernel launches made by this wrapper
 filtered_launches = 0   # filtered kernel launches made by this wrapper
@@ -48,20 +49,6 @@ def _fn():
     return fn
 
 
-def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim`` dims
-    on the CUDA ``device``."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}; "
-                         "the CPU path is kernels/sivf_scan/ref.py")
-    if t.device != device:
-        raise ValueError("all operands must be on one device")
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} with {ndim} dims, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-
-
 def raw_scan_operands(queries: torch.Tensor, table: torch.Tensor,
                       data: torch.Tensor, ids: torch.Tensor,
                       norms: torch.Tensor, bitmap: torch.Tensor, metric: str
@@ -76,7 +63,7 @@ def raw_scan_operands(queries: torch.Tensor, table: torch.Tensor,
                             ("ids", ids, torch.int32, 2),
                             ("norms", norms, torch.float32, 2),
                             ("bitmap", bitmap, torch.int32, 2)):
-        check_operand(name, t, dt, nd, dev)
+        check_operand(name, t, dev, dt, nd)
     qn, d_dim = queries.shape
     n_slabs, c, _ = data.shape
     words = c // 32
@@ -101,7 +88,7 @@ def filter_operands(attrs: torch.Tensor | None, fstruct: tuple | None,
     they point into. ``attrs`` [n_slabs, C, A] int32 on ``device``."""
     if fstruct is None:
         return None, None, 0, None, 0, ()
-    check_operand("attrs", attrs, torch.int32, 3, device)
+    check_operand("attrs", attrs, device, torch.int32, 3)
     if tuple(attrs.shape[:2]) != (n_slabs, c):
         raise ValueError(f"attrs shape {tuple(attrs.shape)} does not match "
                          f"the slab planes {(n_slabs, c)}")

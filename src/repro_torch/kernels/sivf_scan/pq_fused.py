@@ -27,7 +27,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sivf_scan.fused import check_operand, filter_operands
+from repro_torch.kernels._checks import check_operand
+from repro_torch.kernels.sivf_scan.fused import filter_operands
 
 launches = 0            # unfiltered kernel launches made by this wrapper
 filtered_launches = 0   # filtered kernel launches made by this wrapper
@@ -73,7 +74,7 @@ def sivf_pq_fused_search_cuda(adc: torch.Tensor, table: torch.Tensor,
                             ("codes", codes, torch.uint8, 3),
                             ("ids", ids, torch.int32, 2),
                             ("bitmap", bitmap, torch.int32, 2)):
-        check_operand(name, t, dt, nd, dev)
+        check_operand(name, t, dev, dt, nd)
     qn, m, ksub = adc.shape
     n_slabs, c, _ = codes.shape
     words = c // 32

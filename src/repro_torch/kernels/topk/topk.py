@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sivf_scan.fused import check_operand
+from repro_torch.kernels._checks import check_operand
 from repro_torch.kernels.topk.ref import check_operands
 
 launches = 0            # kernel launches made by this wrapper
@@ -41,8 +41,8 @@ def topk_cuda(dists: torch.Tensor, labels: torch.Tensor, k: int
     and raises if the launch is refused."""
     global launches
     dev = dists.device
-    check_operand("dists", dists, torch.float32, 2, dev)
-    check_operand("labels", labels, torch.int32, 2, dev)
+    check_operand("dists", dists, dev, torch.float32, 2)
+    check_operand("labels", labels, dev, torch.int32, 2)
     check_operands(dists, labels, k)
     qn, n = dists.shape
     if n >= 2 ** 31 - 1024:

@@ -11,7 +11,15 @@ import pytest
 import torch
 
 import sivf_torch
+from repro_torch.configs import get_arch
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as fkernel
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.paged_attention import paged_attention as pkernel
+from repro_torch.models import model
+from repro_torch.serve.paged_lm import PagedLMEngine
+from repro_torch.sharding.rules import unpadded_plan
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + sorted(
@@ -43,6 +51,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.sivf_scan.sivf_scan; "
             "import repro_torch.kernels.topk.ops; "
             "import repro_torch.core.filters, repro_torch.core.pq; "
+            "import repro_torch.serve.paged_lm, repro_torch.models.model; "
+            "import repro_torch.kernels.paged_attention.ops; "
+            "import repro_torch.kernels.flash_attention.ops; "
+            "import repro_torch.configs; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -63,6 +75,54 @@ def test_default_device_is_the_card():
         with pytest.raises(RuntimeError):
             sivf_torch.init_state(cfg, cents)
     assert sivf_torch.Index(cfg, cents, device="cpu").device.type == "cpu"
+    # the LM slice: init_params and PagedLMEngine
+    cfg = get_arch("llama3-8b").reduced()
+    plan = unpadded_plan(cfg)
+    if torch.cuda.is_available():
+        assert model.init_params(cfg, plan).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_params(cfg, plan)
+    params = model.init_params(cfg, plan, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedLMEngine(cfg, plan, params)
+    eng = PagedLMEngine(cfg, plan, params, device="cpu")
+    assert eng.k_pool.device.type == "cpu" and eng.attn_impl == "kernel"
+
+
+@pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
+def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
+    """A tensor that does not lie on the CPU (here on the ``meta`` device,
+    as no card is needed to make one) goes to the kernel's wrapper and
+    never to the plain version: an error the wrapper raises propagates."""
+    class Launched(Exception):
+        pass
+
+    def launch(*args, **kwargs):
+        raise Launched(name)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    if name == "paged_attention":
+        ops, wrapper, ref = pops, pkernel, "paged_attention_ref"
+        args = (torch.empty(2, 4, 8), torch.empty(3, 4, 2, 8),
+                torch.empty(3, 4, 2, 8),
+                torch.zeros(2, 2, dtype=torch.int32),
+                torch.ones(2, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int32))
+    else:
+        ops, wrapper, ref = fops, fkernel, "mha_ref"
+        args = (torch.empty(1, 4, 5, 8), torch.empty(1, 2, 5, 8),
+                torch.empty(1, 2, 5, 8))
+    monkeypatch.setattr(wrapper, f"{name}_cuda", launch)
+    monkeypatch.setattr(ops, ref, plain)
+    with pytest.raises(Launched):
+        getattr(ops, name)(*(a.to("meta") for a in args))
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
+        getattr(ops, name)(*(a.to("meta") for a in args))
 
 
 def test_smoke_script_refuses_to_run_without_a_card(tmp_path):
@@ -140,4 +200,5 @@ def test_shared_arithmetic_header_renames_both_raw_scans(tmp_path,
 def test_kernel_list_names_every_source():
     assert "sivf_pq_fused_search" in _build.KERNELS
     assert {"sivf_scan", "topk"} <= set(_build.KERNELS)
+    assert {"paged_attention", "flash_attention"} <= set(_build.KERNELS)
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)
