@@ -37,11 +37,25 @@ plain versions on the path's own inputs, and the whole traffic is run
 again with ``attn_impl="ref"`` and held to the same page state and to
 the logits tolerance ``LM_LOGIT_RTOL``.
 
+Then the ``rwkv`` phase serves RWKV6-3B whole (32 layers, bf16) and the
+``hybrid`` phase Jamba-v0.1-52B at full width cut to one 8-layer period
+(attention, Mamba and MoE layers; the whole model is 103 GB in bf16),
+each through the same engine and traffic, with random weights from
+``--seed``: the recurrence kernel (``wkv6``, ``mamba_scan``) is held
+against its plain version on edge sets and on the path's own inputs,
+each sequence slot to its own limit, where a decode step started from a
+zeroed state must be refused; and the traffic is run again in float32 on
+a kernel engine beside an ``attn_impl="ref"`` engine, held to the same
+page state and to ``RNN_F32_RTOL`` on the logits and recurrent states of
+the active slots after every operation, with a rounding-level control
+engine reported beside it.
+
 Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, each path's
 phases and full-size kernel checks and timings (the unfused path's after
 the raw path's phases), the ``lm``, ``lm.kernels_full_width`` and
-``lm.vs_ref`` lines, the ``{"kernels": [...]}``
+``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid``, the
+``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -654,14 +668,17 @@ def recall(torch, lab, best) -> float:
 
 def zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.reclaim import reclaim
     from repro_torch.kernels.sivf_scan import fused, pq_fused, sivf_scan
     from repro_torch.kernels.topk import topk
+    from repro_torch.kernels.wkv6 import wkv6
     fused.launches = fused.filtered_launches = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
     paged_attention.launches = flash_attention.launches = 0
+    mamba_scan.launches = wkv6.launches = 0
 
 
 def read_counts() -> dict:
@@ -1527,60 +1544,63 @@ def lm_traffic(seed: int, vocab: int) -> tuple[list, np.ndarray]:
     return prompts, forced
 
 
-def serve_lm(torch, eng, prompts, forced, captures=None,
-             dev="cuda") -> dict:
-    """Drive ``eng`` through the LM traffic: admit the four prompts, decode
+def lm_operations(prompts, forced_t) -> list:
+    """The LM traffic as ``(name, call)`` pairs, ``call(engine)`` running
+    the operation: admit the four prompts into slots 0..3, decode
     ``LM_STEPS[0]`` lockstep steps, slide slot 0's window, evict slot 3,
     admit the fifth prompt into slot 3 (onto the freed pages), decode
-    ``LM_STEPS[1]`` more. Every step's input tokens are the forced ones.
+    ``LM_STEPS[1]`` more. Every step's input tokens are the forced ones."""
+    def admit(seq, toks):
+        return f"admit{seq}", lambda eng: eng.admit(seq, toks)
+
+    def step(i):
+        def go(eng):
+            eng.last_tokens = forced_t[i][:, None].clone()
+            return eng.step()
+        return f"step{i}", go
+
+    n = len(LM_PROMPTS)
+    return ([admit(seq, toks) for seq, toks in enumerate(prompts[:n])]
+            + [step(i) for i in range(LM_STEPS[0])]
+            + [("slide", lambda eng: eng.slide(0, LM_KEEP)),
+               ("evict", lambda eng: eng.evict(3)), admit(3, prompts[n])]
+            + [step(i) for i in range(LM_STEPS[0], sum(LM_STEPS))])
+
+
+def serve_lm(torch, eng, prompts, forced, captures=None,
+             dev="cuda") -> dict:
+    """Drive ``eng`` through the LM traffic (:func:`lm_operations`).
     ``captures`` maps an operation (``"admit0"``, ``"step64"``) to the
-    :class:`Capture` that records its attention inputs.
+    :class:`Capture` that records its kernels' inputs.
     Returns timings, the page state after each operation, each step's
-    logits and active mask, and the free-stack top around each eviction."""
+    logits and active mask, and the free-stack top around the slide and
+    the eviction."""
     from repro_torch.interop import page_state_to_numpy
     captures = captures or {}
     out = {"admit": [], "step_ms": [], "pages": [], "logits": [],
            "active": []}
-    forced_t = torch.from_numpy(forced).to(dev)
-
-    def run(op, fn):
+    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev)):
+        before = int(eng.pages.free_top)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with captures.get(op) or contextlib.nullcontext():
-            r = fn()
+            r = call(eng)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         out["pages"].append((op, page_state_to_numpy(eng.pages)))
-        return r, ms
-
-    def admit(seq, toks):
-        ok, ms = run(f"admit{seq}", lambda: eng.admit(seq, toks))
-        check(ok, f"admit of {len(toks)} tokens into slot {seq} refused")
-        out["admit"].append({"slot": seq, "tokens": len(toks), "ms": ms,
-                             "tokens_per_s": len(toks) / ms * 1e3})
-
-    def step(i):
-        eng.last_tokens = forced_t[i][:, None].clone()
-        _, ms = run(f"step{i}", eng.step)
-        out["step_ms"].append(ms)
-        out["logits"].append(eng.logits[:, 0].clone())
-        out["active"].append(eng.pages.active.clone())
-
-    def lifecycle(name, fn):
-        before = int(eng.pages.free_top)
-        _, ms = run(name, fn)
-        out[name] = {"ms": ms, "free_top_before": before,
-                     "free_top_after": int(eng.pages.free_top)}
-
-    for seq, toks in enumerate(prompts[:len(LM_PROMPTS)]):
-        admit(seq, toks)
-    for i in range(LM_STEPS[0]):
-        step(i)
-    lifecycle("slide", lambda: eng.slide(0, LM_KEEP))
-    lifecycle("evict", lambda: eng.evict(3))
-    admit(3, prompts[len(LM_PROMPTS)])
-    for i in range(LM_STEPS[0], sum(LM_STEPS)):
-        step(i)
+        if op.startswith("admit"):
+            seq = int(op[len("admit"):])
+            n = int(eng.pages.lengths[seq])
+            check(r, f"admit of {n} tokens into slot {seq} refused")
+            out["admit"].append({"slot": seq, "tokens": n, "ms": ms,
+                                 "tokens_per_s": n / ms * 1e3})
+        elif op.startswith("step"):
+            out["step_ms"].append(ms)
+            out["logits"].append(eng.logits[:, 0].clone())
+            out["active"].append(eng.pages.active.clone())
+        else:
+            out[op] = {"ms": ms, "free_top_before": before,
+                       "free_top_after": int(eng.pages.free_top)}
     return out
 
 
@@ -1853,10 +1873,590 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
     return [lm_line, full_line, vs_ref], rows
 
 
+# ---------------------------------------------------------------------------
+# The RWKV6 and hybrid serving paths: the WKV6 recurrence (TPU kernel 8)
+# and the selective scan (TPU kernel 7)
+# ---------------------------------------------------------------------------
+
+WKV6_SRC = "src/repro_torch/csrc/wkv6.cu"
+WKV6_REP = "src/repro/kernels/wkv6/wkv6.py:44"
+SCAN_SRC = "src/repro_torch/csrc/mamba_scan.cu"
+SCAN_REP = "src/repro/kernels/mamba_scan/mamba_scan.py:44"
+# both phases serve the lm phase's traffic behind the same engine shape
+RNN_PHASES = {
+    "rwkv": dict(arch="rwkv6-3b", kernel="wkv6", kind="rwkv", cut=None),
+    # Jamba-v0.1-52B is 103.1 GB in bf16: one 8-layer period (attention at
+    # position 4, MoE at 1, 3, 5, 7, Mamba elsewhere; 26.6 GB) at full width
+    "hybrid": dict(arch="jamba-v0.1-52b", kernel="mamba_scan", kind="mamba",
+                   cut=8),
+}
+# float32 kernel vs float32 plain version: |d| <= REC_RTOL |plain| +
+# REC_ATOL RMS(plain), the RMS over each sequence slot's own outputs and
+# the sums taken in another order; a recurrence that loses or misapplies
+# its state moves the output by its own scale
+REC_RTOL = REC_ATOL = 1e-4
+# engine vs attn_impl="ref" in float32: max |d| / max |ref| of the logits
+# and of every recurrent state of the active slots. Random weights at full
+# width amplify a rounding flip by orders of magnitude over the layers, so
+# the engines are held to each other in float32, where the kernels' other
+# summation order is all that differs. An idle slot decodes its forced
+# token every step from whatever state it has (overwritten by its next
+# admit): it is reported beside a control engine that moves the plain
+# recurrence's output by one float32 rounding step (CONTROL_REL), and the
+# kernel check holds it to its own limit on the path's inputs
+RNN_F32_RTOL = 1e-3
+CONTROL_REL = 2.0 ** -23
+SM_COUNT, BOOST_HZ = 132, 1.98e9
+SFU_RATE = SM_COUNT * 16 * BOOST_HZ   # ex2 results/s (16 a clock per SM)
+
+
+def rec_limit(w):
+    """The limit on |kernel - plain| for a plain output ``w`` [B, ...]:
+    ``REC_RTOL |w| + REC_ATOL RMS``, the RMS taken over each batch row (a
+    sequence slot on the path), so that a fault confined to a slot of
+    small values shows."""
+    rms = w.square().flatten(1).mean(1).sqrt()
+    return REC_ATOL * rms.view(-1, *[1] * (w.dim() - 1)) \
+        + REC_RTOL * w.abs()
+
+
+def rec_err(what: str, got, want) -> float:
+    """Largest |kernel - plain| over the outputs ``got`` and ``want``
+    (tuples of float32 tensors), each entry held to :func:`rec_limit`."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape, f"{what}[{i}]: shape {tuple(g.shape)} vs "
+              f"{tuple(w.shape)}")
+        check(bool(g.isfinite().all()), f"{what}[{i}]: non-finite output")
+        d = (g - w).abs()
+        lim = rec_limit(w)
+        bad = d > lim
+        if bool(bad.any()):
+            j = tuple(int(x) for x in bad.nonzero()[0])
+            raise CheckFailed(
+                f"{what}[{i}]: {int(bad.sum())} of {bad.numel()} entries "
+                f"beyond {REC_ATOL}·RMS(slot) + {REC_RTOL}·|plain|; first "
+                f"at {j}: kernel {float(g[j])!r} vs plain {float(w[j])!r}, "
+                f"limit {float(lim[j])!r}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def rec_control(what: str, got, wrong) -> dict:
+    """Hold the kernel's outputs ``got`` through :func:`rec_err` against
+    ``wrong``, the plain version of a planted fault; the check must refuse
+    it. Returns how far the fault moved the output."""
+    try:
+        rec_err(what, got, wrong)
+    except CheckFailed as e:
+        d = (got[0] - wrong[0]).abs()
+        return {"refused": True, "max_abs_shift": float(d.max()),
+                "rms_plain": float(wrong[0].square().mean().sqrt()),
+                "entries_beyond": int((d > rec_limit(wrong[0])).sum()),
+                "entries": d.numel(), "message": str(e)[:300]}
+    raise CheckFailed(f"{what}: the full-width check passed a planted fault")
+
+
+def wkv6_inputs(torch, rng, b, t, h, dk, dv, w_kind, dev="cuda"):
+    """Random r, k, v, u, a non-zero s0, and the decay w: near 0
+    (1e-3..1e-2), near 1 (1 - 1e-4..1e-3) or the model's own form
+    exp(-exp(x))."""
+    f = np.float32
+    r, k, w_raw = (rng.normal(size=(b, t, h, dk)).astype(f) for _ in "rkw")
+    v = rng.normal(size=(b, t, h, dv)).astype(f)
+    if w_kind == "near0":
+        w = rng.uniform(1e-3, 1e-2, size=r.shape).astype(f)
+    elif w_kind == "near1":
+        w = (1 - rng.uniform(1e-4, 1e-3, size=r.shape)).astype(f)
+    else:
+        w = np.exp(-np.exp(w_raw - 0.6)).astype(f)
+    u = (0.1 * rng.normal(size=(h, dk))).astype(f)
+    s0 = rng.normal(size=(b, h, dk, dv)).astype(f)
+    return [torch.from_numpy(a).to(dev) for a in (r, k, v, w, u, s0)]
+
+
+def wkv6_edge_checks(torch, rng, dev="cuda") -> tuple[list, float]:
+    """The WKV6 kernel vs its plain version: T = 1, 2, 7, 64, 517; B = 1
+    and 3 with a non-zero initial state; dk = dv = 16 and 64 (and 128 x
+    32); w near 0, near 1 and of the model's form."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
+    cases, err = [], 0.0
+    shapes = [(dk, dk) for dk in (16, 64)] + [(128, 32)]
+    for dk, dv in shapes:
+        for t in (1, 2, 7, 64, 517):
+            for w_kind in ("near0", "near1", "model"):
+                b = 1 if t == 517 else 3
+                args = wkv6_inputs(torch, rng, b, t, 3, dk, dv, w_kind, dev)
+                got = wkv6_cuda(*args)
+                torch.cuda.synchronize()
+                name = f"B={b}/T={t}/dk={dk}/dv={dv}/w={w_kind}"
+                err = max(err, rec_err(name, got, wkv6_ref(*args)))
+                cases.append(name)
+    return cases, err
+
+
+def mamba_inputs(torch, rng, b, t, di, n, dev="cuda"):
+    """Random u, b, c, d, a non-zero h0, delta = softplus(N(-1, 1)) and
+    a = -exp(log U(0.5, 16)) (decays in (0, 1), as the model's)."""
+    f = np.float32
+    u = rng.normal(size=(b, t, di)).astype(f)
+    delta = np.log1p(np.exp(rng.normal(-1, 1, size=(b, t, di)))).astype(f)
+    a = -rng.uniform(0.5, 16, size=(di, n)).astype(f)
+    bb, cc = (rng.normal(size=(b, t, n)).astype(f) for _ in "bc")
+    d = rng.normal(size=di).astype(f)
+    h0 = rng.normal(size=(b, di, n)).astype(f)
+    return [torch.from_numpy(x).to(dev) for x in (u, delta, a, bb, cc, d,
+                                                   h0)]
+
+
+def mamba_edge_checks(torch, rng, dev="cuda") -> tuple[list, float]:
+    """The selective-scan kernel vs its plain version: T = 1, 2, 7, 64,
+    517; B = 1 and 2 with a non-zero initial state; di = 40, 100 and 200
+    (not multiples of 32 or 128), n = 4, 16 and 64."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    cases, err = [], 0.0
+    for t in (1, 2, 7, 64, 517):
+        for di, n in ((40, 4), (100, 16), (200, 16), (72, 64)):
+            b = 1 if t == 517 else 2
+            args = mamba_inputs(torch, rng, b, t, di, n, dev)
+            got = mamba_scan_cuda(*args)
+            torch.cuda.synchronize()
+            name = f"B={b}/T={t}/di={di}/n={n}"
+            err = max(err, rec_err(name, got, mamba_scan_ref(*args)))
+            cases.append(name)
+    return cases, err
+
+
+def wkv6_work(r, k, v, w, u, s0) -> tuple:
+    """(bytes, flops, 0) of one WKV6 call: r, k, v, w, y once, u, s0 and
+    s_T once; per (step, head) 5 flops a state element (2 for r . S, 3 for
+    S = w S + k v) and the bonus as a scalar times v (3 a row of k, 2 a
+    column)."""
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+    bytes_ = 4 * (b * t * h * (3 * dk + 2 * dv) + h * dk + 2 * b * h * dk * dv)
+    return bytes_, b * t * h * (5 * dk * dv + 3 * dk + 2 * dv), 0
+
+
+def mamba_work(u, delta, a, b, c, d, h0) -> tuple:
+    """(bytes, flops, exps) of one selective-scan call: u, delta, y once,
+    a, b, c, d once, h0 and h_T once; per (step, channel, state element)
+    6 flops and one exp, per (step, channel) 3 flops."""
+    bsz, t, di = u.shape
+    n = a.shape[1]
+    bytes_ = 4 * (3 * bsz * t * di + di * n + 2 * bsz * t * n + di
+                  + 2 * bsz * di * n)
+    return bytes_, bsz * t * di * (6 * n + 3), bsz * t * di * n
+
+
+def rec_row(name, source, replaces, launches, err, ms, plain_ms, work,
+            hbm) -> dict:
+    """A ``kernels`` line entry: the bound is the largest of the bytes
+    over the HBM rate, the flops over the fp32 peak and the exps over the
+    SFU rate."""
+    bytes_, flops, exps = work
+    if exps / SFU_RATE > flops / FP32_PEAK:
+        return row(name, source, replaces, launches, err, ms, plain_ms,
+                   bytes_, exps, hbm, peak=SFU_RATE)
+    return row(name, source, replaces, launches, err, ms, plain_ms, bytes_,
+               flops, hbm)
+
+
+class Router:
+    """While entered, wrap ``mlp.moe_route``: engine 0's calls record
+    their top-k experts; every other engine's calls record what they would
+    choose and then take engine 0's choice of the same call, their own
+    probabilities renormalised over it, so that the engines differ only by
+    the kernels' arithmetic and the share of routing decisions that
+    rounding flips is measured without its cascade."""
+
+    def __init__(self, mlp_mod, engines: int = 2):
+        self.mod, self.orig = mlp_mod, mlp_mod.moe_route
+        self.engine, self.calls = 0, [[] for _ in range(engines)]
+
+    def begin(self, engine: int) -> None:
+        self.engine = engine
+        self.calls[engine].clear()
+
+    def __enter__(self):
+        def hook(p, cfg, plan, xf):
+            probs, topw, tope = self.orig(p, cfg, plan, xf)
+            mine = self.calls[self.engine]
+            mine.append(tope)
+            if self.engine == 0:
+                return probs, topw, tope
+            forced = self.calls[0][len(mine) - 1]
+            w = probs.gather(1, forced)
+            return probs, w / w.sum(-1, keepdim=True).clamp(min=1e-9), forced
+        self.mod.moe_route = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.orig
+
+    def differing(self, rows, engines) -> tuple[int, int]:
+        """(decisions whose expert set differs, decisions) between the two
+        ``engines``' own choices over the last operation's calls; ``rows``
+        restricts each call to those tokens."""
+        diff = total = 0
+        for a, b in zip(*(self.calls[e] for e in engines)):
+            a, b = a.sort(-1).values, b.sort(-1).values
+            if rows is not None:
+                a, b = a[rows], b[rows]
+            diff += int((a != b).any(-1).sum())
+            total += a.shape[0]
+        return diff, total
+
+
+def serve_lockstep(torch, engines, prompts, forced, on_op, begin,
+                   dev="cuda") -> dict:
+    """Drive ``engines`` through the LM traffic (:func:`lm_operations`)
+    together, one operation on each in turn, calling ``begin(i)`` before
+    engine i's share and ``on_op(op)`` after each operation. Returns each
+    engine's ``(op, ms)`` list."""
+    ms = {i: [] for i in range(len(engines))}
+    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev)):
+        for i, eng in enumerate(engines):
+            begin(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = call(eng)
+            torch.cuda.synchronize()
+            ms[i].append((op, (time.perf_counter() - t0) * 1e3))
+            check(ok is not False, f"{op} refused on engine {i}")
+        on_op(op)
+    return ms
+
+
+def rnn_config(spec: dict):
+    """The phase's model: the published config, cut in depth where
+    ``spec["cut"]`` says so."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(spec["arch"])
+    return cfg if spec["cut"] is None else dataclasses.replace(
+        cfg, n_layers=spec["cut"])
+
+
+def phase_rnn(torch, name: str, seed: int, hbm: float, dev="cuda"
+              ) -> tuple[list, list]:
+    """Serve ``RNN_PHASES[name]`` at full width through PagedLMEngine on
+    the card: the recurrence kernel's edge sets, the traffic (a throwaway
+    first pass, then the measured one with every launch count zeroed), the
+    kernel against its plain version on the path's own inputs (first and
+    last layer of the 2048-token admit, of the first step and of the first
+    step after the re-admit), each slot to its own limit, with a planted
+    control (the last of those steps from a zeroed state, the reference's
+    own kernel path), and the traffic once more in float32 beside an
+    ``attn_impl="ref"`` engine, held to it after every operation, and a
+    rounding-level control engine (reported)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.mamba_scan import mamba_scan as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import wkv6 as wk
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.paged_lm import PagedLMEngine
+    from repro_torch.sharding.rules import unpadded_plan
+    spec = RNN_PHASES[name]
+    kname, kind = spec["kernel"], spec["kind"]
+    if kname == "wkv6":
+        ops_mod, kmod, kern, plain = wops, wk, wk.wkv6_cuda, wkv6_ref
+        src, rep, edge, work = WKV6_SRC, WKV6_REP, wkv6_edge_checks, \
+            wkv6_work
+    else:
+        ops_mod, kmod, kern, plain = sops, sk, sk.mamba_scan_cuda, \
+            mamba_scan_ref
+        src, rep, edge, work = SCAN_SRC, SCAN_REP, mamba_edge_checks, \
+            mamba_work
+    t_phase = time.perf_counter()
+    cases, edge_err = edge(torch, np.random.default_rng(seed + 15), dev)
+
+    cfg = rnn_config(spec)
+    plan = unpadded_plan(cfg)
+    kinds = M.layer_kinds(cfg)
+    n_kind = kinds.count(kind)
+    last = n_kind - 1
+    prompts, forced = lm_traffic(seed, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, init_ms = timed(lambda: init_params(cfg, plan, seed=seed,
+                                                device=dev))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    warm = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE)
+    cold = serve_lm(torch, warm, prompts, forced, dev=dev)
+    profile = {"decode_step": device_profile(torch, warm.step, reps=2),
+               "admit_129": device_profile(
+                   torch, lambda: warm.admit(len(LM_PROMPTS), prompts[3]))}
+    del warm
+    eng = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE)
+    readmit_step = f"step{LM_STEPS[0]}"
+    caps = {op: Capture(ops_mod, kname, (0, last))
+            for op in ("admit0", "step0", readmit_step)}
+    zero_counts()                                # counts of this path
+    t0 = time.perf_counter()
+    got = serve_lm(torch, eng, prompts, forced, caps, dev)
+    path_s = time.perf_counter() - t0
+    n_ops = len(LM_PROMPTS) + 1 + sum(LM_STEPS)
+    launches = {kname: kmod.launches}
+    check(kmod.launches == n_kind * n_ops, f"{kname} launches "
+          f"{kmod.launches} != {n_kind} layers x {n_ops} admits and steps")
+    if "attn" in kinds:
+        n_attn = kinds.count("attn")
+        launches.update(flash_attention=fk.launches,
+                        paged_attention=pk.launches)
+        check(fk.launches == n_attn * (len(LM_PROMPTS) + 1) and
+              pk.launches == n_attn * sum(LM_STEPS),
+              f"attention launches {launches} on {n_attn} layers")
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = np.array(got["step_ms"])
+    after = steps[LM_STEPS[0]:]
+    active = [int(a.sum()) for a in got["active"]]
+    line = {
+        "phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "layer_kinds": {k: kinds.count(k) for k in M.KINDS},
+        "moe_layers": sum(cfg.is_moe_layer(li % cfg.layer_period)
+                          for li in range(cfg.n_layers)),
+        "reduced": None if spec["cut"] is None else {
+            "n_layers": f"{cfg.n_layers} of "
+                        f"{rnn_config(dict(spec, cut=None)).n_layers}: "
+                        "one period; the published model is "
+                        f"{rnn_config(dict(spec, cut=None)).param_count()} "
+                        "parameters, over 80 GB in bf16"},
+        "dtype": cfg.dtype, "params": cfg.param_count(),
+        "param_bytes": param_bytes, "engine": LM_ENGINE,
+        "init_params_ms": init_ms, "edge_cases": cases,
+        "edge_max_abs_err": edge_err, "admit": got["admit"],
+        "decode_steps": sum(LM_STEPS), "step_ms": got["step_ms"],
+        "step_ms_median": float(np.median(steps)),
+        "step_ms_median_before_slide": float(np.median(
+            steps[:LM_STEPS[0]])),
+        "step_ms_median_after_readmit": float(np.median(after)),
+        "decode_tokens_per_s_median": float(np.median(
+            np.array(active) / steps * 1e3)),
+        "first_pass": {"admit_ms": [a["ms"] for a in cold["admit"]],
+                       "step_ms_first": cold["step_ms"][0],
+                       "step_ms_median": float(np.median(cold["step_ms"]))},
+        "profile": profile, "slide": got["slide"], "evict": got["evict"],
+        "peak_device_bytes": peak, "launches": launches,
+        "path_seconds": path_s}
+    for what, wall in (("decode_step", float(np.median(after))),
+                       ("admit_129", got["admit"][3]["ms"])):
+        busy = profile[what]["device_ms_per_call"]
+        if busy is not None:            # against the unprofiled run's time
+            profile[what]["idle_share"] = 1 - busy / wall
+
+    # the kernel vs its plain version on the path's own inputs; the
+    # control: the decode step from a zeroed state
+    full = {"limit": f"{REC_RTOL}*|plain| + {REC_ATOL}*RMS(plain) over "
+                     "each slot"}
+    for op, cap in caps.items():
+        check(set(cap.args) == {0, last}, f"{name} {op}: captured layers "
+              f"{sorted(cap.args)}")
+        entry = {"shapes": [list(a.shape) for a in cap.args[0][0]],
+                 "max_abs_err_by_layer": {}, "rms_plain_by_layer": {}}
+        for li, (args, _) in cap.args.items():
+            k_out = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            entry["max_abs_err_by_layer"][li] = rec_err(
+                f"{kname} {op} layer {li} at full width", k_out, want)
+            entry["rms_plain_by_layer"][li] = float(
+                want[0].square().mean().sqrt())
+            if op == readmit_step:
+                zeroed = args[:-1] + [torch.zeros_like(args[-1])]
+                entry.setdefault("control_zero_state_by_layer", {})[li] = \
+                    rec_control(f"{kname} {op} layer {li} from a zeroed "
+                                "state", k_out, plain(*zeroed))
+        full[op] = entry
+    fa = caps["admit0"].args[0][0]
+    da = caps[readmit_step].args[0][0]
+    scratch = torch.empty(1 << 26, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    timing = {}
+    for op, args in (("admit0", fa), (readmit_step, da)):
+        timing[op] = {
+            "ms": cuda_median_ms_cold(lambda: kern(*args), 20, flush),
+            "ms_l2_warm": cuda_median_ms(lambda: kern(*args), 20),
+            "plain_ms": cuda_ms(lambda: plain(*args), reps=2)}
+        b_, f_, e_ = work(*args)
+        bound = max(b_ / hbm, f_ / FP32_PEAK, e_ / SFU_RATE) * 1e3
+        timing[op].update(bytes=b_, flops=f_, exps=e_, bound_ms=bound,
+                          pct_of_bound=bound / timing[op]["ms"] * 100)
+    del scratch
+    full["timing"] = timing
+    err = max(max(full[op]["max_abs_err_by_layer"].values())
+              for op in caps)
+    rows = [rec_row(kname, src, rep, launches[kname], err,
+                    timing["admit0"]["ms"], timing["admit0"]["plain_ms"],
+                    work(*fa), hbm)]
+    full_line = {"phase": f"{name}.kernels_full_width", **full}
+    del caps, fa, da, eng, got, params
+    torch.cuda.empty_cache()
+    vs_ref = engines_vs_ref(torch, name, cfg, plan, prompts, forced, seed,
+                            dev)
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    return [line, full_line, vs_ref], rows
+
+
+def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
+                   dev="cuda") -> dict:
+    """The ``RNN_PHASES[name]`` traffic in float32 on a kernel engine, an
+    ``attn_impl="ref"`` engine and a control (the ref engine with its plain
+    recurrence's output moved by ``CONTROL_REL N(0, 1)`` relative, a
+    rounding-level change) side by side. After every operation the page
+    states must be equal and the kernel engine's logits and recurrent
+    states of the active slots within ``RNN_F32_RTOL`` of the ref engine's;
+    the control's, and the idle slots' of both, are reported. For an MoE
+    model the other engines take the kernel engine's experts (:class:`Router`)
+    and the share of their own choices that differ is counted."""
+    import dataclasses
+
+    from repro_torch.interop import page_state_to_numpy
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.paged_lm import PagedLMEngine
+    kind = RNN_PHASES[name]["kind"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, plan, seed=seed, device=dev)
+    trio = [PagedLMEngine(cfg32, plan, params, device=dev, attn_impl=impl,
+                          **LM_ENGINE) for impl in ("kernel", "ref", "ref")]
+    rec_mod, rec_attr = (rwkv_mod, "wkv6_ref") if kind == "rwkv" else \
+        (mamba_mod, "mamba_scan_ref")
+    rec_plain = getattr(rec_mod, rec_attr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def moved(*args):
+        y, st = rec_plain(*args)
+        noise = torch.randn(y.shape, generator=gen, device=y.device)
+        return y * (1 + CONTROL_REL * noise), st
+
+    router = Router(mlp_mod, len(trio)) if cfg.moe else None
+
+    def begin(i):
+        if router is not None:
+            router.begin(i)
+        setattr(rec_mod, rec_attr, moved if i == 2 else rec_plain)
+
+    worst = {f"{who}_{where}": {} for who in ("kernel", "control")
+             for where in ("active", "idle")}
+    seen = {"ops": 0, "rows": 0, "top1": 0, "route_kernel": 0,
+            "route_control": 0, "route_total": 0}
+    mean_rel = []
+
+    def views(e, op):                   # name -> [slot, ...]
+        out = {f"{kd}[{j}]": pool.transpose(0, 1)
+               for kd, pools in e.state.items()
+               for j, pool in enumerate(pools)}
+        if op.startswith("step"):
+            out["logits"] = e.logits[:, 0]
+        return out
+
+    def on_op(op):
+        planes = [page_state_to_numpy(e.pages) for e in trio]
+        for plane in planes[0]:
+            check(all(np.array_equal(planes[0][plane], p[plane])
+                      for p in planes[1:]),
+                  f"{name} vs ref: page state after {op}: plane {plane} "
+                  "differs")
+        live = trio[0].pages.active
+        check(torch.equal(live, trio[1].pages.active),
+              f"{op}: active slots differ")
+        idle = ~live
+        ref = views(trio[1], op)
+        for who, eng in (("kernel", trio[0]), ("control", trio[2])):
+            got = views(eng, op)
+            for key, r in ref.items():
+                g = got[key]
+                check(bool(g.isfinite().all() and r.isfinite().all()),
+                      f"{op}: non-finite {key}")
+                rel = float((g[live] - r[live]).abs().max()
+                            / r[live].abs().max().clamp(min=1e-30))
+                act = worst[f"{who}_active"]
+                act[key] = max(act.get(key, 0.0), rel)
+                if who == "kernel":
+                    check(rel <= RNN_F32_RTOL, f"{name} vs ref after {op}: "
+                          f"{key} of the active slots differs by {rel} of "
+                          f"max |ref|, above {RNN_F32_RTOL}")
+                if bool(idle.any()):     # against max |ref| over all slots
+                    rel = float((g[idle] - r[idle]).abs().max()
+                                / r.abs().max().clamp(min=1e-30))
+                    off = worst[f"{who}_idle"]
+                    off[key] = max(off.get(key, 0.0), rel)
+        rows = None
+        if op.startswith("step"):
+            lk, lr = trio[0].logits[:, 0][live], ref["logits"][live]
+            mean_rel.append(float((lk - lr).abs().mean()
+                                  / lr.abs().mean()))
+            seen["top1"] += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+            seen["rows"] += lk.shape[0]
+            rows = live
+        if router is not None:
+            for who, pair in (("kernel", (0, 1)), ("control", (1, 2))):
+                d, n = router.differing(rows, pair)
+                seen[f"route_{who}"] += d
+            seen["route_total"] += n
+        seen["ops"] += 1
+
+    t0 = time.perf_counter()
+    try:
+        with router or contextlib.nullcontext():
+            ms = serve_lockstep(torch, trio, prompts, forced, on_op, begin,
+                                dev)
+    finally:
+        setattr(rec_mod, rec_attr, rec_plain)
+    vs_ref = {"phase": f"{name}.vs_ref", "dtype": "float32",
+              "lockstep_seconds": time.perf_counter() - t0,
+              "kernel_step_ms_median": float(np.median(
+                  [m for op, m in ms[0] if op.startswith("step")])),
+              "ref_step_ms_median": float(np.median(
+                  [m for op, m in ms[1] if op.startswith("step")])),
+              "ref_admit_ms": [m for op, m in ms[1]
+                               if op.startswith("admit")],
+              "page_states_equal": True, "operations": seen["ops"],
+              "logits_finite": True,
+              "max_rel_logit_err": worst["kernel_active"]["logits"],
+              "mean_rel_logit_err": float(np.mean(mean_rel)),
+              "max_rel_state_err": {k: v for k, v in
+                                    worst["kernel_active"].items()
+                                    if k != "logits"},
+              "rtol": RNN_F32_RTOL,
+              "top1_agreement": seen["top1"] / seen["rows"],
+              "rows_compared": seen["rows"],
+              "control": f"the ref engine, its recurrence's output x (1 + "
+                         f"{CONTROL_REL} N(0, 1)); idle slots against max "
+                         "|ref| over every slot",
+              "max_rel_err_vs_ref": worst}
+    if router is not None:
+        vs_ref.update(routing="the ref and control engines take the kernel "
+                      "engine's experts; their own choices are counted",
+                      routing_decisions=seen["route_total"],
+                      routing_decisions_differing=seen["route_kernel"],
+                      routing_share_differing=seen["route_kernel"]
+                      / max(seen["route_total"], 1),
+                      routing_share_differing_control_vs_ref=seen[
+                          "route_control"] / max(seen["route_total"], 1))
+    del trio, params
+    torch.cuda.empty_cache()
+    return vs_ref
+
+
 KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
                 "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
                 "reclaim", "sivf_scan", "topk", "paged_attention",
-                "flash_attention")
+                "flash_attention", "mamba_scan", "wkv6")
 
 
 def main(argv=None) -> int:
@@ -1917,6 +2517,12 @@ def main(argv=None) -> int:
         for ln in got[0]:
             emit(ln)
         rows.update({r["name"]: r for r in got[1]})
+    for name in RNN_PHASES:
+        got = run(name, lambda: phase_rnn(torch, name, args.seed, hbm))
+        if got:
+            for ln in got[0]:
+                emit(ln)
+            rows.update({r["name"]: r for r in got[1]})
     if rows:
         emit({"kernels": [rows[n] for n in KERNEL_ORDER if n in rows]})
     print(smi(), flush=True)

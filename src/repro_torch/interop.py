@@ -15,7 +15,9 @@ leaves (``{"embed": {"table": a}, "final_norm": ..., "layers": [{name:
 the port's layer ``l`` is position ``l % period``, entry ``l // period``.
 Weights keep their ``[d_in, d_out]`` layout: a crossing only stacks and
 splits, never transposes. KV page state crosses as ``{plane: array}`` of
-its seven planes. This module imports nothing of the reference package.
+its seven planes, and the engine's recurrent-state pools (RWKV6, Mamba)
+as the reference engine's per-position pools. This module imports
+nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pq import PQConfig
 from repro_torch.core.state import PLANES, SIVFConfig, SlabPoolState
 from repro_torch.models import model as M
-from repro_torch.models.common import param_group
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.utils import resolve_device
 
@@ -98,14 +99,12 @@ def state_to_numpy(state: SlabPoolState) -> dict:
 # LM parameters and KV page state
 # ---------------------------------------------------------------------------
 
-NORM_GROUPS = ("ln1", "ln2", "final_norm")
-
-
-def _leaf(a, dev, dtype, group: str) -> torch.Tensor:
-    """A numpy leaf on ``dev``; norm groups stay float32, the rest take
-    ``dtype`` when one is given."""
+def _leaf(a, dev, dtype, group: str, name: str) -> torch.Tensor:
+    """A numpy leaf on ``dev``; the float32 leaves (``M.FLOAT32_LEAVES``)
+    stay float32, the rest take ``dtype`` when one is given."""
     t = torch.from_numpy(np.array(a, copy=True))
-    if dtype is not None and group not in NORM_GROUPS:
+    keep = M.FLOAT32_LEAVES.get(group, ())
+    if dtype is not None and not (keep is None or name in keep):
         t = t.to(dtype)
     return t.to(dev)
 
@@ -114,7 +113,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
                       dtype=None) -> M.DecoderLM:
     """The port's parameters on ``device`` from the reference's stripped
     param tree with numpy leaves. ``dtype`` (default: as given) is the
-    storage dtype of matrices and embeddings; norm scales stay float32."""
+    storage dtype of matrices and embeddings; the float32 leaves (norm
+    scales, RWKV's ``w0``/``u``/group norm, Mamba's ``a_log``/``dt_bias``/
+    ``d``) stay float32. Every group of a layer crosses: ``ln1``, ``attn``
+    | ``tm`` | ``mamba``, ``ln2``, ``mlp`` | ``cm`` | ``moe``."""
     M.check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.layer_period
@@ -123,45 +125,93 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
                          f"{len(tree['layers'])}")
 
     def group(name, leaves, pick=lambda a: a):
-        return {k: _leaf(pick(a), dev, dtype, name)
+        return {k: _leaf(pick(a), dev, dtype, name, k)
                 for k, a in leaves.items()}
 
     layers = []
     for li in range(cfg.n_layers):
         pos, p = li % period, li // period
         lt = tree["layers"][pos]
-        g = {name: group(name, lt[name], lambda a: np.asarray(a)[p])
-             for name in ("ln1", "attn", "ln2", "mlp")}
-        layers.append(M.layer_module(
-            g["ln1"], param_group(**g["attn"]), g["ln2"],
-            param_group(**g["mlp"])))
+        layers.append(M.layer_module(**{
+            name: group(name, lt[name], lambda a: np.asarray(a)[p])
+            for name in lt}))
     head = group("head", tree["head"]) if "head" in tree else None
     return M.DecoderLM(group("embed", tree["embed"]),
                        group("final_norm", tree["final_norm"]), layers, head)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bfloat16 comes back as float32 (numpy has none)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
 def params_to_numpy(cfg: ModelConfig, params: M.DecoderLM) -> dict:
     """The reference's stripped param tree with numpy leaves, stacked
     ``[n_per, ...]`` per period position. bfloat16 leaves come back as
-    float32, the reference's storage dtype (numpy has no bfloat16)."""
+    float32, the reference's storage dtype."""
     period = cfg.layer_period
-
-    def host(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    tree = {"embed": {k: host(t) for k, t in params.embed.items()},
-            "final_norm": {k: host(t) for k, t in params.final_norm.items()},
+    tree = {"embed": {k: _host(t) for k, t in params.embed.items()},
+            "final_norm": {k: _host(t)
+                           for k, t in params.final_norm.items()},
             "layers": []}
     if hasattr(params, "head"):
-        tree["head"] = {k: host(t) for k, t in params.head.items()}
+        tree["head"] = {k: _host(t) for k, t in params.head.items()}
     for pos in range(period):
         stack = [params.layers[li] for li in range(pos, cfg.n_layers, period)]
         tree["layers"].append({
-            name: {k: np.stack([host(lp[name][k]) for lp in stack])
+            name: {k: np.stack([_host(lp[name][k]) for lp in stack])
                    for k in stack[0][name].keys()}
-            for name in ("ln1", "attn", "ln2", "mlp")})
+            for name in stack[0].keys()})
     return tree
+
+
+def recurrent_state_to_numpy(cfg: ModelConfig, pools: dict) -> list:
+    """The engine's recurrent-state pools in the reference engine's layout:
+    one entry per period position, ``None`` for an attention position, else
+    the tuple of that position's pools stacked over the periods,
+    ``[n_per, max_seqs, ...]`` (rwkv: time-mix ``x_prev``, ``S``,
+    channel-mix ``x_prev``; mamba: conv state, ``h``). ``pools`` maps a
+    kind to its tuple of ``[n_kind, max_seqs, ...]`` tensors (the engine's
+    ``state``). bfloat16 comes back as float32."""
+    kinds, ords, period = M.layer_kinds(cfg), M.ordinals(cfg), \
+        cfg.layer_period
+    out = []
+    for pos in range(period):
+        layers = range(pos, cfg.n_layers, period)
+        kind = kinds[pos]
+        out.append(None if kind == "attn" else tuple(
+            np.stack([_host(pool[ords[li]]) for li in layers])
+            for pool in pools[kind]))
+    return out
+
+
+def recurrent_state_from_numpy(cfg: ModelConfig, entries: list,
+                               device="cuda", dtype=None) -> dict:
+    """The inverse of :func:`recurrent_state_to_numpy`: ``{kind: tuple of
+    [n_kind, max_seqs, ...] tensors}`` on ``device``. The float32 states
+    (``S``, ``h``) stay float32; the token-shift and conv states take
+    ``dtype`` when one is given."""
+    dev = resolve_device(device)
+    kinds, period = M.layer_kinds(cfg), cfg.layer_period
+    if len(entries) != period:
+        raise ValueError(f"want {period} period positions, got "
+                         f"{len(entries)}")
+    out = {}
+    for kind in M.kinds_present(cfg):
+        if kind == "attn":
+            continue
+        layers = [li for li in range(cfg.n_layers) if kinds[li] == kind]
+        parts = []
+        for j in range(len(entries[layers[0] % period])):
+            t = torch.from_numpy(np.stack([      # layer order = ordinal
+                np.asarray(entries[li % period][j])[li // period]
+                for li in layers]))
+            if dtype is not None and j != 1:     # S and h: float32
+                t = t.to(dtype)
+            parts.append(t.to(dev))
+        out[kind] = tuple(parts)
+    return out
 
 
 def page_state_from_numpy(planes: dict, device="cuda") -> kvc.PageState:

@@ -33,7 +33,8 @@ ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
          "-fPIC", "-Xptxas", "-v")
 KERNELS = ("sivf_fused_search", "sivf_pq_fused_search", "reclaim",
-           "sivf_scan", "topk", "paged_attention", "flash_attention")
+           "sivf_scan", "topk", "paged_attention", "flash_attention",
+           "mamba_scan", "wkv6")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}

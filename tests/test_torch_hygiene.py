@@ -1,6 +1,7 @@
 """Boundaries of the port: no JAX inside it, the card by default, no
 quiet fallback from the card to the plain versions."""
 import ast
+import contextlib
 import os
 import subprocess
 import sys
@@ -11,12 +12,16 @@ import pytest
 import torch
 
 import sivf_torch
-from repro_torch.configs import get_arch
+from repro_torch.configs import NOT_PORTED, get_arch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.mamba_scan import mamba_scan as skernel
+from repro_torch.kernels.mamba_scan import ops as sops
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention import paged_attention as pkernel
+from repro_torch.kernels.wkv6 import ops as wops
+from repro_torch.kernels.wkv6 import wkv6 as wkernel
 from repro_torch.models import model
 from repro_torch.serve.paged_lm import PagedLMEngine
 from repro_torch.sharding.rules import unpadded_plan
@@ -55,6 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.paged_attention.ops; "
             "import repro_torch.kernels.flash_attention.ops; "
             "import repro_torch.configs; "
+            "import repro_torch.kernels.wkv6.ops; "
+            "import repro_torch.kernels.mamba_scan.ops; "
+            "import repro_torch.models.rwkv, repro_torch.models.mamba; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -91,6 +99,33 @@ def test_default_device_is_the_card():
     assert eng.k_pool.device.type == "cpu" and eng.attn_impl == "kernel"
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_recurrent_paths_default_to_the_card(arch):
+    """``init_params`` and ``PagedLMEngine`` of the RWKV6 and hybrid
+    slices run on the card unless the caller passes ``device="cpu"``."""
+    cfg = get_arch(arch).reduced()
+    plan = unpadded_plan(cfg)
+    if torch.cuda.is_available():
+        assert model.init_params(cfg, plan).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_params(cfg, plan)
+    params = model.init_params(cfg, plan, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedLMEngine(cfg, plan, params)
+    eng = PagedLMEngine(cfg, plan, params, device="cpu")
+    assert eng.attn_impl == "kernel"
+    assert all(p.device.type == "cpu" for pools in eng.state.values()
+               for p in pools)
+
+
+@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+def test_unported_archs_raise_naming_their_roadmap_item(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
+        get_arch(name)
+
+
 @pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
 def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
     """A tensor that does not lie on the CPU (here on the ``meta`` device,
@@ -123,6 +158,77 @@ def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
     monkeypatch.undo()
     with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
         getattr(ops, name)(*(a.to("meta") for a in args))
+
+
+def recurrence_args(name):
+    if name == "wkv6":
+        return (torch.empty(2, 3, 4, 16), torch.empty(2, 3, 4, 16),
+                torch.empty(2, 3, 4, 16), torch.empty(2, 3, 4, 16),
+                torch.empty(4, 16), torch.empty(2, 4, 16, 16))
+    return (torch.empty(2, 3, 40), torch.empty(2, 3, 40), torch.empty(40, 4),
+            torch.empty(2, 3, 4), torch.empty(2, 3, 4), torch.empty(40),
+            torch.empty(2, 40, 4))
+
+
+RECURRENCES = {"wkv6": (wops, wkernel, "wkv6_ref"),
+               "mamba_scan": (sops, skernel, "mamba_scan_ref")}
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENCES))
+def test_recurrence_ops_never_fall_back_off_the_cpu(name, monkeypatch):
+    """A tensor that does not lie on the CPU (here on the ``meta`` device)
+    goes to the kernel's wrapper and never to the plain version; the real
+    wrapper refuses a tensor that is not on a CUDA device."""
+    ops, wrapper, ref = RECURRENCES[name]
+
+    class Launched(Exception):
+        pass
+
+    def launch(*args, **kwargs):
+        raise Launched(name)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(wrapper, f"{name}_cuda", launch)
+    monkeypatch.setattr(ops, ref, plain)
+    args = [a.to("meta") for a in recurrence_args(name)]
+    with pytest.raises(Launched):
+        getattr(ops, name)(*args)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(ops, name)(*args)
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENCES))
+def test_recurrence_wrappers_raise_on_a_failed_build_or_launch(
+        name, monkeypatch, tmp_path):
+    """The wrapper past its operand check: a source that does not build
+    raises (``nvcc`` fails, or is not installed), and a launch that CUDA
+    refuses (the C side returns a CUDA error) raises; neither counts as a
+    launch."""
+    _, wrapper, _ = RECURRENCES[name]
+    args = [a.to("meta") for a in recurrence_args(name)]
+    monkeypatch.setattr(wrapper, "check_operand", lambda *a, **k: None)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / f"{name}.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        getattr(wrapper, f"{name}_cuda")(*args)
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(wrapper, "_fn", lambda: lambda *a: 700)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    with pytest.raises(RuntimeError, match="launch failed: cudaError 700"):
+        getattr(wrapper, f"{name}_cuda")(*args)
+    assert wrapper.launches == before
 
 
 def test_smoke_script_refuses_to_run_without_a_card(tmp_path):
@@ -201,4 +307,5 @@ def test_kernel_list_names_every_source():
     assert "sivf_pq_fused_search" in _build.KERNELS
     assert {"sivf_scan", "topk"} <= set(_build.KERNELS)
     assert {"paged_attention", "flash_attention"} <= set(_build.KERNELS)
+    assert {"mamba_scan", "wkv6"} <= set(_build.KERNELS)
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)
