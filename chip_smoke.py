@@ -32,10 +32,12 @@ page pool of 1024 pages of 16 slots, eight sequence slots; four prompts
 of 2048, 1000, 517 and 129 tokens, 64 lockstep decode steps, a window
 slide, an eviction, a fifth prompt of 300 tokens onto the freed pages,
 16 more steps, every step fed teacher-forced tokens. Prefill runs the
-flash kernel and decode the paged kernel; both are held against their
-plain versions on the path's own inputs, and the whole traffic is run
-again with ``attn_impl="ref"`` and held to the same page state and to
-the logits tolerance ``LM_LOGIT_RTOL``.
+flash kernel's tensor-core route (wgmma, P carried to ``P V`` as two
+bf16 terms; every flash launch of the path must take it) and decode the
+paged kernel's split over the window; both are held against their plain
+versions on the path's own inputs, and the whole traffic is run again
+with ``attn_impl="ref"`` and held to the same page state and to the
+logits tolerance ``LM_LOGIT_RTOL``.
 
 Then the ``rwkv`` phase serves RWKV6-3B whole (32 layers, bf16) and the
 ``hybrid`` phase Jamba-v0.1-52B at full width cut to one 8-layer period
@@ -48,14 +50,16 @@ zeroed state must be refused; and the traffic is run again in float32 on
 a kernel engine beside an ``attn_impl="ref"`` engine, held to the same
 page state and to ``RNN_F32_RTOL`` on the logits and recurrent states of
 the active slots after every operation, with a rounding-level control
-engine reported beside it.
+engine reported beside it. For ``wkv6`` the kernel and its plain version
+are also held against a float64 evaluation of the recurrence on the
+path's step-0 and re-admit-step inputs, active and idle slots apart.
 
 Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, each path's
 phases and full-size kernel checks and timings (the unfused path's after
 the raw path's phases), the ``lm``, ``lm.kernels_full_width`` and
-``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid``, the
-``{"kernels": [...]}``
+``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
+``rwkv.wkv6_float64`` before ``rwkv.vs_ref``), the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -283,13 +287,29 @@ def _build():
 
 
 def phase_build() -> dict:
+    """Build every kernel; count the flash library's tensor-core
+    instructions in its SASS (``cuobjdump -sass``: ``HGMMA`` is wgmma) and
+    keep its ``-Xptxas -v`` spill lines, one per kernel instance."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
              for n in b.KERNELS}
+    cuobjdump = str(Path(b.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(b.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=120).stdout.splitlines()
+    flash = {"hgmma": sum("HGMMA" in ln for ln in sass),
+             "hmma": sum("HMMA" in ln for ln in sass),
+             "spills": [ln.strip() for ln in
+                        b.build_log("flash_attention").splitlines()
+                        if "spill" in ln],
+             "ptxas_warnings": [ln.strip()[:160] for ln in
+                                b.build_log("flash_attention").splitlines()
+                                if "Performance" in ln or "ignored" in ln]}
+    check(flash["hgmma"] > 0, "libflash_attention has no HGMMA instruction")
     return {"phase": "build", "seconds": secs, "kernels": list(b.KERNELS),
-            "arch": b.ARCH, "ptxas": ptxas}
+            "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash}
 
 
 def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
@@ -678,6 +698,7 @@ def zero_counts() -> None:
     pq_fused.launches = pq_fused.filtered_launches = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
     paged_attention.launches = flash_attention.launches = 0
+    flash_attention.launches_tensor_core = flash_attention.launches_simt = 0
     mamba_scan.launches = wkv6.launches = 0
 
 
@@ -1435,62 +1456,99 @@ def paged_inputs(torch, rng, b, page, maxp, hq, hkv, dk, dv, dtype,
             for a in (q, kp, vp, tables, lengths, starts)]
 
 
+SPLIT_WINDOWS = ((100, 600), (256, 512), (0, None))   # (start, length)
+
+
 def paged_edge_checks(torch, rng) -> tuple[list, dict]:
     """The paged decode kernel vs its plain version: page 8/16/32, g = 1,
     2, 4, dk = dv and dk != dv, ``-1`` pads, an all-pad row (output 0),
     ``starts`` mid-page, a length at a page end, one live token, B = 1 and
-    B = 8, float32 and bfloat16."""
+    B = 8, rows of a width that is no whole 16-byte vector (plain loads);
+    and against the split over the window (equal shares of whole 32-slot
+    chunks, ``n_split`` a sequence): tables of ``maxp * page`` slots that
+    the shares do not divide, with a window crossing several shares, one
+    of 256 slots and a whole table, at Llama's and at MLA's shape (dk
+    288, dv 256, g 40, one KV head); float32 and bfloat16."""
     from repro_torch.kernels.paged_attention.paged_attention import (
+        launch_plan,
         paged_attention_cuda,
     )
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     cases, errs = [], {"float32": 0.0, "bfloat16": 0.0}
     shapes = [(8, 16, 6, 32, 8, 128, 128), (8, 8, 9, 16, 8, 64, 64),
               (8, 32, 4, 8, 8, 128, 64), (1, 16, 5, 4, 4, 128, 128),
-              (1, 32, 3, 32, 8, 64, 96), (8, 16, 4, 2, 1, 16, 40)]
-    for b, page, maxp, hq, hkv, dk, dv in shapes:
+              (1, 32, 3, 32, 8, 64, 96), (8, 16, 4, 2, 1, 16, 40),
+              (2, 8, 9, 4, 4, 36, 20)]
+    split_shapes = [(4, 16, 41, 32, 8, 128, 128), (4, 16, 37, 40, 1, 288, 256)]
+    for split_set, (b, page, maxp, hq, hkv, dk, dv) in (
+            [(False, sh) for sh in shapes] + [(True, sh) for sh in split_shapes]):
         for dtype in ("float32", "bfloat16"):
             args = paged_inputs(torch, rng, b, page, maxp, hq, hkv, dk, dv,
                                 dtype)
+            name = (f"B={b}/page={page}/maxp={maxp}/g={hq // hkv}/dk={dk}/"
+                    f"dv={dv}/{dtype}")
+            plan = launch_plan(*args[:4])
+            if split_set:
+                n = maxp * page
+                check(n % (32 * plan["n_split"]) and plan["n_split"] > 8,
+                      f"{name}: not a split set")
+                tables, lengths, starts = args[3:]
+                for i, (st, ln) in zip(range(1, b), SPLIT_WINDOWS):
+                    tables[i] = torch.arange(i * maxp, (i + 1) * maxp)
+                    starts[i], lengths[i] = st, n if ln is None else ln
+                name += f"/windows {SPLIT_WINDOWS}"
             got = paged_attention_cuda(*args)
             torch.cuda.synchronize()
             want = paged_attention_ref(*args)
-            name = (f"B={b}/page={page}/g={hq // hkv}/dk={dk}/dv={dv}/"
-                    f"{dtype}")
             errs[dtype] = max(errs[dtype], attn_err(name, got, want, dtype))
             if b > 1:
                 check(bool((got[0] == 0).all()), f"{name}: all-pad row not 0")
-            cases.append(name)
+            cases.append(f"{name} ({plan['n_split']} splits, "
+                         f"{plan['stages']} stages, vec={plan['vec']})")
     return cases, errs
 
 
 def flash_edge_checks(torch, rng) -> tuple[list, dict]:
-    """The flash kernel vs its plain version: causal and not, Sq = Sk and
-    Sq < Sk, S = 1, 17, 129 and 1000 (ragged tiles), g = 1 and 4, dh 128
-    and 64, float32 and bfloat16."""
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda,
-    )
+    """The flash kernels vs their plain version: causal and not, Sq = Sk
+    and Sq < Sk, S = 1, 17, 129 and 1000 (ragged tiles), g = 1 and 4, dh
+    128 and 64, float32 and bfloat16; then each route by name: bf16 at dh
+    64, 128, 256 and 80 (tensor cores; 80 reads zeros past dh) and dh 40
+    (SIMT), at S = 1, 127, 129 and 1000 against tiles of 128."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import mha_ref
     cases, errs = [], {"float32": 0.0, "bfloat16": 0.0}
+
+    def one(b, hq, hkv, sq, sk, dh, causal, dtype, want_route=None):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(rng.normal(size=(
+            b, h, s, dh)).astype(np.float32)).to("cuda", dt)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+        which = fk.route(dt, dh)
+        check(want_route in (None, which), f"dh={dh} {dtype}: route {which}")
+        before = getattr(fk, f"launches_{which}")
+        got = fk.flash_attention_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(getattr(fk, f"launches_{which}") == before + 1,
+              f"dh={dh} {dtype}: the {which} count did not move")
+        want = mha_ref(q, k, v, causal)
+        name = (f"Sq={sq}/Sk={sk}/causal={causal}/g={hq // hkv}/dh={dh}/"
+                f"{dtype}/{which}")
+        errs[dtype] = max(errs[dtype], attn_err(name, got, want, dtype))
+        cases.append(name)
+
     lengths = [(1, 1), (17, 17), (129, 129), (1000, 1000), (1, 1000),
                (17, 129), (129, 1000)]
     for sq, sk in lengths:
         for causal in (True, False):
             for b, hq, hkv, dh in ((1, 8, 2, 128), (2, 2, 2, 64)):
                 for dtype in ("float32", "bfloat16"):
-                    dt = getattr(torch, dtype)
-                    q, k, v = (torch.from_numpy(rng.normal(size=(
-                        b, h, s, dh)).astype(np.float32)).to("cuda", dt)
-                        for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
-                    got = flash_attention_cuda(q, k, v, causal)
-                    torch.cuda.synchronize()
-                    want = mha_ref(q, k, v, causal)
-                    name = (f"Sq={sq}/Sk={sk}/causal={causal}/g={hq // hkv}/"
-                            f"dh={dh}/{dtype}")
-                    errs[dtype] = max(errs[dtype],
-                                      attn_err(name, got, want, dtype))
-                    cases.append(name)
+                    one(b, hq, hkv, sq, sk, dh, causal, dtype)
+    for sq, sk in ((1, 1), (127, 127), (129, 129), (1000, 1000), (127, 1000)):
+        for causal in (True, False):
+            for dh, which in ((64, "tensor_core"), (128, "tensor_core"),
+                              (256, "tensor_core"), (80, "tensor_core"),
+                              (40, "simt")):
+                one(1, 8, 2, sq, sk, dh, causal, "bfloat16", which)
     return cases, errs
 
 
@@ -1634,6 +1692,26 @@ def device_profile(torch, fn, reps: int = 1) -> dict:
                     for e in events[:5] if dev_us(e)]}
 
 
+def p_bf16_verdicts(F, args, want, mha_p_bf16_ref) -> dict:
+    """What the full-width check says of P carried to ``P V`` in bf16 on
+    the flash kernel's captured inputs: SDPA (one bf16 term) and the
+    plain emulation with one and with two terms (the kernel's hi + lo);
+    "passes", or the check's message."""
+    q, k, v = args
+    outs = {"sdpa": F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            "emulation_one_term": mha_p_bf16_ref(q, k, v, terms=1),
+            "emulation_two_terms": mha_p_bf16_ref(q, k, v, terms=2)}
+    verdicts = {}
+    for what, out in outs.items():
+        try:
+            attn_err(what, out, want, "bfloat16", full_width=True)
+            verdicts[what] = "passes"
+        except CheckFailed as e:
+            verdicts[what] = str(e)[:300]
+    return verdicts
+
+
 def paged_work(q, k_pages, v_pages, tables, lengths, starts) -> tuple:
     """(bytes, flops) one paged call must move and do on these inputs:
     each live K/V row of every window read once (a slot whose table entry
@@ -1676,7 +1754,10 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        mha_p_bf16_ref,
+        mha_ref,
+    )
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention import paged_attention as pk
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -1713,12 +1794,16 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
     got = serve_lm(torch, eng, prompts, forced, caps, dev)
     path_s = time.perf_counter() - t0
     launches = {"paged_attention": pk.launches,
-                "flash_attention": fk.launches}
+                "flash_attention": fk.launches,
+                "flash_attention[tensor_core]": fk.launches_tensor_core,
+                "flash_attention[simt]": fk.launches_simt}
     n_admits = len(LM_PROMPTS) + 1
     n_steps = sum(LM_STEPS)
     check(launches["flash_attention"] == cfg.n_layers * n_admits,
           f"flash launches {launches['flash_attention']} != "
           f"{cfg.n_layers} x {n_admits} admits")
+    check(fk.launches_tensor_core == launches["flash_attention"],
+          f"flash launches {launches}: not all on the tensor-core route")
     check(launches["paged_attention"] == cfg.n_layers * n_steps,
           f"paged launches {launches['paged_attention']} != "
           f"{cfg.n_layers} x {n_steps} steps")
@@ -1756,7 +1841,7 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
              paged_attention_ref)):
         check(set(cap.args) == {0, last}, f"{name}: captured layers "
               f"{sorted(cap.args)}")
-        errs, rms, controls = {}, {}, {}
+        errs, rms, controls, p_bf16 = {}, {}, {}, {}
         for li, (args, kw) in cap.args.items():
             k_out = kern(*args, **kw)
             torch.cuda.synchronize()
@@ -1767,11 +1852,15 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
             controls[li] = planted_control(
                 f"{name} layer {li}, window short by one slot",
                 *control_pair(name, k_out, plain, args, kw))
+            if name == "flash_attention":
+                p_bf16[li] = p_bf16_verdicts(F, args, want, mha_p_bf16_ref)
         full[name] = {"max_abs_err_by_layer": errs,
                       "rms_plain_by_layer": rms,
                       "limit": f"{FULL_WIDTH_RTOL}*|plain| + "
                                f"{FULL_WIDTH_ATOL}*RMS(plain)",
                       "control_short_window_by_layer": controls,
+                      **({"full_width_check_of_p_in_bf16_by_layer": p_bf16}
+                         if p_bf16 else {}),
                       "shapes": [list(a.shape) for a in cap.args[0][0]
                                  if hasattr(a, "shape")]}
     fa, fkw = caps["admit0"].args[0]
@@ -1790,11 +1879,13 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
     f_lib = cuda_median_ms(sdpa, 20)
+    f_lib_cold = cuda_median_ms_cold(sdpa, 20, flush)
     lib_err = float((sdpa().float() - mha_ref(q, k, v).float()).abs().max())
     f_bytes, f_flops = flash_work(q, k)
     p_ms = cuda_median_ms_cold(
         lambda: pk.paged_attention_cuda(*pa, **pkw), 20, flush)
     p_warm = cuda_median_ms(lambda: pk.paged_attention_cuda(*pa, **pkw), 20)
+    p_plan = pk.launch_plan(*pa[:4])
     del scratch
     p_plain = cuda_ms(lambda: paged_attention_ref(*pa, **pkw), reps=3)
     p_bytes, p_flops, live = paged_work(*pa)
@@ -1809,7 +1900,10 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
                 library_ms=f_lib)]
     full["paged_attention"].update(
         ms=p_ms, ms_l2_warm=p_warm, plain_ms=p_plain, live_slots=live, bytes=p_bytes,
-        flops=p_flops, bound_ms=rows[0]["bound_ms"],
+        split=p_plan["split"], n_split=p_plan["n_split"],
+        stages=p_plan["stages"], vec=p_plan["vec"],
+        scratch_bytes=p_plan["scratch_bytes"], flops=p_flops,
+        bound_ms=rows[0]["bound_ms"],
         bound_by=rows[0]["bound_by"],
         pct_of_bound=rows[0]["bound_ms"] / p_ms * 100,
         per_step_ms=p_ms * cfg.n_layers)
@@ -1820,7 +1914,14 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
                                      f_bytes / hbm) * 1e3,
         pct_of_bound=rows[1]["bound_ms"] / f_ms * 100,
         achieved_tflops=f_flops / f_ms / 1e9,
-        sdpa_bf16_ms=f_lib, sdpa_max_abs_err_vs_plain=lib_err,
+        route=fk.route(q.dtype, q.shape[-1]),
+        sdpa_bf16_ms=f_lib, sdpa_bf16_ms_l2_cold=f_lib_cold,
+        ms_over_sdpa_l2_warm=f_warm / f_lib,
+        ms_over_sdpa_l2_cold=f_ms / f_lib_cold,
+        sdpa_max_abs_err_vs_plain=lib_err,
+        max_abs_err_vs_p_bf16_emulation=float(
+            (fk.flash_attention_cuda(q, k, v).float()
+             - mha_p_bf16_ref(q, k, v).float()).abs().max()),
         per_admit_ms=f_ms * cfg.n_layers)
     for name, wall in (("decode_step", float(np.median(after))),
                        ("admit_129", got["admit"][3]["ms"])):
@@ -2027,6 +2128,69 @@ def mamba_edge_checks(torch, rng, dev="cuda") -> tuple[list, float]:
             err = max(err, rec_err(name, got, mamba_scan_ref(*args)))
             cases.append(name)
     return cases, err
+
+
+WKV6_F64_FACTOR = 8     # kernel within 8x the plain version's error: rounding
+
+
+def wkv6_f64(r, k, v, w, u, s0):
+    """``wkv6_ref``'s recurrence evaluated in float64 (``wkv6_ref`` takes
+    float32 only): ``(y, s_T)``."""
+    import torch
+    r, k, v, w, u, s = (x.double() for x in (r, k, v, w, u, s0))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append((r[:, t, :, :, None] * (s + u[None, :, :, None] * kv)
+                   ).sum(2))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, 1), s
+
+
+def wkv6_float64(torch, name: str, caps: dict, active: list, kern, plain
+                 ) -> dict:
+    """The kernel and its plain version against a float64 evaluation of
+    the same recurrence on the captured inputs of step 0 (slots 4..7
+    idle, from a zero state) and of the first step after the re-admit
+    (idle slots carrying the state of their forced tokens), first and
+    last layer: the largest |result - float64| of y and of the state over
+    the active and over the idle slots, with the largest |float64| value
+    there beside it. The idle slots' divergence between engines is
+    rounding if the kernel's error there is within ``WKV6_F64_FACTOR`` of
+    the plain version's."""
+    out = {"phase": f"{name}.wkv6_float64", "factor": WKV6_F64_FACTOR}
+    ratios = []
+    for op, i in (("step0", 0), (f"step{LM_STEPS[0]}", LM_STEPS[0])):
+        live = active[i].to(caps[op].args[0][0][0].device)
+        out[op] = {"active_slots": [int(x) for x in live.nonzero()]}
+        for li, (args, _) in caps[op].args.items():
+            exact = wkv6_f64(*args)
+            res = {"kernel": kern(*args), "plain": plain(*args)}
+            torch.cuda.synchronize()
+            entry = {}
+            for part, j in (("y", 0), ("state", 1)):
+                for where, mask in (("active", live), ("idle", ~live)):
+                    if not bool(mask.any()):
+                        continue
+                    ref = exact[j][mask]
+                    top = float(ref.abs().max())
+                    errs = {who: float((r[j][mask].double() - ref).abs()
+                                       .max()) for who, r in res.items()}
+                    # the plain error, floored at one float32 rounding of
+                    # the largest value, so that an exact plain result
+                    # does not make any error look large
+                    floor = max(errs["plain"], 2.0 ** -24 * top, 1e-300)
+                    entry[f"{part}_{where}"] = {
+                        **errs, "max_abs_float64": top,
+                        "kernel_over_plain": errs["kernel"] / floor}
+                    if where == "idle":
+                        ratios.append(entry[f"{part}_{where}"]
+                                      ["kernel_over_plain"])
+            out[op][li] = entry
+    out["verdict"] = ("rounding" if max(ratios) <= WKV6_F64_FACTOR
+                      else "beyond rounding: csrc/wkv6.cu")
+    out["worst_idle_kernel_over_plain"] = max(ratios)
+    return out
 
 
 def wkv6_work(r, k, v, w, u, s0) -> tuple:
@@ -2294,6 +2458,8 @@ def phase_rnn(torch, name: str, seed: int, hbm: float, dev="cuda"
                           pct_of_bound=bound / timing[op]["ms"] * 100)
     del scratch
     full["timing"] = timing
+    f64_line = wkv6_float64(torch, name, caps, got["active"], kern, plain) \
+        if kname == "wkv6" else None
     err = max(max(full[op]["max_abs_err_by_layer"].values())
               for op in caps)
     rows = [rec_row(kname, src, rep, launches[kname], err,
@@ -2305,7 +2471,7 @@ def phase_rnn(torch, name: str, seed: int, hbm: float, dev="cuda"
     vs_ref = engines_vs_ref(torch, name, cfg, plan, prompts, forced, seed,
                             dev)
     line["phase_seconds"] = time.perf_counter() - t_phase
-    return [line, full_line, vs_ref], rows
+    return [ln for ln in (line, full_line, f64_line, vs_ref) if ln], rows
 
 
 def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,

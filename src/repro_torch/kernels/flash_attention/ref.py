@@ -49,3 +49,32 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     return torch.matmul(p, vq).to(q.dtype)
+
+
+def mha_p_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, scale: float | None = None,
+                   terms: int = 2) -> torch.Tensor:
+    """:func:`mha_ref` with P carried to ``P V`` in bf16: scores and
+    softmax in float32, the row sum from the float32 P, and P as
+    ``terms`` bf16 terms (1: ``bf16(P)``, as ``scaled_dot_product_attention``
+    rounds it; 2: ``hi + bf16(P - hi)``, as the tensor-core route of
+    ``csrc/flash_attention.cu`` does). Used by the tests and the chip
+    smoke run."""
+    check_operands(q, k, v)
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    kq = k.repeat_interleave(g, dim=1).float()
+    vq = v.repeat_interleave(g, dim=1).float()
+    s = torch.matmul(q.float(), kq.transpose(-1, -2)) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    carried = torch.zeros_like(p)
+    for _ in range(terms):
+        carried += (p - carried).to(torch.bfloat16).float()
+    return (torch.matmul(carried, vq) / l).to(q.dtype)

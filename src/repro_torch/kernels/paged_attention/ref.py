@@ -73,3 +73,54 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
     p = torch.exp(s - m)
     p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
     return torch.einsum("bhs,bshd->bhd", p, vq).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths,
+                              starts=None, scale: float | None = None,
+                              n_split: int = 32) -> torch.Tensor:
+    """:func:`paged_attention_ref` computed as ``csrc/paged_attention.cu``
+    computes it: each sequence's window ``[start, min(length, maxp *
+    page))`` is cut into ``n_split`` equal parts of whole 32-slot chunks;
+    each part gives a partial ``(m, l, acc)`` (``m = -inf, l = 0`` where
+    it holds no live slot), and the partials are merged as
+    ``sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i`` over the parts
+    with ``l_i > 0`` (0 where none has). Used by the tests."""
+    if starts is None:
+        starts = torch.zeros_like(lengths)
+    check_operands(q, k_pages, v_pages, block_tables, lengths, starts)
+    b, hq, dk = q.shape
+    _, page, hkv, _ = k_pages.shape
+    dv = v_pages.shape[-1]
+    g = hq // hkv
+    scale = dk ** -0.5 if scale is None else scale
+    maxp = block_tables.shape[1]
+    n = maxp * page
+    tab = block_tables.clamp(min=0).long()
+    k = k_pages[tab].reshape(b, n, hkv, dk).repeat_interleave(g, dim=2)
+    v = v_pages[tab].reshape(b, n, hkv, dv).repeat_interleave(g, dim=2)
+    pos = torch.arange(n, device=q.device)[None, :]
+    start = starts.clamp(min=0).long()[:, None]
+    end = lengths.clamp(max=n).long()[:, None]
+    share = ((end - start).clamp(min=0) + n_split - 1) // n_split
+    share = (share + 31) // 32 * 32                          # [B, 1]
+    part = torch.where(share > 0, (pos - start) // share.clamp(min=1), -1)
+    ok = (pos < end) & (pos >= start) & \
+        (block_tables >= 0).repeat_interleave(page, dim=1)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    m, l, acc = [], [], []
+    for i in range(n_split):
+        si = s.masked_fill(~(ok & (part == i))[:, None, :], float("-inf"))
+        mi = si.amax(-1)                                     # [B,Hq]
+        p = torch.exp(si - torch.where(torch.isfinite(mi), mi, 0.0)[..., None])
+        m.append(mi)
+        l.append(p.sum(-1))
+        acc.append(torch.einsum("bhs,bshd->bhd", p, v.float()))
+    m, l, acc = torch.stack(m, -1), torch.stack(l, -1), torch.stack(acc, 2)
+    live = l > 0
+    big = torch.where(live, m, float("-inf")).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - torch.where(
+        torch.isfinite(big), big, 0.0)), 0.0)
+    den = (w * l).sum(-1)[..., None]
+    out = (w[..., None] * acc).sum(2)
+    return torch.where(den > 0, out / torch.where(den > 0, den, 1.0),
+                       0.0).to(q.dtype)

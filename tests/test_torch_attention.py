@@ -16,6 +16,13 @@ reference's kernel tests' tolerance; the sums run in another order) and
     interpret mode where its blocks divide the lengths, and against
     ``mha_ref`` at ragged lengths (the CUDA kernel masks its ragged
     tiles; the Pallas wrapper asserts divisibility);
+  * the CUDA kernels' own arithmetic, in plain PyTorch: the paged
+    kernel's split over the window and merge
+    (``ref.paged_attention_split_ref``) against the reference's Pallas
+    kernel and ``paged_attention_ref`` within 1e-5, and P carried in bf16
+    (``ref.mha_p_bf16_ref``: one term as SDPA, two as the flash
+    tensor-core route) against ``mha_ref`` within 2e-2; the paged launch
+    plan and the flash route as functions of shapes and dtype alone;
   * ``gqa_full`` against the reference's ``impl="pallas_interpret"`` and
     ``impl="xla"``, and ``gqa_decode_paged`` against the reference's
     ``impl="pallas_interpret"``, pages included, on parameters carried
@@ -40,8 +47,10 @@ from repro_torch import interop
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention import paged_attention as pkernel
+from repro_torch.kernels.paged_attention import ref as pref
 from repro_torch.models import attention as attn
 from repro_torch.sharding.rules import unpadded_plan
 
@@ -217,6 +226,129 @@ def test_plain_versions_refuse_bad_operands():
         pops.paged_attention(pq, kp, vp, tables.long(), lengths, starts)
     with pytest.raises(ValueError, match="grouping"):
         pops.paged_attention(pq[:, :3], kp, vp, tables, lengths, starts)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' own arithmetic and launch plans, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def split_tables(maxp, page):
+    """Tables, lengths and starts whose windows the kernel's equal shares
+    of whole 32-slot chunks cut in different ways: an all-pad row, a
+    window of several chunks crossing part boundaries, a window shorter
+    than one chunk per part (the later parts lie wholly outside it), the
+    whole table (``maxp * page`` no multiple of the parts' chunks), one
+    token, and a ``-1`` pad inside a window."""
+    n = maxp * page
+    tables = np.arange(6 * maxp, dtype=np.int32).reshape(6, maxp)
+    tables[0] = -1
+    tables[5, 4] = -1
+    starts = np.array([0, 5, 40, 0, 33, 10], np.int32)
+    lengths = np.array([n, 70, 60, n, 34, 75], np.int32)
+    return tables, lengths, starts
+
+
+SPLIT_CASES = [  # n_split, page, maxp, hq, hkv, dk, dv
+    (3, 8, 10, 8, 2, 16, 16),      # 80 slots in three shares
+    (2, 16, 7, 4, 2, 16, 24),      # 112 slots in two, dk != dv
+    (32, 8, 10, 2, 2, 32, 32),     # the kernel's most: short shares
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "splits{}-page{}-g{}".format(
+                             c[0], c[1], c[3] // c[4]))
+def test_paged_split_and_merge_matches_plain_and_pallas(case):
+    n_split, page, maxp, hq, hkv, dk, dv = case
+    rng = np.random.default_rng(21)
+    tables, lengths, starts = split_tables(maxp, page)
+    q = rng.normal(size=(6, hq, dk)).astype(np.float32)
+    kp = rng.normal(size=(6 * maxp, page, hkv, dk)).astype(np.float32)
+    vp = rng.normal(size=(6 * maxp, page, hkv, dv)).astype(np.float32)
+    args = [t(a) for a in (q, kp, vp, tables, lengths, starts)]
+    got = pref.paged_attention_split_ref(*args, n_split=n_split)
+    np.testing.assert_allclose(got.numpy(),
+                               pref.paged_attention_ref(*args).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    jargs = tuple(jnp.asarray(a) for a in (q, kp, vp, tables, lengths))
+    want = jpaged(*jargs, starts=jnp.asarray(starts), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert (got[0] == 0).all()                  # the all-pad row
+
+
+def test_paged_launch_plan_reads_shapes_only():
+    """The split plan is a function of integers, and the launch plan of
+    shapes and dtypes: meta tensors, which hold no values, will do."""
+    assert pkernel.split_plan(256, 16) == (128, pkernel.MAX_SPLITS)
+    assert pkernel.split_plan(37, 16) == (32, 19)    # one chunk a block
+    assert pkernel.split_plan(0, 16) == (32, 1)
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    llama = pkernel.launch_plan(meta(8, 32, 128), meta(1024, 16, 8, 128),
+                                meta(1024, 16, 8, 128),
+                                meta(8, 256, dtype=torch.int32))
+    assert (llama["n_split"], llama["stages"], llama["vec"]) == (32, 2, True)
+    assert llama["acc_shape"] == (8, 32, 32, 128)
+    assert llama["scratch_bytes"] == 4 * 8 * 32 * 32 * (2 + 128)
+    for dtype, stages in ((torch.bfloat16, 2), (torch.float32, 1)):
+        mla = pkernel.launch_plan(meta(4, 40, 288, dtype=dtype),
+                                  meta(9, 16, 1, 288, dtype=dtype),
+                                  meta(9, 16, 1, 256, dtype=dtype),
+                                  meta(4, 37, dtype=torch.int32))
+        assert mla["stages"] == stages and mla["n_split"] == 19
+        assert mla["smem_bytes"] <= pkernel.SMEM_LIMIT
+    odd = pkernel.launch_plan(meta(2, 4, 36), meta(3, 8, 4, 36),
+                              meta(3, 8, 4, 20),
+                              meta(2, 9, dtype=torch.int32))
+    assert not odd["vec"]                       # 72-byte rows: plain loads
+    with pytest.raises(ValueError, match="shared memory"):
+        pkernel.launch_plan(meta(1, 64, 512, dtype=torch.float32),
+                            meta(2, 16, 1, 512, dtype=torch.float32),
+                            meta(2, 16, 1, 512, dtype=torch.float32),
+                            meta(1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 80, "tensor_core"),
+    (torch.bfloat16, 40, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_route_is_a_function_of_dtype_and_dh(dtype, dh, want):
+    assert fkernel.route(dtype, dh) == want
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("sq,sk,causal", [(129, 129, True), (17, 129, True),
+                                          (64, 200, False)])
+def test_flash_bf16_rounding_of_p_stays_within_the_bf16_tolerance(
+        sq, sk, causal, terms):
+    """P carried to ``P V`` as one bf16 term (SDPA's rounding) or two (the
+    tensor-core route's hi + lo), the row sum from the float32 P: both
+    stay within the bf16 tolerance of ``mha_ref``, the reference's
+    included."""
+    q, k, v = qkv(13, 1, 4, 2, sq, sk, 64)
+    args = [t(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = fref.mha_p_bf16_ref(*args, causal=causal, terms=terms)
+    assert got.dtype == torch.bfloat16
+    close(got, fref.mha_ref(*args, causal=causal).float(), BF16_TOL)
+    want = jmha_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                    causal=causal)
+    close(got, want.astype(jnp.float32), BF16_TOL)
+
+
+def test_flash_two_bf16_terms_of_p_sit_far_closer_than_one():
+    """On float32 outputs (no rounding of the result), P as hi + lo lies
+    orders of magnitude closer to the float32 softmax than P as one bf16
+    term, whose error is of the order of 2^-9 of the values."""
+    q, k, v = (t(a).to(torch.bfloat16).float()
+               for a in qkv(17, 1, 4, 2, 129, 129, 64))
+    want = fref.mha_ref(q, k, v)
+    one, two = (float((fref.mha_p_bf16_ref(q, k, v, terms=n) - want)
+                      .abs().max()) for n in (1, 2))
+    assert 2.0 ** -14 < one < 2.0 ** -6
+    assert two < one / 64
 
 
 # ---------------------------------------------------------------------------
