@@ -71,6 +71,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -286,15 +287,44 @@ def _build():
     return b
 
 
+def ptxas_usage(log: str) -> list[dict]:
+    """Each entry function of an ``nvcc -Xptxas -v`` log: its (mangled)
+    name, registers a thread, and spill stores and loads in bytes."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> dict:
     """Build every kernel; count the flash library's tensor-core
     instructions in its SASS (``cuobjdump -sass``: ``HGMMA`` is wgmma) and
-    keep its ``-Xptxas -v`` spill lines, one per kernel instance."""
+    keep its ``-Xptxas -v`` spill lines, one per kernel instance; report
+    the recurrence kernels' registers and spills per instance (the wkv6
+    instances for dk = 128, prefill and decode, must spill nothing)."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
              for n in b.KERNELS}
+    rec_usage = {n: ptxas_usage(b.build_log(n))
+                 for n in ("wkv6", "mamba_scan")}
+    dk128 = [f for f in rec_usage["wkv6"]
+             if "wkv6_kernelILi128E" in f["function"]]
+    check(len(dk128) == 2 and all(
+        f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+        for f in dk128), f"the wkv6 dk=128 instances spill: {dk128}")
     cuobjdump = str(Path(b.nvcc()).parent / "cuobjdump")
     sass = subprocess.run(
         [cuobjdump, "-sass", str(b.library_path("flash_attention"))],
@@ -309,7 +339,8 @@ def phase_build() -> dict:
                                 if "Performance" in ln or "ignored" in ln]}
     check(flash["hgmma"] > 0, "libflash_attention has no HGMMA instruction")
     return {"phase": "build", "seconds": secs, "kernels": list(b.KERNELS),
-            "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash}
+            "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash,
+            "recurrence_registers_and_spills": rec_usage}
 
 
 def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
@@ -2077,17 +2108,19 @@ def wkv6_inputs(torch, rng, b, t, h, dk, dv, w_kind, dev="cuda"):
 
 
 def wkv6_edge_checks(torch, rng, dev="cuda") -> tuple[list, float]:
-    """The WKV6 kernel vs its plain version: T = 1, 2, 7, 64, 517; B = 1
-    and 3 with a non-zero initial state; dk = dv = 16 and 64 (and 128 x
-    32); w near 0, near 1 and of the model's form."""
+    """The WKV6 kernel vs its plain version: T = 1, 2, 7, 31, 32, 33, 64
+    and 517 (about the kernel's 32-step chunk) with B = 3 (1 at T = 517)
+    and the decode shape B = 8, T = 1, a non-zero initial state; dk = dv
+    = 16 and 64, dk = 128 (its own chunk) with dv = 32, and dv = 40 (a
+    partial 32-column group); w near 0, near 1 and of the model's form."""
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
     cases, err = [], 0.0
-    shapes = [(dk, dk) for dk in (16, 64)] + [(128, 32)]
+    shapes = [(16, 16), (64, 64), (128, 32), (64, 40)]
+    runs = [(3, t) for t in (1, 2, 7, 31, 32, 33, 64)] + [(1, 517), (8, 1)]
     for dk, dv in shapes:
-        for t in (1, 2, 7, 64, 517):
+        for b, t in runs:
             for w_kind in ("near0", "near1", "model"):
-                b = 1 if t == 517 else 3
                 args = wkv6_inputs(torch, rng, b, t, 3, dk, dv, w_kind, dev)
                 got = wkv6_cuda(*args)
                 torch.cuda.synchronize()
@@ -2112,15 +2145,19 @@ def mamba_inputs(torch, rng, b, t, di, n, dev="cuda"):
 
 
 def mamba_edge_checks(torch, rng, dev="cuda") -> tuple[list, float]:
-    """The selective-scan kernel vs its plain version: T = 1, 2, 7, 64,
-    517; B = 1 and 2 with a non-zero initial state; di = 40, 100 and 200
-    (not multiples of 32 or 128), n = 4, 16 and 64."""
+    """The selective-scan kernel vs its plain version: T = 1, 2, 7, 31,
+    32, 33, 64 and 517 (about the kernel's 32-step chunk) with B = 2 (1 at
+    T = 517) and the decode shape B = 8, T = 1, a non-zero initial state;
+    (di, n) = (40, 4), (100, 16), (200, 16), (72, 64), (76, 64), (100, 12)
+    and (36, 3): one to 16 lanes a channel, some lanes partly past n, and
+    di off the block's channel group (128 / lanes) and off 32 and 128."""
     from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     cases, err = [], 0.0
-    for t in (1, 2, 7, 64, 517):
-        for di, n in ((40, 4), (100, 16), (200, 16), (72, 64)):
-            b = 1 if t == 517 else 2
+    runs = [(2, t) for t in (1, 2, 7, 31, 32, 33, 64)] + [(1, 517), (8, 1)]
+    for b, t in runs:
+        for di, n in ((40, 4), (100, 16), (200, 16), (72, 64), (76, 64),
+                      (100, 12), (36, 3)):
             args = mamba_inputs(torch, rng, b, t, di, n, dev)
             got = mamba_scan_cuda(*args)
             torch.cuda.synchronize()

@@ -48,3 +48,38 @@ def mamba_scan_ref(u, delta, a, b, c, d, h0=None
             + (dt * u[:, t])[..., None] * b[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
     return torch.stack(ys, 1) + d * u, h
+
+
+def mamba_scan_split_ref(u, delta, a, b, c, d, h0=None, elems: int = 4,
+                         channels: int = 32
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/mamba_scan.cu``'s order of operations in plain PyTorch, the
+    same function as :func:`mamba_scan_ref`: the channels in groups of
+    ``channels`` (the last one partial where it does not divide di), each
+    channel's state in lanes of ``elems`` consecutive elements; the state
+    update rounds as :func:`mamba_scan_ref`'s, and y is each lane's
+    partial ``sum_i h_i c_i`` in element order, then the lanes in
+    ascending order, plus ``d u``."""
+    if h0 is None:
+        h0 = u.new_zeros((u.shape[0], u.shape[2], a.shape[1]))
+    check_operands(u, delta, a, b, c, d, h0)
+    n = a.shape[1]
+    lanes = [range(lo, min(n, lo + elems)) for lo in range(0, n, elems)]
+    y, h = torch.empty_like(u), h0.clone()
+    for c0 in range(0, u.shape[2], channels):
+        cg = slice(c0, c0 + channels)
+        hg = h[:, cg]
+        for t in range(u.shape[1]):
+            dt, ut = delta[:, t, cg], u[:, t, cg]
+            hg = torch.exp(dt[..., None] * a[cg]) * hg \
+                + (dt * ut)[..., None] * b[:, t, None, :]
+            prod = hg * c[:, t, None, :]
+            acc = None
+            for lane in lanes:
+                part = prod[..., lane[0]]
+                for i in lane[1:]:
+                    part = part + prod[..., i]
+                acc = part if acc is None else acc + part
+            y[:, t, cg] = acc + d[cg] * ut
+        h[:, cg] = hg
+    return y, h

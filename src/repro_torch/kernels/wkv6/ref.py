@@ -45,3 +45,44 @@ def wkv6_ref(r, k, v, w, u, s0=None) -> tuple[torch.Tensor, torch.Tensor]:
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + bonus * kv))
         s = w[:, t, :, :, None] * s + kv
     return torch.stack(ys, 1), s
+
+
+def wkv6_split_ref(r, k, v, w, u, s0=None, rows: int = 4, cols: int = 32,
+                   chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/wkv6.cu``'s order of operations in plain PyTorch, the same
+    function as :func:`wkv6_ref`: the state's columns in groups of
+    ``cols`` (the last one partial where ``cols`` does not divide dv),
+    its rows in slices of ``rows``; per step each slice's partial
+    ``sum_i r_i S_ij`` in row order, kept for the chunk of ``chunk``
+    steps, then summed slice by slice in ascending order, plus the
+    factored bonus ``beta_t v_j`` with ``beta_t = sum_i r_i u_i k_i``."""
+    if s0 is None:
+        s0 = r.new_zeros((r.shape[0], r.shape[2], r.shape[3], v.shape[-1]))
+    check_operands(r, k, v, w, u, s0)
+    b, steps, h, dk = r.shape
+    dv = v.shape[-1]
+    if dk % rows:
+        raise ValueError(f"rows={rows} must divide dk={dk}")
+    slices = dk // rows
+    beta = (r * u * k).sum(-1)                               # [B,T,H]
+    y, s = r.new_empty((b, steps, h, dv)), s0.clone()
+    for c0 in range(0, dv, cols):
+        cg = slice(c0, c0 + cols)
+        sg = s[..., cg]                                      # [B,H,dk,cg]
+        for t0 in range(0, steps, chunk):
+            parts = []
+            for t in range(t0, min(steps, t0 + chunk)):
+                prod = (r[:, t, :, :, None] * sg).unflatten(2, (slices, rows))
+                acc = prod[:, :, :, 0]
+                for i in range(1, rows):
+                    acc = acc + prod[:, :, :, i]
+                parts.append(acc)                            # [B,H,sl,cg]
+                sg = w[:, t, :, :, None] * sg \
+                    + k[:, t, :, :, None] * v[:, t, :, None, cg]
+            for tt, part in enumerate(parts, t0):
+                acc = part[:, :, 0]
+                for sl in range(1, slices):
+                    acc = acc + part[:, :, sl]
+                y[:, tt, :, cg] = acc + beta[:, tt, :, None] * v[:, tt, :, cg]
+        s[..., cg] = sg
+    return y, s

@@ -45,7 +45,10 @@ from repro_torch import interop
 from repro_torch.configs import get_arch
 from repro_torch.kernels.mamba_scan import mamba_scan as kernel
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (
+    mamba_scan_ref,
+    mamba_scan_split_ref,
+)
 from repro_torch.models import mamba, mlp
 from repro_torch.models import model as M
 from repro_torch.serve.paged_lm import PagedLMEngine
@@ -141,6 +144,70 @@ def test_scan_operands_are_checked():
         mamba_scan_ref(u[:, :0], delta[:, :0], a, b[:, :0], c[:, :0], d, h0)
     with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
         kernel.mamba_scan_cuda(u, delta, a, b, c, d, h0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's own arithmetic and launch plan, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+SPLIT_CASES = [  # steps, di, n: ragged T about the 32-step chunk, di off
+    (1, 40, 4),                    # the block's channel group (128 / lanes)
+    (31, 100, 16),
+    (32, 76, 64),
+    (33, 100, 12),
+    (33, 36, 3),
+    (517, 40, 16),
+]
+
+
+def meta_scan(bsz, steps, di, n):
+    return [torch.empty(shape, device="meta") for shape in (
+        (bsz, steps, di), (bsz, steps, di), (di, n), (bsz, steps, n),
+        (bsz, steps, n), (di,), (bsz, di, n))]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "T{}-di{}-n{}".format(*c))
+def test_scan_split_order_matches_the_oracle_and_the_plain_version(case):
+    """``mamba_scan_split_ref`` (the kernel's lanes of ``elems`` state
+    elements, its channel groups, y summed lane by lane) against the
+    reference's oracle from a zero state and against ``mamba_scan_ref``
+    from a non-zero one; the state itself rounds as the plain version's
+    does, so it is held to it bit for bit."""
+    steps, di, n = case
+    plan = kernel.launch_plan(*meta_scan(2, steps, di, n))
+    assert di % plan["channels"]                    # a partial group
+    kw = dict(elems=plan["elems"], channels=plan["channels"])
+    rng = np.random.default_rng(400 + steps + di)
+    args = scan_inputs(rng, 2, steps, di, n, state=False)
+    y, _ = mamba_scan_split_ref(*(t(a) for a in args[:6]), **kw)
+    close_rms(y, jscan_ref(*(jnp.asarray(a) for a in args[:6])), what="y")
+    args = [t(a) for a in scan_inputs(rng, 2, steps, di, n, state=True)]
+    want = mamba_scan_ref(*args)
+    got = mamba_scan_split_ref(*args, **kw)
+    close_rms(got[0], want[0], what="y from a state")
+    assert torch.equal(got[1], want[1])
+
+
+def test_scan_launch_plan_reads_shapes_only():
+    """The launch plan is a function of shapes: meta tensors, which hold
+    no values, will do."""
+    admit = kernel.launch_plan(*meta_scan(1, 2048, 8192, 16))   # Jamba
+    assert (admit["elems"], admit["lanes"], admit["channels"]) == (4, 4, 32)
+    assert admit["grid"] == (256, 1) and admit["chunk"] == 32
+    assert admit["smem_bytes"] == kernel.smem_bytes(128, 4, 4, 32)
+    assert admit["vec"]
+    decode = kernel.launch_plan(*meta_scan(8, 1, 8192, 16))
+    assert decode["grid"] == (256, 8) and decode["chunk"] == 1
+    for n, elems, lanes in ((1, 1, 1), (2, 2, 1), (3, 4, 1), (12, 4, 4),
+                            (33, 4, 16), (64, 4, 16)):
+        plan = kernel.launch_plan(*meta_scan(2, 7, 72, n))
+        assert (plan["elems"], plan["lanes"], plan["chunk"]) == (
+            elems, lanes, 8)
+        assert plan["channels"] * lanes == kernel.THREADS
+    assert not kernel.launch_plan(*meta_scan(2, 7, 70, 16))["vec"]
+    with pytest.raises(ValueError, match="n=65"):
+        kernel.launch_plan(*meta_scan(1, 4, 8, 65))
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,7 @@ from repro_torch import interop
 from repro_torch.configs import get_arch
 from repro_torch.kernels.wkv6 import ops
 from repro_torch.kernels.wkv6 import wkv6 as kernel
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv6_split_ref
 from repro_torch.models import model as M
 from repro_torch.models import rwkv
 from repro_torch.serve.paged_lm import PagedLMEngine
@@ -193,6 +193,81 @@ def test_wkv6_operands_are_checked():
         wkv6_ref(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
     with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
         kernel.wkv6_cuda(r, k, v, w, u, s0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's own arithmetic and launch plan, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def wkv_edge_inputs(rng, b, steps, h, dk, dv, w_kind: str, state: bool):
+    """:func:`wkv_inputs` with the decay near 0 (1e-3..1e-2), near 1
+    (1 - 1e-4..1e-3) or of the model's form."""
+    r, k, v, w, u, s0 = wkv_inputs(rng, b, steps, h, dk, dv, state)
+    if w_kind == "near0":
+        w = rng.uniform(1e-3, 1e-2, size=w.shape).astype(np.float32)
+    elif w_kind == "near1":
+        w = (1 - rng.uniform(1e-4, 1e-3, size=w.shape)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+SPLIT_CASES = [  # steps, dk, dv, decay: ragged T about the 32-step chunk,
+    (1, 16, 16, "model"),          # dv off the 32-column group
+    (31, 64, 40, "near0"),
+    (32, 64, 64, "near1"),
+    (33, 16, 40, "model"),
+    (33, 128, 32, "near0"),
+    (31, 128, 72, "near1"),
+    (517, 64, 40, "model"),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "T{}-dk{}-dv{}-{}".format(*c))
+def test_wkv6_split_order_matches_the_oracle_and_the_plain_version(case):
+    """``wkv6_split_ref`` (the kernel's row slices of ``ROWS``, column
+    groups of ``COLS``, the bonus factored as ``beta_t v``, y summed slice
+    by slice per chunk) against the reference's oracle from a zero state
+    and against ``wkv6_ref`` from a non-zero one."""
+    steps, dk, dv, w_kind = case
+    rng = np.random.default_rng(300 + steps + dk)
+    plan = kernel.launch_plan(*(torch.empty(a.shape, device="meta")
+                                for a in wkv_inputs(rng, 2, steps, 3, dk, dv,
+                                                    False)))
+    kw = dict(rows=plan["rows"], cols=plan["cols"], chunk=plan["chunk"])
+    args = wkv_edge_inputs(rng, 2, steps, 3, dk, dv, w_kind, state=False)
+    y, s = wkv6_split_ref(*(t(a) for a in args), **kw)
+    close_rms(y, jwkv6_ref(*(jnp.asarray(a) for a in args[:5])), what="y")
+    args = wkv_edge_inputs(rng, 2, steps, 3, dk, dv, w_kind, state=True)
+    want = wkv6_ref(*(t(a) for a in args))
+    got = wkv6_split_ref(*(t(a) for a in args), **kw)
+    close_rms(got[0], want[0], what="y from a state")
+    close_rms(got[1], want[1], what="final state")
+
+
+def test_wkv6_launch_plan_reads_shapes_only():
+    """The launch plan is a function of shapes: meta tensors, which hold
+    no values, will do."""
+    def meta(b, steps, h, dk, dv):
+        return [torch.empty(shape, device="meta") for shape in (
+            (b, steps, h, dk), (b, steps, h, dk), (b, steps, h, dv),
+            (b, steps, h, dk), (h, dk), (b, h, dk, dv))]
+    admit = kernel.launch_plan(*meta(1, 2048, 40, 64, 64))   # RWKV6-3B
+    assert (admit["blocks"], admit["threads"], admit["chunk"]) == (80, 128, 32)
+    assert admit["col_groups"] == 2 and admit["vec"]
+    assert not admit["decode_instance"]
+    assert admit["smem_bytes"] == kernel.smem_bytes(64, 32)
+    decode = kernel.launch_plan(*meta(8, 1, 40, 64, 64))
+    assert (decode["blocks"], decode["chunk"]) == (640, 1)
+    assert decode["decode_instance"]
+    wide = kernel.launch_plan(*meta(1, 517, 3, 128, 40))     # dk = 128
+    assert wide["chunk"] == 16 and wide["threads"] == 256
+    assert wide["smem_bytes"] <= kernel.SMEM_LIMIT < kernel.smem_bytes(128,
+                                                                       32)
+    assert wide["col_groups"] == 2                  # 40 columns: 32 + 8
+    assert kernel.launch_plan(*meta(2, 7, 3, 16, 30))["chunk"] == 8
+    assert not kernel.launch_plan(*meta(2, 7, 3, 16, 30))["vec"]
+    with pytest.raises(ValueError, match="dk=48"):
+        kernel.launch_plan(*meta(1, 4, 2, 48, 48))
 
 
 # ---------------------------------------------------------------------------
