@@ -17,7 +17,11 @@ attributes ``tenant`` (uniform over 100) and ``ts`` (uniform over 1000):
 Each path ingests, overwrites, removes, runs unfiltered searches and one
 filtered search at each of three selectivities (about 1 %, 10 % and 50 %),
 and is read against the exact top-10 over the live set (within each
-predicate for the filtered searches). On the raw path's index a third
+predicate for the filtered searches). The raw path's searches take the
+fused kernel's ``grouped`` route (each probed slab read once for all the
+queries that probe it); both of its routes are held against its plain
+version on edge sets and at full size, and one wrapper call is shown to
+read no device value on the host. On the raw path's index a third
 path, the unfused search (probe, ``gather_tables``, ``ops.sivf_scan``
 writing the whole ``[Q, T*C]`` candidate matrix, ``ops.topk``), is held
 bit for bit against the fused kernel and ``Index.search``, and swept
@@ -311,8 +315,9 @@ def phase_build() -> dict:
     """Build every kernel; count the flash library's tensor-core
     instructions in its SASS (``cuobjdump -sass``: ``HGMMA`` is wgmma) and
     keep its ``-Xptxas -v`` spill lines, one per kernel instance; report
-    the recurrence kernels' registers and spills per instance (the wkv6
-    instances for dk = 128, prefill and decode, must spill nothing)."""
+    the recurrence kernels' and the fused search's registers and spills
+    per instance (the wkv6 instances for dk = 128, prefill and decode, must
+    spill nothing)."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
@@ -320,6 +325,7 @@ def phase_build() -> dict:
              for n in b.KERNELS}
     rec_usage = {n: ptxas_usage(b.build_log(n))
                  for n in ("wkv6", "mamba_scan")}
+    fused_usage = ptxas_usage(b.build_log("sivf_fused_search"))
     dk128 = [f for f in rec_usage["wkv6"]
              if "wkv6_kernelILi128E" in f["function"]]
     check(len(dk128) == 2 and all(
@@ -340,7 +346,8 @@ def phase_build() -> dict:
     check(flash["hgmma"] > 0, "libflash_attention has no HGMMA instruction")
     return {"phase": "build", "seconds": secs, "kernels": list(b.KERNELS),
             "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash,
-            "recurrence_registers_and_spills": rec_usage}
+            "recurrence_registers_and_spills": rec_usage,
+            "fused_search_registers_and_spills": fused_usage}
 
 
 def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
@@ -398,54 +405,98 @@ def edge_filters():
                                      s.Range("ts", 0, 10)), 64)}
 
 
+def fused_edge_table(rng, n_slabs, q, t):
+    """``synthetic_table`` plus kernel 1's order cases: row 3 holds slab 2
+    at t = 0 and slab 1 at t = 1 (their tied rows: the higher slab id at
+    the lower t), row 4 the same slab twice, and column t - 1 one slab
+    probed by every query but the empty row 0 and row 2."""
+    table = synthetic_table(rng, n_slabs, q, t)
+    table[3, :2] = (2, 1)
+    table[4, :3] = (5, 7, 5)
+    keep = table[[0, 2], -1].copy()
+    table[:, -1] = 6
+    table[[0, 2], -1] = keep
+    return table
+
+
+def fused_edge_filters():
+    """``edge_filters`` plus about 1 % and 50 % of the synthetic ``ts``."""
+    import sivf_torch as s
+    return {**edge_filters(), "pct1": (s.Range("ts", 0, 1), 10),
+            "pct50": (s.Range("ts", 0, 50), 10)}
+
+
+def fused_edge_checks(torch, rng) -> tuple[list, float]:
+    """Kernel 1 vs its plain version (``==`` distances and labels) on the
+    ``grouped`` route wherever k < C and on ``per_query`` everywhere: L2
+    and IP, C = 32, 128, 1024, D = 128 and 37, k = 10 and 64 (k >= C at
+    C = 32); at C = 128 and 1024 also D = 256 (query columns staged twice),
+    300 (a partial last stage) and 301 (4-byte loads); ``-1`` pads, an
+    all-pad row, a row with fewer live slots than k, exact ties in one
+    slab and across slabs with the higher slab id at the lower t, the same
+    slab twice in a row, one slab probed by every query, a zero query
+    (IP: every distance -0.0); filtered at C = D = 128 by the edge
+    predicates and at about 1 % and 50 %."""
+    from repro_torch.kernels.sivf_scan import fused
+    from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
+    cases, max_err = [], 0.0
+
+    def both_routes(name, args, kw):
+        nonlocal max_err
+        dp, lp = sivf_fused_search_ref(*args, **kw)
+        k, c = args[6], args[2].shape[1]
+        for route in ("grouped", "per_query") if k < c else ("per_query",):
+            dk, lk = fused.search_route(route, *args, **kw)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_equal(f"{name}/{route}", dk, lk,
+                                               dp, lp))
+            check(bool((lk[0] == -1).all()), f"{name}: empty row not all -1")
+            cases.append(f"{name}/{route}")
+
+    def case(metric, c, d, k, q, t, rng):
+        check(fused.route(q, t, c, k) == ("grouped" if k < c else
+                                          "per_query"), "route of the shapes")
+        p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
+        table = fused_edge_table(rng, 24, q, t)
+        qs = rng.normal(size=(q, d)).astype(np.float32)
+        near = p["data"][1, 0].cpu().numpy()
+        qs[1] = near + 0.5 * rng.normal(size=d).astype(np.float32)
+        qs[3] = near + 0.5 * rng.normal(size=d).astype(np.float32)
+        qs[5] = 0.0
+        args = (torch.from_numpy(qs).cuda(), torch.from_numpy(table).cuda(),
+                p["data"], p["ids"], p["norms"], p["bitmap"], k)
+        name = f"{metric}/C={c}/D={d}/k={k}"
+        both_routes(name, args, {"metric": metric})
+        if c == 128 and d == 128:               # the filtered variant
+            for fname, (pred, fk) in fused_edge_filters().items():
+                fs, fc = compiled(torch, pred)
+                kw = dict(metric=metric, attrs=p["attrs"], fstruct=fs,
+                          fconsts=fc)
+                both_routes(f"{name}/filter={fname}", args[:-1] + (fk,), kw)
+
+    wide_rng = np.random.default_rng(4321)       # leaves rng's stream as is
+    for metric in ("l2", "ip"):
+        for c in (32, 128, 1024):
+            for d, k, q, t in ((128, 10, 33, 12), (37, 64, 8, 5)):
+                case(metric, c, d, k, q, t, rng)
+            for d in (256, 300, 301) if c > 32 else ():
+                case(metric, c, d, 10, 17, 6, wide_rng)
+    return cases, max_err
+
+
 def phase_kernel_checks(torch) -> dict:
     """Each scan kernel vs its plain version on small synthetic cases
     (``==`` distances and labels), and a small op sequence (reclaim-heavy
     delete included) on the card against the same sequence on the CPU's
     plain versions."""
     from repro_torch.core import pq
-    from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.pq_fused import (
         sivf_pq_fused_search_cuda,
     )
-    from repro_torch.kernels.sivf_scan.ref import (
-        sivf_fused_search_ref,
-        sivf_pq_fused_search_ref,
-    )
+    from repro_torch.kernels.sivf_scan.ref import sivf_pq_fused_search_ref
     rng = np.random.default_rng(1234)
     out = {"phase": "kernel_checks"}
-    cases, max_err = [], 0.0
-    for metric in ("l2", "ip"):
-        for c in (32, 128):
-            for d, k, q, t in ((128, 10, 33, 12), (37, 64, 8, 5)):
-                p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
-                table = synthetic_table(rng, 24, q, t)
-                qs = rng.normal(size=(q, d)).astype(np.float32)
-                qs[1] = p["data"][1, 0].cpu().numpy() + 0.5 * rng.normal(
-                    size=d).astype(np.float32)       # near the tied rows
-                args = (torch.from_numpy(qs).cuda(),
-                        torch.from_numpy(table).cuda(), p["data"], p["ids"],
-                        p["norms"], p["bitmap"], k)
-                dk, lk = sivf_fused_search_cuda(*args, metric=metric)
-                torch.cuda.synchronize()
-                dp, lp = sivf_fused_search_ref(*args, metric=metric)
-                name = f"{metric}/C={c}/D={d}/k={k}"
-                max_err = max(max_err, check_equal(name, dk, lk, dp, lp))
-                check(bool((lk[0] == -1).all()), "empty row not all -1")
-                cases.append(name)
-                if c == 128 and d == 128:       # the filtered variant
-                    for fname, (pred, fk) in edge_filters().items():
-                        fs, fc = compiled(torch, pred)
-                        fa = args[:-1] + (fk,)
-                        kw = dict(metric=metric, attrs=p["attrs"],
-                                  fstruct=fs, fconsts=fc)
-                        dk, lk = sivf_fused_search_cuda(*fa, **kw)
-                        torch.cuda.synchronize()
-                        dp, lp = sivf_fused_search_ref(*fa, **kw)
-                        fname = f"{name}/filter={fname}"
-                        max_err = max(max_err, check_equal(
-                            fname, dk, lk, dp, lp))
-                        cases.append(fname)
+    cases, max_err = fused_edge_checks(torch, rng)
     out["sivf_fused_search_cases"] = cases
     cases = []
     for metric in ("l2", "ip"):
@@ -726,6 +777,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.topk import topk
     from repro_torch.kernels.wkv6 import wkv6
     fused.launches = fused.filtered_launches = 0
+    fused.launches_grouped = fused.launches_per_query = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
     paged_attention.launches = flash_attention.launches = 0
@@ -830,8 +882,15 @@ def phase_main(torch, wl: dict, out: dict) -> list[dict]:
           f"{launches['sivf_fused_search[filtered]']}")
     check(launches["reclaim"] > 0, "reclaim kernel never launched")
     check(launches["sivf_pq_fused_search"] == 0, "PQ kernel on a raw path")
+    from repro_torch.kernels.sivf_scan import fused
+    routes = {"grouped": fused.launches_grouped,
+              "per_query": fused.launches_per_query}
+    check(routes["grouped"] == N_SEARCH + len(filters_of())
+          and routes["per_query"] == 0,
+          f"fused launches by route {routes}: the path's shapes take grouped")
     out["launches"] = launches
-    lines.append({"phase": "raw.launches", **launches})
+    lines.append({"phase": "raw.launches", **launches,
+                  "sivf_fused_search_by_route": routes})
     lines.append(check_results(torch, index, wl, out["result"]))
     out.update(index=index, cfg=cfg)
     return lines
@@ -962,6 +1021,57 @@ def row(name, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
             "library_ms": library_ms}
 
 
+def host_sync_checks(torch, call, sleep_cycles: int = 200_000_000) -> dict:
+    """Show that ``call()`` (one wrapper call, warmed first) reads no
+    device value on the host: once under
+    ``torch.cuda.set_sync_debug_mode("error")`` (torch raises at any
+    synchronising call of its own), and once queued behind a device sleep
+    of ``sleep_cycles`` clocks, where it must return to the host in under
+    half the sleep's time (a wait of any kind, the C side's included,
+    would last until the sleep ends)."""
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(sleep_cycles)
+    end.record()
+    t0 = time.perf_counter()
+    call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    check(host_ms < sleep_ms / 2,
+          f"the call took {host_ms} ms on the host behind a {sleep_ms} ms "
+          "device sleep: it waits for the device")
+    return {"sync_debug_mode_error": "passed", "device_sleep_ms": sleep_ms,
+            "host_ms_behind_sleep": host_ms}
+
+
+def call_bytes(torch, call, scratch_bytes: int, out_bytes: int) -> dict:
+    """Device bytes one ``call()`` requests from the caching allocator
+    above what was allocated before it (its ``requested_bytes`` peak: the
+    sizes asked for, before the allocator rounds them), held to the
+    wrapper's ``scratch_bytes`` plus its ``out_bytes`` of outputs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    got = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    del got
+    check(scratch_bytes <= peak <= scratch_bytes + out_bytes,
+          f"one call requested {peak} device bytes; its scratch is "
+          f"{scratch_bytes} and its outputs {out_bytes}")
+    return {"scratch_bytes": scratch_bytes, "output_bytes": out_bytes,
+            "requested_bytes_measured": peak}
+
+
 def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     """Raw kernel vs plain at the main path's shapes, with times and
     bounds, unfiltered and at each selectivity; then the reclaim kernel."""
@@ -970,6 +1080,7 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     from repro_torch.kernels.reclaim import ops as reclaim_ops
     from repro_torch.kernels.reclaim.reclaim import reclaim_cuda
     from repro_torch.kernels.reclaim.ref import reclaim_ref
+    from repro_torch.kernels.sivf_scan import fused
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
     index, cfg = main["index"], main["cfg"]
@@ -979,10 +1090,27 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     args = (queries, table, st.data, st.ids, st.norms, st.bitmap, K)
     sub = (queries[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
         + args[2:]
-    dk, lk = sivf_fused_search_cuda(*sub)
-    torch.cuda.synchronize()
+    plan = fused.launch_plan(queries, table, st.data, K)
     dp, lp = sivf_fused_search_ref(*sub)
-    err = check_equal("fused full size", dk, lk, dp, lp)
+    err = 0.0
+    for route in fused.ROUTES:                   # both routes, held alike
+        dk, lk = fused.search_route(route, *sub)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"fused full size/{route}", dk, lk, dp,
+                                   lp))
+    # the plain version on all queries (timed once), and the wrapper's own
+    # route held to it there: the scan's chunks hold up to 16 queries only
+    # at the path's batch size
+    full = []
+    plain_ms = cuda_ms(lambda: full.append(sivf_fused_search_ref(*args)),
+                       reps=1, warm=False)
+    dk, lk = sivf_fused_search_cuda(*args)
+    err = max(err, check_equal("fused full size, all queries", dk, lk,
+                               *full.pop()))
+    del dk, lk
+    syncs = host_sync_checks(torch, lambda: sivf_fused_search_cuda(*args))
+    scratch = call_bytes(torch, lambda: sivf_fused_search_cuda(*args),
+                         plan["scratch_bytes"], N_QUERIES * K * 8)
     # times at the main path's shape (Q=1024, T=1024), and the search's
     # other steps on the same inputs
     ms = cuda_median_ms(lambda: sivf_fused_search_cuda(*args), reps=20)
@@ -992,8 +1120,6 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     probe_ms = cuda_ms(lambda: quantizer.probe(st.centroids, queries, NPROBE,
                                                cfg.metric), reps=10)
     gather_ms = cuda_ms(lambda: ix.gather_tables(cfg, st, lists), reps=10)
-    plain_ms = cuda_ms(lambda: sivf_fused_search_ref(*args), reps=1,
-                       warm=False)
     # bound: bytes this table needs, each input read once, outputs once.
     # Of a probed slab the function needs its bitmap words, and the row,
     # id and norm of each live slot only; whole-slab and per-entry figures
@@ -1010,9 +1136,13 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     rows = [row("sivf_fused_search", src, rep,
                 main["launches"]["sivf_fused_search"], err, ms, plain_ms,
                 bytes_once, flops, hbm)]
-    lines = [{"phase": "fused_full_size", "queries_checked": CHECK_QUERIES,
+    rows[0].update(kernel_route=plan["route"], **scratch)
+    lines = [{"phase": "fused_full_size",
+              "queries_checked": {"default_route": N_QUERIES,
+                                  **{r: CHECK_QUERIES for r in fused.ROUTES}},
               "max_abs_err": err,
               "launches": main["launches"]["sivf_fused_search"],
+              "route": plan["route"], "scratch": scratch,
               "shape": {"Q": N_QUERIES, "T": int(table.shape[1]), "C": c,
                         "D": d, "k": K}, **n, "ms": ms,
               "ms_mean_back_to_back": ms_b2b,
@@ -1022,6 +1152,7 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
               "bound_ms_whole_slab_each_entry": (
                   n["live_table_entries"] * slab_bytes + io) / hbm * 1e3,
               "pct_of_bound": rows[0]["bound_ms"] / ms * 100,
+              "host_syncs": syncs,
               "search_steps_ms": {"probe": probe_ms,
                                   "gather_tables": gather_ms,
                                   "sivf_fused_search": ms}}]
@@ -1031,13 +1162,25 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     for name, pred in filters_of().items():
         fs, fc = compiled(torch, pred)
         kw = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
-        dk, lk = sivf_fused_search_cuda(*sub, **kw)
-        torch.cuda.synchronize()
         dp, lp = sivf_fused_search_ref(*sub, **kw)
-        ferr = check_equal(f"fused[{name}] full size", dk, lk, dp, lp)
-        check(torch.equal(lk, main["filtered"][name].labels[:CHECK_QUERIES]),
+        ferr = 0.0
+        for route in fused.ROUTES:
+            dk, lk = fused.search_route(route, *sub, **kw)
+            torch.cuda.synchronize()
+            ferr = max(ferr, check_equal(f"fused[{name}] full size/{route}",
+                                         dk, lk, dp, lp))
+        full = []
+        fplain_ms = cuda_ms(
+            lambda: full.append(sivf_fused_search_ref(*args, **kw)), reps=1,
+            warm=False)
+        dp, lp = full.pop()
+        dk, lk = sivf_fused_search_cuda(*args, **kw)
+        ferr = max(ferr, check_equal(f"fused[{name}] full size, all queries",
+                                     dk, lk, dp, lp))
+        check(torch.equal(lp, main["filtered"][name].labels),
               f"fused[{name}]: Index.search labels differ from the plain "
               "version's")
+        del dk, lk, dp, lp
         fms = cuda_median_ms(lambda: sivf_fused_search_cuda(*args, **kw),
                              reps=20)
         passing, n_tested = passing_plane(torch, st, pred)
@@ -1048,11 +1191,11 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         fflops = 2 * fn["passing_slots_scored"] * d
         entry = row("sivf_fused_search[filtered]", src, rep,
                     main["launches"]["sivf_fused_search[filtered]"], ferr,
-                    fms, None, fbytes, fflops, hbm)
+                    fms, fplain_ms, fbytes, fflops, hbm)
         if name == REPRESENTATIVE:
-            entry["plain_ms"] = cuda_ms(
-                lambda: sivf_fused_search_ref(*args, **kw), reps=1,
-                warm=False)
+            entry.update(kernel_route=plan["route"], **call_bytes(
+                torch, lambda: sivf_fused_search_cuda(*args, **kw),
+                plan["scratch_bytes"], N_QUERIES * K * 8))
             rows.append(entry)
         by_sel[name] = {"ms": fms, "vs_unfiltered": fms / ms,
                         "max_abs_err": ferr,
@@ -1061,7 +1204,9 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
                         "bound_by": entry["bound_by"],
                         "plain_ms": entry["plain_ms"]}
     lines.append({"phase": "fused_filtered_full_size",
-                  "queries_checked": CHECK_QUERIES,
+                  "queries_checked": {"default_route": N_QUERIES,
+                                      **{r: CHECK_QUERIES
+                                         for r in fused.ROUTES}},
                   "unfiltered_ms": ms, "by_selectivity": by_sel})
 
     # reclaim: a 65,536-id delete that empties whole chains, captured at
@@ -1134,6 +1279,7 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
     and ``Index.search`` on all queries, each kernel against its plain
     version; then times, bounds and the fused-vs-unfused sweep of time
     and peak device bytes over the batch size."""
+    from repro_torch.kernels.sivf_scan import fused
     from repro_torch.kernels.sivf_scan import ops as scan_ops
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
@@ -1219,7 +1365,8 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
         paths = {"unfused": lambda: topk_cuda(*sivf_scan_cuda(
                      *a, cfg.metric), K),
                  "fused": lambda: sivf_fused_search_cuda(*a, K)}
-        entry = {"Q": q, "candidate_bytes": q * n_cols * 8}
+        entry = {"Q": q, "candidate_bytes": q * n_cols * 8,
+                 "fused_route": fused.route(q, t_len, c, K)}
         for name, fn in paths.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()

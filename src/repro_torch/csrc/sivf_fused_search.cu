@@ -4,38 +4,80 @@
 // unfiltered and filtered: for each query, score every live slot of every
 // slab in its table row as ||q||^2 - 2 q.x + ||x||^2 (L2) or -q.x (IP) in
 // fp32, mask dead slots with the validity bitmap and, when filtered, the
-// slots whose attributes fail the predicate, and fold the candidates into
-// a running top-k (topk_fold.cuh). Only [Q, k] distances and labels reach
-// device memory. The arithmetic is the plain version's
-// (kernels/sivf_scan/ref.py) in the same order with the same roundings,
-// so distances agree bit for bit.
+// slots whose attributes fail the predicate, and keep the k best. Only
+// [Q, k] distances and labels, and the grouped route's scratch (below),
+// reach device memory. The arithmetic is the plain version's
+// (kernels/sivf_scan/ref.py) in the same order with the same roundings
+// (dot_row.cuh: each product and each sum rounded on its own, in index
+// order over d), so distances agree bit for bit.
 //
-// Design (simple and correct first):
-//  * one thread block per query, one thread per slab slot (blockDim = C);
-//    the query row is staged in shared memory and the block loops over the
-//    T entries of its table row. A -1 entry is skipped before any load; the
-//    test reads one value that every thread sees, so the skip is uniform.
-//  * thread c reads slot c's payload row, with float4 loads when rows are
-//    16-byte aligned.
-//  * filtered (kFiltered): the predicate is a conjunction of leaves (the
-//    algebra is closed under And only), passed as a flat int32 program of
-//    (kind, attr, n_consts) triples plus its constants, so one compiled
-//    instantiation serves every predicate. A live slot reads its attribute
-//    row in place from the state's [S, C, A] plane; a slot that fails reads
-//    no payload. The unfiltered instantiation compiles the test away.
+// What the result is. The reference folds its table row column by column
+// into a running top-k whose merge row is [running k | C candidates in
+// slot order], the lowest merge-row index winning a tie. Every running
+// entry comes from an earlier column than every new candidate, so the fold
+// returns the k smallest candidates (d, t, c) under the total order
+// (distance, table column t, slot c), in that order; `<` on floats ties
+// -0.0 with +0.0, and every +inf result carries label -1. The k smallest
+// of a total order are one set whatever the order the candidates are seen
+// in, so slabs may be scored in any order and in parallel; and a candidate
+// outside its own (q, t) entry's min(k, C) smallest under (d, c) can never
+// reach the answer, so a per-entry partial top-k merged under
+// (d, t, position) is exact (ref.py sivf_fused_search_split_ref, tested
+// against the fold).
 //
-// What bounds it on this card: bytes of live slabs read (C*D*4 + C*8 + W*4
-// per live table entry); the FMAs are a small fraction of fp32 peak. The
-// design does nothing about that yet: each query reads its own slabs, with
-// no reuse across queries that probe the same lists and no asynchronous
-// staging (cp.async / TMA). Later work does those.
+// What bounds it on this card: the bytes of the live rows of each probed
+// slab, and the fp32 products and sums (no FMA: two instructions a term).
+// The main path's table probes each slab about 15 times, so a design that
+// reads a slab once per probing query streams 15x the bytes it needs.
+//
+// Two routes, chosen by the wrapper from shapes alone:
+//  * grouped (k < C; its partials [Q, T, k] are then strictly smaller than
+//    the unfused pair's [Q, T*C]): each probed slab is read once for all
+//    the queries that probe it, up to kEntries of them at a time.
+//     1. plan, on the card, no host sync: a histogram of the table's live
+//        entries over slabs (and ||q||^2 per query); each probed slab takes
+//        its range of entries and its work chunks (kEntries entries of one
+//        slab each) by warp-aggregated atomics; each entry q * T + t is
+//        scattered into its slab's range. The order of ranges, of chunks
+//        and inside a range is free: every output is keyed by (q, t).
+//     2. scan: a persistent grid takes chunks from an atomic counter (the
+//        next one's record read while this one is scored). A block
+//        compacts the slab's live (and, filtered, passing: the predicate
+//        runs once per slot for the whole batch) slots in slot order while
+//        the chunk's query rows are copied to shared memory; then each
+//        thread streams one live row through its own cp.async ring and
+//        keeps one accumulator per query (the queries' loads are warp
+//        broadcasts), through all of d in order; one instantiation for
+//        each count of queries. Then a warp selects each of its entries' k
+//        smallest under (d, position): rounds of warp minima on an
+//        order-preserving key (-0.0 keyed as +0.0), its entries' rounds
+//        side by side, each row of k written at once.
+//     3. merge: a block per query compacts its live table columns and
+//        folds their partials, in (t, position) order, with topk_fold.cuh's
+//        fold (ties to the lower index); +inf is written as -1.
+//  * per_query (k >= C): one thread block per query, one thread per slot,
+//    the running top-k of topk_fold.cuh folded slab by slab (the first
+//    port's kernel, kept where the grouped partials would not be smaller).
+//
+// Filtered (kFiltered): the predicate is a conjunction of leaves, passed as
+// a flat int32 program of (kind, attr, n_consts) triples plus constants, so
+// one compiled instantiation serves every predicate; a slot that fails
+// reads no payload row. The unfiltered instantiation compiles the test out.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <algorithm>
+#include <climits>
+#include <cstdint>
 
 #include "dot_row.cuh"
 #include "topk_fold.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// Route per_query: one block per query
+// ---------------------------------------------------------------------------
 
 template <bool kL2, bool kFiltered>
 __global__ void sivf_fused_search_kernel(
@@ -91,6 +133,630 @@ void launch(const float* queries, const int* table, const float* data,
       consts, n_attrs, out_d, out_l, t_len, cap, d_dim, words, k, vec4);
 }
 
+// ---------------------------------------------------------------------------
+// Route grouped: plan, scan, merge
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;            // scan block: 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kEntries = 16;             // (q, t) entries of one chunk, at most
+constexpr int kRows = kThreads;          // live rows scored at once: one a thread
+constexpr int kQd = 128;                 // query columns staged at a time
+constexpr int kRing = 2;                 // float4 of a row in flight (cp.async)
+constexpr int kRingStride = 4 * kRing + 4;   // a thread's ring, padded (floats)
+constexpr int kPlanThreads = 256;
+constexpr int kMergeThreads = 128;       // merge block: one candidate a thread
+constexpr int kWarpEntries = kEntries / kWarps;  // entries a warp selects at once
+constexpr int kMergeSeg = 8 * kMergeThreads;   // table columns compacted at once
+
+// The grouped route's device scratch, carved from one workspace of
+// sivf_fused_search_grouped_scratch_bytes() (4-byte elements; the chunk
+// records first, 16-byte aligned).
+struct Scratch {
+  int4* chunks;       // [max_chunks] (slab, first entry, entries, 0)
+  int* counts;        // [n_slabs] entries a slab; zeroed again for the scatter
+  int* counters;      // [3] entries taken, chunks taken, the scan's work
+                      // counter: zeroed with counts by one memset
+  int* offsets;       // [n_slabs] each slab's first entry
+  int* entries;       // [Q * T] q * T + t, grouped by slab
+  float* qq;          // [Q] ||q||^2
+  float* part_d;      // [Q * T * k] each live entry's k smallest ...
+  int* part_l;        // [Q * T * k] ... and their labels
+};
+
+size_t max_chunks(size_t n_entries, int n_slabs) {
+  const size_t s = (size_t)n_slabs;
+  return (n_entries + kEntries - 1) / kEntries + (s < n_entries ? s : n_entries);
+}
+
+// The wrapper's fused.grouped_scratch_bytes() mirrors this formula (it sizes
+// the workspace without a call into this library): change both together.
+size_t scratch_words(int n_queries, int t_len, int n_slabs, int k) {
+  const size_t n = (size_t)n_queries * t_len;
+  return 4 * max_chunks(n, n_slabs) + 2 * (size_t)n_slabs + 3 + n +
+         (size_t)n_queries + 2 * n * (size_t)k;
+}
+
+Scratch carve(void* base, int n_queries, int t_len, int n_slabs, int k) {
+  const size_t n = (size_t)n_queries * t_len;
+  Scratch s;
+  s.chunks = static_cast<int4*>(base);
+  s.counts = reinterpret_cast<int*>(s.chunks + max_chunks(n, n_slabs));
+  s.counters = s.counts + n_slabs;
+  s.offsets = s.counters + 3;
+  s.entries = s.offsets + n_slabs;
+  s.qq = reinterpret_cast<float*>(s.entries + n);
+  s.part_d = s.qq + n_queries;
+  s.part_l = reinterpret_cast<int*>(s.part_d + n * (size_t)k);
+  return s;
+}
+
+// Exclusive scan over the block of one value a thread; returns this
+// thread's prefix and the block's total. warp_sum: kNT / 32 ints of shared
+// memory, free on entry, free again on return.
+template <int kNT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total,
+                                                    int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(~0u, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kNT / 32; ++w) {
+    const int sw = warp_sum[w];
+    before += w < warp ? sw : 0;
+    all += sw;
+  }
+  __syncthreads();
+  *total = all;
+  return before + x - v;
+}
+
+// 1a. Live entries per slab, and ||q||^2 of every query (in index order).
+__global__ void plan_count(const int* __restrict__ table, long long n_entries,
+                           int n_slabs, int* __restrict__ counts,
+                           const float* __restrict__ queries, int n_queries,
+                           int d_dim, float* __restrict__ qq) {
+  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long q = i0; q < n_queries; q += stride)
+    qq[q] = sivf::query_norm(queries + q * d_dim, d_dim);
+  for (long long e = i0; e < n_entries; e += stride) {
+    const int s = table[e];
+    if (s >= 0 && s < n_slabs) atomicAdd(counts + s, 1);
+  }
+}
+
+// 1b. Each probed slab takes its range of entries and its chunk records,
+// a warp's slabs with one atomicAdd on each counter (the order of ranges
+// and of chunks is free: every output is keyed by (q, t)); counts are
+// zeroed for the scatter.
+__global__ void plan_alloc(int* __restrict__ counts, int n_slabs,
+                           int* __restrict__ counters,
+                           int* __restrict__ offsets,
+                           int4* __restrict__ chunks) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = s < n_slabs ? counts[s] : 0;
+  const int nc = (n + kEntries - 1) / kEntries;
+  int xe = n, xc = nc;                   // inclusive scans over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ye = __shfl_up_sync(~0u, xe, o);
+    const int yc = __shfl_up_sync(~0u, xc, o);
+    if (lane >= o) {
+      xe += ye;
+      xc += yc;
+    }
+  }
+  int be = 0, bc = 0;
+  if (lane == 31) {
+    be = atomicAdd(counters, xe);
+    bc = atomicAdd(counters + 1, xc);
+  }
+  const int e = __shfl_sync(~0u, be, 31) + xe - n;
+  const int c = __shfl_sync(~0u, bc, 31) + xc - nc;
+  if (s < n_slabs) {
+    offsets[s] = e;
+    for (int j = 0; j < nc; ++j)
+      chunks[c + j] = make_int4(s, e + j * kEntries,
+                                min(kEntries, n - j * kEntries), 0);
+    counts[s] = 0;
+  }
+}
+
+// 1c. Each live entry into its slab's range.
+__global__ void plan_scatter(const int* __restrict__ table, long long n_entries,
+                             int n_slabs, const int* __restrict__ offsets,
+                             int* __restrict__ fill, int* __restrict__ entries) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < n_entries; e += stride) {
+    const int s = table[e];
+    if (s >= 0 && s < n_slabs)
+      entries[offsets[s] + atomicAdd(fill + s, 1)] = (int)e;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// An unsigned key whose order is the floats' `<` order: -0.0 keys as +0.0,
+// +inf above every finite value, NaN above +inf.
+__device__ __forceinline__ unsigned order_key(float d) {
+  const unsigned b = d == 0.f ? 0u : __float_as_uint(d);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// acc[j] += q_j . x for the chunk's first kQ queries over `len` columns in
+// index order, each product and sum rounded on its own (dot_row.cuh);
+// x: this thread's row from the staged columns' first on, qs: [kEntries]
+// [kQd] staged query columns, zero from len to a multiple of 4.
+//  * kRing (16-byte aligned rows, len % 4 == 0): the row streams through
+//    this thread's ring of kRing float4 in shared memory by cp.async, each
+//    a commit group; only this thread reads its ring, so waiting on its own
+//    groups is enough: kRing copies in flight, no registers held for them.
+//  * otherwise: 4-byte loads, the next four columns read while these are
+//    used, zero past len (a zero times a zero adds +0.0, which leaves every
+//    sum as it is: a sum from +0.0 is never -0.0).
+template <bool kRingPath, int kQ>
+__device__ __forceinline__ void score_row(const float* __restrict__ x,
+                                          int len, const float* qs,
+                                          float* ring,
+                                          float (&acc)[kEntries]) {
+  auto add = [&](const float4 a, int i) {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(qs + j * kQd + 4 * i);
+      float s = acc[j];
+      s = __fadd_rn(s, __fmul_rn(v.x, a.x));
+      s = __fadd_rn(s, __fmul_rn(v.y, a.y));
+      s = __fadd_rn(s, __fmul_rn(v.z, a.z));
+      s = __fadd_rn(s, __fmul_rn(v.w, a.w));
+      acc[j] = s;
+    }
+  };
+  const int n4 = (len + 3) >> 2;
+  if constexpr (kRingPath) {
+#pragma unroll
+    for (int u = 0; u < kRing; ++u) {
+      if (u < n4) cp_async16(ring + 4 * u, x + 4 * u);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n4; ++i) {
+      cp_async_wait<kRing - 1>();        // copy i has landed
+      float* slot = ring + 4 * (i % kRing);
+      add(*reinterpret_cast<const float4*>(slot), i);
+      if (i + kRing < n4) cp_async16(slot, x + 4 * (i + kRing));
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+  } else {
+    auto load = [&](int i) {
+      const int c = 4 * i;
+      return make_float4(c < len ? __ldg(x + c) : 0.f,
+                         c + 1 < len ? __ldg(x + c + 1) : 0.f,
+                         c + 2 < len ? __ldg(x + c + 2) : 0.f,
+                         c + 3 < len ? __ldg(x + c + 3) : 0.f);
+    };
+    float4 cur = load(0);
+    for (int i = 0; i < n4; ++i) {
+      const float4 nxt = load(i + 1);
+      add(cur, i);
+      cur = nxt;
+    }
+  }
+}
+
+// score_row<ne>: one instantiation for each count of queries.
+template <bool kRingPath, int kQ = kEntries>
+__device__ __forceinline__ void score_rows(int ne, const float* __restrict__ x,
+                                           int len, const float* qs,
+                                           float* ring,
+                                           float (&acc)[kEntries]) {
+  if constexpr (kQ > 1) {
+    if (ne < kQ) {
+      score_rows<kRingPath, kQ - 1>(ne, x, len, qs, ring, acc);
+      return;
+    }
+  }
+  score_row<kRingPath, kQ>(x, len, qs, ring, acc);
+}
+
+// Copy columns [d0, d0 + len) of the query rows of `ne` entries (each
+// q * T + t) into qs [kEntries][kQd], asynchronously, and zero the columns
+// from len to a multiple of 4 (the caller waits, then syncs).
+__device__ __forceinline__ void stage_queries(
+    float* qs, const float* __restrict__ queries,
+    const int* __restrict__ entries, int ne, int t_len, int d_dim, int d0,
+    int len, bool vec4) {
+  const int tid = threadIdx.x;
+  if (vec4) {
+    const int w4 = len >> 2;
+    for (int i = tid; i < ne * w4; i += kThreads) {
+      const int r = i / w4, c = 4 * (i - r * w4);
+      cp_async16(qs + r * kQd + c,
+                 queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
+    }
+  } else {
+    for (int i = tid; i < ne * len; i += kThreads) {
+      const int r = i / len, c = i - r * len;
+      cp_async4(qs + r * kQd + c,
+                queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
+    }
+  }
+  const int pad = ((len + 3) & ~3) - len;
+  for (int i = tid; i < ne * pad; i += kThreads)
+    qs[(i / pad) * kQd + len + i % pad] = 0.f;
+}
+
+// Each entry's k smallest of its row of n distances under (d, position),
+// ascending, into part_d / part_l at entry * k (labels: labs[position]);
+// +inf / -1 past the finite ones. One warp selects the chunk's entries
+// warp, warp + kWarps, ... by rounds of warp minima on order_key, the
+// lowest position winning a tie. With n <= 128 and k <= 32 (4 keys a lane
+// in registers) its entries' rounds run side by side, branch-free, lane j
+// keeps round j's position, and each row of k is written at once.
+template <int kE>
+__device__ __forceinline__ void select_entries(
+    float* dist, int dstride, int ne, int n, int k, const int* labs,
+    const int* ent, float* __restrict__ part_d, int* __restrict__ part_l) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned inf_key = order_key(CUDART_INF_F);
+  if constexpr (kE > 1) {                // kE: ceil(ne / kWarps) entries
+    if (ne <= kWarps * (kE - 1)) {
+      select_entries<kE - 1>(dist, dstride, ne, n, k, labs, ent, part_d,
+                             part_l);
+      return;
+    }
+  }
+  if (n <= 128 && k <= 32) {
+    unsigned key[kE][4];
+    int mine[kE];                        // lane j: round j's position
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int i = warp + kWarps * e;
+      mine[e] = -1;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int p = lane + 32 * m;
+        key[e][m] = i < ne && p < n ? order_key(dist[i * dstride + p])
+                                    : 0xFFFFFFFFu;
+      }
+    }
+    for (int j = 0; j < k; ++j) {
+      bool more = false;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        unsigned best = key[e][0];
+        int bm = 0;
+#pragma unroll
+        for (int m = 1; m < 4; ++m)
+          if (key[e][m] < best) { best = key[e][m]; bm = m; }
+        const unsigned wbest = __reduce_min_sync(~0u, best);
+        const int p = lane + 32 * bm;
+        const int wpos = __reduce_min_sync(~0u, best == wbest ? p : INT_MAX);
+        const bool hit = wbest < inf_key;
+        if (lane == j && hit) mine[e] = wpos;
+        if (hit && wpos == p) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            if (m == bm) key[e][m] = 0xFFFFFFFFu;
+        }
+        more |= hit;
+      }
+      if (!more) break;                  // uniform: only +inf left
+    }
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {       // k contiguous lanes a row
+      const int i = warp + kWarps * e;
+      if (i < ne && lane < k) {
+        const size_t at = (size_t)ent[i] * k + lane;
+        part_d[at] = mine[e] < 0 ? CUDART_INF_F : dist[i * dstride + mine[e]];
+        part_l[at] = mine[e] < 0 ? -1 : labs[mine[e]];
+      }
+    }
+    return;
+  }
+  for (int i = warp; i < ne; i += kWarps) {
+    float* row = dist + i * dstride;
+    float* out_d = part_d + (size_t)ent[i] * k;
+    int* out_l = part_l + (size_t)ent[i] * k;
+    int j = 0;
+    for (; j < k; ++j) {
+      unsigned best = 0xFFFFFFFFu;
+      int pos = INT_MAX;
+      for (int p = lane; p < n; p += 32) {
+        const unsigned key = order_key(row[p]);
+        if (key < best) { best = key; pos = p; }
+      }
+      const unsigned wbest = __reduce_min_sync(~0u, best);
+      if (wbest >= inf_key) break;
+      const int wpos = __reduce_min_sync(~0u, best == wbest ? pos : INT_MAX);
+      if (wpos == pos) {
+        out_d[j] = row[pos];
+        out_l[j] = labs[pos];
+        row[pos] = CUDART_INF_F;
+      }
+      __syncwarp();
+    }
+    for (int jj = j + lane; jj < k; jj += 32) {
+      out_d[jj] = CUDART_INF_F;
+      out_l[jj] = -1;
+    }
+  }
+}
+
+__host__ __device__ constexpr size_t grouped_smem_bytes(int cap) {
+  return sizeof(float) * ((size_t)kEntries * kQd +
+                          (size_t)kEntries * (cap + 1) +
+                          (size_t)kThreads * kRingStride) +
+         2 * sizeof(int) * (size_t)cap;
+}
+
+// 2. The scan: a chunk is up to kEntries entries of one slab.
+template <bool kL2, bool kFiltered>
+__global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
+    const float* __restrict__ queries, const float* __restrict__ data,
+    const int* __restrict__ ids, const float* __restrict__ norms,
+    const int* __restrict__ bitmap, const int* __restrict__ attrs,
+    const int* __restrict__ prog, int n_leaves,
+    const int* __restrict__ consts, int n_attrs,
+    const int4* __restrict__ chunks, const int* __restrict__ n_chunks,
+    int* __restrict__ next_chunk, const int* __restrict__ entries,
+    const float* __restrict__ qq, float* __restrict__ part_d,
+    int* __restrict__ part_l, int t_len, int cap, int d_dim, int words,
+    int k, bool vec4) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);      // [kEntries][kQd]
+  const int dstride = cap + 1;                      // distinct banks a row
+  float* dist = qs + kEntries * kQd;                // [kEntries][dstride]
+  int* live = reinterpret_cast<int*>(dist + kEntries * dstride);  // [cap]
+  int* labs = live + cap;                           // [cap] live rows' ids
+  float* ring = reinterpret_cast<float*>(labs + cap);  // [kThreads][kRingStride]
+  __shared__ int s_ent[kEntries];
+  __shared__ float s_qq[kEntries];
+  __shared__ int s_warp[kWarps];
+  __shared__ int4 s_info;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int total = *n_chunks;
+  if (tid == 0) {
+    const int c = atomicAdd(next_chunk, 1);
+    s_info = c < total ? chunks[c] : make_int4(-1, 0, 0, 0);
+  }
+  __syncthreads();
+  for (;;) {
+    const int4 info = s_info;
+    if (info.x < 0) break;                          // uniform: no chunk left
+    const int slab = info.x, ne = info.z;
+    int c_next = 0;                                 // tid 0: the next chunk,
+    if (tid == 0) c_next = atomicAdd(next_chunk, 1);  // read after scoring
+    const size_t row0 = (size_t)slab * cap;
+    // the first kQd columns of the chunk's query rows, copied while the
+    // slots are compacted
+    const int len0 = min(kQd, d_dim);
+    stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0,
+                  vec4);
+    if (tid < ne) {
+      const int e = entries[info.y + tid];
+      s_ent[tid] = e;
+      s_qq[tid] = kL2 ? qq[e / t_len] : 0.f;
+    }
+    // the slab's live (and passing) slots, compacted in slot order
+    int n_live = 0;
+    for (int c0 = 0; c0 < cap; c0 += kThreads) {
+      const int c = c0 + tid;
+      bool ok = false;
+      if (c < cap) {
+        ok = ((unsigned)bitmap[(size_t)slab * words + (c >> 5)] >> (c & 31)) &
+             1u;
+        if (kFiltered && ok)
+          ok = sivf::passes(attrs + (row0 + c) * n_attrs, prog, n_leaves,
+                            consts);
+      }
+      const unsigned b = __ballot_sync(~0u, ok);
+      if (lane == 0) s_warp[warp] = __popc(b);
+      __syncthreads();
+      int before = n_live;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (w < warp) before += s_warp[w];
+        n_live += s_warp[w];
+      }
+      if (ok) live[before + __popc(b & ((1u << lane) - 1u))] = c;
+      __syncthreads();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    int4 next = make_int4(-1, 0, 0, 0);             // read while scoring
+    if (tid == 0 && c_next < total) next = chunks[c_next];
+
+    // thread tid scores live row r0 + tid against the chunk's queries,
+    // streaming the row from device memory; the queries' columns are
+    // staged kQd at a time (once a chunk when D <= kQd)
+    for (int r0 = 0; r0 < n_live; r0 += kRows) {
+      const int nr = min(kRows, n_live - r0);
+      const size_t slot = row0 + live[min(r0 + tid, n_live - 1)];
+      const float* x = data + slot * d_dim;
+      const int lab = ids[slot];
+      const float nrm = kL2 ? norms[slot] : 0.f;
+      float acc[kEntries];
+#pragma unroll
+      for (int i = 0; i < kEntries; ++i) acc[i] = 0.f;
+      for (int d0 = 0; d0 < d_dim; d0 += kQd) {
+        const int len = min(kQd, d_dim - d0);
+        if (d_dim > kQd && (d0 > 0 || r0 > 0)) {   // the next columns
+          __syncthreads();                          // done with the buffer
+          stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, d0,
+                        len, vec4);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        if (warp * 32 < nr) {                       // uniform per warp
+          float* my_ring = ring + tid * kRingStride;
+          if (vec4)
+            score_rows<true>(ne, x + d0, len, qs, my_ring, acc);
+          else
+            score_rows<false>(ne, x + d0, len, qs, my_ring, acc);
+        }
+      }
+      if (tid < nr) {
+        const int r = r0 + tid;
+        labs[r] = lab;
+#pragma unroll
+        for (int i = 0; i < kEntries; ++i)
+          if (i < ne)
+            dist[i * dstride + r] = sivf::distance<kL2>(s_qq[i], acc[i], nrm);
+      }
+    }
+    __syncthreads();
+    select_entries<kWarpEntries>(dist, dstride, ne, n_live, k, labs, s_ent,
+                                 part_d, part_l);
+    if (tid == 0) s_info = next;
+    __syncthreads();
+  }
+}
+
+// 3. The merge: a block per query compacts its live table columns
+// kMergeSeg at a time and folds their partials in (t, position) order;
+// ties go to the lower index, +inf is written as -1.
+__global__ void __launch_bounds__(kMergeThreads) merge_kernel(
+    const int* __restrict__ table, int t_len, int n_slabs,
+    const float* __restrict__ part_d, const int* __restrict__ part_l,
+    float* __restrict__ out_d, int* __restrict__ out_l, int k) {
+  extern __shared__ float4 smem4[];
+  const sivf::Fold fold = sivf::carve_fold(reinterpret_cast<float*>(smem4), k);
+  __shared__ int cols[kMergeSeg];
+  __shared__ int warp_sum[kMergeThreads / 32];
+  const int q = blockIdx.x, tid = threadIdx.x;
+  sivf::fold_init(fold, k);
+  const int* trow = table + (size_t)q * t_len;
+  const size_t row = (size_t)q * t_len * k;
+  const int step_t = kMergeThreads / k, step_j = kMergeThreads % k;
+  for (int t0 = 0; t0 < t_len; t0 += kMergeSeg) {
+    const int tb = t0 + 8 * tid;
+    unsigned flags = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int s = tb + u < t_len ? trow[tb + u] : -1;
+      flags |= (unsigned)(s >= 0 && s < n_slabs) << u;
+    }
+    int n_cols;
+    int at = block_exclusive_scan<kMergeThreads>(__popc(flags), &n_cols,
+                                                 warp_sum);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if ((flags >> u) & 1u) cols[at++] = tb + u;
+    __syncthreads();
+    // this thread's candidate (column li, position j), kMergeThreads apart
+    int li = tid / k, j = tid % k;
+    for (int i0 = 0; i0 < n_cols * k; i0 += kMergeThreads) {
+      float d = CUDART_INF_F;
+      int lab = -1;
+      if (li < n_cols) {
+        const size_t p = row + (size_t)cols[li] * k + j;
+        d = part_d[p];
+        lab = part_l[p];
+      }
+      sivf::fold_candidates(fold, d, lab, k, kMergeThreads);
+      li += step_t;
+      j += step_j;
+      if (j >= k) {
+        j -= k;
+        ++li;
+      }
+    }
+    __syncthreads();                                // cols reused
+  }
+  sivf::fold_write(fold, out_d + (size_t)q * k, out_l + (size_t)q * k, k);
+}
+
+template <bool kL2, bool kFiltered>
+int launch_grouped(const float* queries, const int* table, const float* data,
+                   const int* ids, const float* norms, const int* bitmap,
+                   const int* attrs, const int* prog, int n_leaves,
+                   const int* consts, int n_attrs, float* out_d, int* out_l,
+                   int n_queries, int t_len, int n_slabs, int cap, int d_dim,
+                   int words, int k, bool vec4, const Scratch& w,
+                   cudaStream_t s) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long n = (long long)n_queries * t_len;
+  cudaError_t err =
+      cudaMemsetAsync(w.counts, 0, sizeof(int) * (n_slabs + 3), s);
+  if (err) return err;
+  const long long want = (n > n_queries ? n : n_queries);
+  const int grid = (int)std::min<long long>((want + kPlanThreads - 1) /
+                                                kPlanThreads,
+                                            (long long)n_sm * 16);
+  plan_count<<<grid, kPlanThreads, 0, s>>>(table, n, n_slabs, w.counts,
+                                           queries, n_queries, d_dim, w.qq);
+  plan_alloc<<<(n_slabs + kPlanThreads - 1) / kPlanThreads, kPlanThreads, 0,
+               s>>>(w.counts, n_slabs, w.counters, w.offsets, w.chunks);
+  plan_scatter<<<grid, kPlanThreads, 0, s>>>(table, n, n_slabs, w.offsets,
+                                             w.counts, w.entries);
+  err = cudaGetLastError();
+  if (err) return err;
+  auto* kern = &grouped_scan_kernel<kL2, kFiltered>;
+  const size_t smem = grouped_smem_bytes(cap);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
+  if (err) return err;
+  const long long most = (long long)max_chunks((size_t)n, n_slabs);
+  const int blocks = (int)std::max<long long>(
+      1, std::min<long long>((long long)n_sm * std::max(per_sm, 1), most));
+  kern<<<blocks, kThreads, smem, s>>>(
+      queries, data, ids, norms, bitmap, attrs, prog, n_leaves, consts,
+      n_attrs, w.chunks, w.counters + 1, w.counters + 2, w.entries, w.qq,
+      w.part_d, w.part_l, t_len, cap, d_dim, words, k, vec4);
+  err = cudaGetLastError();
+  if (err) return err;
+  merge_kernel<<<n_queries, kMergeThreads, sivf::fold_smem_bytes(
+                                               k, kMergeThreads), s>>>(
+      table, t_len, n_slabs, w.part_d, w.part_l, out_d, out_l, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t sivf_fused_search_smem_bytes(int d_dim, int cap, int k) {
@@ -98,9 +764,10 @@ extern "C" size_t sivf_fused_search_smem_bytes(int d_dim, int cap, int k) {
          sivf::fold_smem_bytes(k, cap);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// `attrs` null selects the unfiltered instantiation (prog, consts unused);
-// otherwise attrs [S, C, n_attrs], prog [3 * n_leaves], consts int32.
+// Launches the per_query route on `stream`; returns the cudaError_t of the
+// launch (0 = ok). `attrs` null selects the unfiltered instantiation (prog,
+// consts unused); otherwise attrs [S, C, n_attrs], prog [3 * n_leaves],
+// consts int32.
 extern "C" int sivf_fused_search_launch(
     const float* queries, const int* table, const float* data,
     const int* ids, const float* norms, const int* bitmap, const int* attrs,
@@ -119,4 +786,40 @@ extern "C" int sivf_fused_search_launch(
      n_attrs, out_d, out_l, n_queries, t_len, cap, d_dim, words, k, vec4,
      smem, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the grouped route's scratch workspace for these shapes.
+extern "C" size_t sivf_fused_search_grouped_scratch_bytes(
+    int n_queries, int t_len, int n_slabs, int k) {
+  return sizeof(int) * scratch_words(n_queries, t_len, n_slabs, k);
+}
+
+// Launches the grouped route (plan, scan, merge) on `stream`; returns the
+// first cudaError_t (0 = ok). `scratch` holds scratch_bytes bytes, at least
+// sivf_fused_search_grouped_scratch_bytes(); arguments otherwise as for
+// sivf_fused_search_launch. Reads no device value on the host.
+extern "C" int sivf_fused_search_grouped_launch(
+    const float* queries, const int* table, const float* data,
+    const int* ids, const float* norms, const int* bitmap, const int* attrs,
+    const int* prog, int n_leaves, const int* consts, int n_attrs,
+    float* out_d, int* out_l, int n_queries, int t_len, int n_slabs, int cap,
+    int d_dim, int words, int k, int metric_l2, void* scratch,
+    size_t scratch_bytes, void* stream) {
+  if (n_queries == 0) return 0;
+  if (scratch_bytes <
+      sivf_fused_search_grouped_scratch_bytes(n_queries, t_len, n_slabs, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch w = carve(scratch, n_queries, t_len, n_slabs, k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte cp.async of payload and query rows: both 16-byte aligned
+  const bool vec4 = (d_dim % 4 == 0) &&
+                    (reinterpret_cast<size_t>(data) % 16 == 0) &&
+                    (reinterpret_cast<size_t>(queries) % 16 == 0);
+  auto* fn = metric_l2 ? (attrs ? &launch_grouped<true, true>
+                                : &launch_grouped<true, false>)
+                       : (attrs ? &launch_grouped<false, true>
+                                : &launch_grouped<false, false>);
+  return fn(queries, table, data, ids, norms, bitmap, attrs, prog, n_leaves,
+            consts, n_attrs, out_d, out_l, n_queries, t_len, n_slabs, cap,
+            d_dim, words, k, vec4, w, s);
 }

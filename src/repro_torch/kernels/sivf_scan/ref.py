@@ -14,6 +14,12 @@ by :func:`sivf_scan_ref`, whose output it is (counterpart of
 ``repro/kernels/sivf_scan/ref.py``): it writes each column's block in
 place of the fold.
 
+:func:`sivf_fused_search_split_ref` computes the fused search's function
+in the grouped CUDA route's order instead (:func:`plan`, each slab's
+entries scored together, a partial top-k per ``(q, t)`` entry, a merge per
+query): the k smallest of the total order ``(distance, t, slot)`` are one
+set whatever the order, so it equals the fold bit for bit.
+
 A slot is a candidate when its validity bit is set, its table entry is
 not ``-1`` and, for a filtered search, its attributes pass the compiled
 predicate (``core/filters.py``); anything else scores ``+inf`` / ``-1``
@@ -159,6 +165,89 @@ def sivf_fused_search_ref(queries: torch.Tensor, table: torch.Tensor,
     """
     return _scan_topk(_raw_score(queries, data, norms, metric), table, ids,
                       bitmap, k, attrs, fstruct, fconsts)
+
+
+def plan(table: torch.Tensor, n_slabs: int
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The grouped scan's plan: ``table [Q, T]`` inverted into a CSR map
+    from slab to the live ``(q, t)`` entries that probe it.
+
+    Returns ``(offsets [n_slabs + 1], entries [n_live])``, both int64:
+    slab ``s``'s entries, each ``q * T + t``, are
+    ``entries[offsets[s]:offsets[s + 1]]``. ``-1`` entries drop out. Here
+    a slab's entries are in ascending order; the kernel's order inside a
+    slab is free, since every output is keyed by ``(q, t)``.
+    """
+    flat = table.reshape(-1).long()
+    live = torch.nonzero(flat >= 0).reshape(-1)
+    slabs = flat[live]
+    offsets = torch.zeros(n_slabs + 1, dtype=torch.long, device=table.device)
+    offsets[1:] = torch.cumsum(torch.bincount(slabs, minlength=n_slabs), 0)
+    return offsets, live[torch.sort(slabs, stable=True).indices]
+
+
+def sivf_fused_search_split_ref(queries: torch.Tensor, table: torch.Tensor,
+                                data: torch.Tensor, ids: torch.Tensor,
+                                norms: torch.Tensor, bitmap: torch.Tensor,
+                                k: int, metric: str = "l2",
+                                attrs: torch.Tensor | None = None,
+                                fstruct: tuple | None = None,
+                                fconsts: torch.Tensor | None = None,
+                                slab_order: list[int] | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sivf_fused_search_ref`'s function in the grouped kernel's
+    order (``csrc/sivf_fused_search.cu``, route ``grouped``).
+
+    The running fold returns, for each query, the k smallest candidates
+    under the total order ``(d, t, c)`` (distance, table column, slot;
+    ``-0.0`` ties ``+0.0``). The k smallest of a total order are one set
+    whatever the order the candidates are seen in, and a candidate outside
+    its own entry's ``min(k, C)`` smallest under ``(d, c)`` cannot reach the
+    answer. So: :func:`plan`; then each slab, in ``slab_order`` (ascending
+    by default; the kernel's blocks take slabs in no fixed order), scores
+    its entries' queries at once, and each ``(q, t)`` entry keeps its
+    ``min(k, C)`` smallest under ``(d, c)`` (a stable sort over slots); then
+    each query merges its entries' partials, laid out in ``(t, position)``
+    order, under ``(d, t, position)`` (a stable sort). Every ``+inf``
+    carries ``-1``. Operands as in :func:`sivf_fused_search_ref`.
+    """
+    qn, t_len = table.shape
+    n_slabs, c = ids.shape
+    kk = min(k, c)
+    offsets, entries = plan(table, n_slabs)
+    qf = queries.to(torch.float32)
+    qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
+    part_d = torch.full((qn * t_len, kk), torch.inf, dtype=torch.float32,
+                        device=table.device)
+    part_l = torch.full((qn * t_len, kk), -1, dtype=torch.int32,
+                        device=table.device)
+    probed = torch.nonzero(offsets[1:] > offsets[:-1]).reshape(-1).tolist()
+    for s in probed if slab_order is None else \
+            [x for x in slab_order if x in set(probed)]:
+        e = entries[offsets[s]:offsets[s + 1]]
+        q = e // t_len
+        ok = bm.unpack_batch(bitmap[s], c)                     # [C]
+        if fstruct is not None:
+            ok &= predicate_mask(attrs[s], fstruct, fconsts)
+        x = data[s].to(torch.float32).expand(len(e), c, -1)
+        dot = dot_in_order(qf[q], x)                           # [n, C]
+        d = qq[q] - 2.0 * dot + norms[s] if metric == "l2" else -dot
+        sd, idx = torch.sort(torch.where(ok, d, torch.inf), dim=1,
+                             stable=True)
+        part_d[e] = sd[:, :kk]
+        part_l[e] = torch.where(torch.isinf(sd[:, :kk]), -1,
+                                ids[s][idx[:, :kk]])
+    md = part_d.reshape(qn, t_len * kk)
+    ml = part_l.reshape(qn, t_len * kk)
+    if t_len * kk < k:                                         # pad to k
+        md = torch.cat([md, torch.full((qn, k - t_len * kk), torch.inf,
+                                       device=md.device)], 1)
+        ml = torch.cat([ml, torch.full((qn, k - t_len * kk), -1,
+                                       dtype=torch.int32,
+                                       device=ml.device)], 1)
+    nd, idx = torch.sort(md, dim=1, stable=True)
+    nd, idx = nd[:, :k], idx[:, :k]
+    return nd, torch.where(torch.isinf(nd), -1, torch.gather(ml, 1, idx))
 
 
 def sivf_pq_fused_search_ref(adc: torch.Tensor, table: torch.Tensor,

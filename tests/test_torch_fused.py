@@ -118,3 +118,198 @@ def test_dot_in_order_matches_sequential_sum(rng):
     for i in range(7):
         want = want + q[:, i:i + 1] * x[:, :, i]
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The grouped kernel's order: plan, per-entry partials, merge
+# ---------------------------------------------------------------------------
+
+SPLIT_SLABS, SPLIT_C, SPLIT_D = 12, 32, 8
+SPLIT_ATTRS = ("tenant", "ts")
+
+
+def split_pool(seed=7):
+    """Slab planes [12, 32, 8] with dead slots; slab 9's slot 3 holds slab
+    4's slot 6 vector (a tie across slabs); slab 2 is empty; attributes
+    tenant in [0, 5), ts in [0, 100)."""
+    rng = np.random.default_rng(seed)
+    s, c, d = SPLIT_SLABS, SPLIT_C, SPLIT_D
+    data = rng.normal(size=(s, c, d)).astype(np.float32)
+    data[9, 3] = data[4, 6]
+    live = rng.random((s, c)) >= 0.25
+    live[9, 3] = live[4, 6] = True
+    live[2] = False
+    live[5, 31] = True                                   # bit 31 of a word
+    words = np.packbits(live.reshape(s, c // 32, 32)[..., ::-1],
+                        axis=-1).view(">u4")[..., 0].astype(np.uint32)
+    ids = rng.permutation(s * c).astype(np.int32).reshape(s, c)
+    attrs = np.stack([rng.integers(0, 5, (s, c)), rng.integers(0, 100, (s, c))],
+                     -1).astype(np.int32)
+    return dict(data=data, ids=ids, norms=(data ** 2).sum(-1),
+                bitmap=words, attrs=attrs)
+
+
+def split_case(name, rng):
+    """(queries [Q, 8], table [Q, 5], k, predicate) of one edge case."""
+    q, t = 6, 5
+    qs = rng.normal(size=(q, SPLIT_D)).astype(np.float32)
+    table = np.stack([rng.permutation(SPLIT_SLABS)[:t] for _ in range(q)]
+                     ).astype(np.int32)
+    table[rng.random((q, t)) < 0.2] = -1
+    k, pred = 10, None
+    if name == "ties_across_slabs":
+        table[1, :2] = (9, 4)            # the higher slab id at the lower t
+        qs[1] = np.array(split_pool()["data"][4, 6]) + 0.01
+    elif name == "same_slab_twice":
+        table[3, :3] = (7, 2, 7)
+    elif name == "one_slab_every_query":
+        table[:, 2] = 5
+    elif name == "all_pad_row":
+        table[0] = -1
+    elif name == "k_beyond_live":
+        table[4] = -1
+        table[4, 3] = 6
+        k = 40                           # beyond slab 6's live rows
+    elif name == "k_at_least_c":
+        k = 48                           # k >= C = 32
+    elif name == "zero_query":
+        qs[2] = 0.0                      # IP: -0.0 everywhere; L2: qq = 0
+    elif name == "filtered_1pct":
+        pred = ("ts", 0, 1)
+    elif name == "filtered_50pct":
+        pred = ("ts", 0, 50)
+    return qs, table, k, pred
+
+
+SPLIT_CASES = ("ties_across_slabs", "same_slab_twice", "one_slab_every_query",
+               "all_pad_row", "k_beyond_live", "k_at_least_c", "zero_query",
+               "filtered_1pct", "filtered_50pct")
+
+
+def test_plan_lists_every_live_entry_once(rng):
+    pool = split_pool()
+    for name in SPLIT_CASES:
+        _, table, _, _ = split_case(name, rng)
+        offsets, entries = ref.plan(torch.from_numpy(table), SPLIT_SLABS)
+        flat = table.reshape(-1)
+        assert offsets[0] == 0 and bool((offsets[1:] >= offsets[:-1]).all())
+        assert int(offsets[-1]) == len(entries) == int((flat >= 0).sum())
+        assert sorted(entries.tolist()) == np.nonzero(flat >= 0)[0].tolist()
+        for s in range(SPLIT_SLABS):
+            mine = entries[offsets[s]:offsets[s + 1]].numpy()
+            assert (flat[mine] == s).all()
+    assert pool["bitmap"].shape == (SPLIT_SLABS, 1)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_order_equals_fold_and_reference(rng, name, metric):
+    """The plan / per-entry partial / merge order gives the running fold's
+    bits (``==`` on distances and labels) and the JAX reference's scan
+    (labels ``==``, distances allclose 1e-5: another summation order)."""
+    from repro.core import filters as jflt
+    from repro_torch.core import filters as flt
+    pool = split_pool()
+    qs, table, k, pred = split_case(name, rng)
+    t = {n: torch.from_numpy(pool[n]) for n in ("data", "ids", "norms")}
+    bitmap = torch.from_numpy(pool["bitmap"].view(np.int32))
+    args = (torch.from_numpy(qs), torch.from_numpy(table), t["data"],
+            t["ids"], t["norms"], bitmap, k)
+    kw, words = {"metric": metric}, pool["bitmap"]
+    if pred is not None:
+        attr, lo, hi = pred
+        cf = flt.compile_filter(flt.Range(attr, lo, hi), SPLIT_ATTRS)
+        kw.update(attrs=torch.from_numpy(pool["attrs"]),
+                  fstruct=cf.structure,
+                  fconsts=torch.tensor(cf.consts, dtype=torch.int32))
+        # the reference scan takes no predicate: fold the passing mask,
+        # evaluated by the reference's own filters, into its bitmap
+        ok = jflt.host_matches(jflt.Range(attr, lo, hi), SPLIT_ATTRS,
+                               pool["attrs"].reshape(-1, 2)).reshape(
+                                   SPLIT_SLABS, SPLIT_C)
+        words = words & np.packbits(ok.reshape(SPLIT_SLABS, 1, 32)[..., ::-1],
+                                    axis=-1).view(">u4")[..., 0]
+    sd, sl = ref.sivf_fused_search_split_ref(*args, **kw)
+    fd, fl = ref.sivf_fused_search_ref(*args, **kw)
+    assert np.array_equal(sd.numpy().view(np.int32), fd.numpy().view(np.int32))
+    assert torch.equal(sl, fl)
+    rd, rl = jops.sivf_fused_search(
+        jnp.asarray(qs), jnp.asarray(table), jnp.asarray(pool["data"]),
+        jnp.asarray(pool["ids"]), jnp.asarray(pool["norms"]),
+        jnp.asarray(words.astype(np.uint32)), k, metric=metric, impl="ref")
+    assert np.array_equal(sl.numpy(), np.asarray(rl))
+    np.testing.assert_allclose(sd.numpy(), np.asarray(rd), rtol=1e-5,
+                               atol=1e-5)
+    assert ((sl == -1) == torch.isinf(sd)).all()
+    if name == "ties_across_slabs":      # the tie goes to the lower t
+        j = int(np.nonzero(sl[1].numpy() == pool["ids"][9, 3])[0][0])
+        assert sd[1, j] == sd[1, j + 1] and sl[1, j + 1] == pool["ids"][4, 6]
+    if name == "all_pad_row":
+        assert bool(torch.isinf(sd[0]).all() and (sl[0] == -1).all())
+    if name == "zero_query" and metric == "ip":
+        fin = torch.isfinite(sd[2])
+        assert bool((sd[2][fin] == 0).all()) and \
+            bool(torch.signbit(sd[2][fin]).all())
+    if name == "filtered_1pct":
+        assert int((sl >= 0).sum()) < 3 * 6
+
+
+def test_launch_plan_reads_shapes_only():
+    """The route and scratch come from shapes alone (meta tensors): the
+    grouped route where its partials are strictly below the unfused pair's
+    ``[Q, T*C]`` (k < C), and at any D; per_query where k >= C, within its
+    48 KB of shared memory; the accepted shapes are the first port's or
+    wider."""
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    q, t, s = 1024, 1024, 16384
+    p = fused.launch_plan(meta(q, 128), meta(q, t), meta(s, 128, 128), 10)
+    assert p["route"] == "grouped" == fused.route(q, t, 128, 10)
+    assert p["scratch_bytes"] == fused.grouped_scratch_bytes(q, t, s, 10)
+    assert q * t * 10 * 8 < p["scratch_bytes"] < q * t * 128 * 8
+    for c, k in ((32, 32), (32, 64), (128, 1024)):
+        p = fused.launch_plan(meta(8, 16), meta(8, 4), meta(6, c, 16), k)
+        assert p == {"route": "per_query", "scratch_bytes": 0}
+    wide = fused.launch_plan(meta(8, 20000), meta(8, 4), meta(6, 128, 20000),
+                             10)                 # beyond the first port's
+    assert wide["route"] == "grouped"
+    for c, k, d, route in ((1056, 10, 16, None), (128, 0, 16, None),
+                           (128, 1025, 16, None), (32, 32, 20000, None),
+                           (32, 32, 16, "grouped"), (32, 10, 16, "other")):
+        with pytest.raises(ValueError):
+            fused.launch_plan(meta(8, d), meta(8, 4), meta(6, c, d), k, route)
+    assert fused.launch_plan(meta(8, 16), meta(8, 4), meta(6, 64, 16), 10,
+                             "per_query")["route"] == "per_query"
+
+
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_split_order_in_any_slab_order(rng, k):
+    """The grouped order gives the fold's bits whatever order the slabs
+    are scored in (the kernel's blocks take them in no fixed order),
+    with the tie across slabs at k = 1 too."""
+    from repro_torch.core import filters as flt
+    pool = split_pool()
+    t = {n: torch.from_numpy(pool[n]) for n in ("data", "ids", "norms")}
+    bitmap = torch.from_numpy(pool["bitmap"].view(np.int32))
+    orders = (None, list(range(SPLIT_SLABS))[::-1],
+              rng.permutation(SPLIT_SLABS).tolist())
+    for name in ("ties_across_slabs", "same_slab_twice",
+                 "one_slab_every_query", "zero_query", "filtered_50pct"):
+        qs, table, _, pred = split_case(name, rng)
+        kw = {}
+        if pred is not None:
+            cf = flt.compile_filter(flt.Range(*pred), SPLIT_ATTRS)
+            kw = dict(attrs=torch.from_numpy(pool["attrs"]),
+                      fstruct=cf.structure,
+                      fconsts=torch.tensor(cf.consts, dtype=torch.int32))
+        args = (torch.from_numpy(qs), torch.from_numpy(table), t["data"],
+                t["ids"], t["norms"], bitmap, k)
+        for metric in ("l2", "ip"):
+            fd, fl = ref.sivf_fused_search_ref(*args, metric=metric, **kw)
+            for order in orders:
+                sd, sl = ref.sivf_fused_search_split_ref(
+                    *args, metric=metric, slab_order=order, **kw)
+                assert np.array_equal(sd.numpy().view(np.int32),
+                                      fd.numpy().view(np.int32)), (name, order)
+                assert torch.equal(sl, fl), (name, metric, order)
