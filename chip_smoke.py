@@ -12,7 +12,12 @@ attributes ``tenant`` (uniform over 100) and ``ts`` (uniform over 1000):
 
   * the raw fp32 index with Faiss's ``IVF4096,Flat`` list count;
   * the PQ index with Faiss's ``IVF4096,PQ32`` layout (32 one-byte codes of
-    4 dims each, nbits=8), trained on a 65,536-row sample.
+    4 dims each, nbits=8), trained on a 65,536-row sample, whose searches
+    take the PQ kernel's ``compacted`` route (each query's live table
+    entries compacted, windows of candidates screened, the listed slots
+    scored 32 dense lanes a step); both of its routes are held against its
+    plain version on edge sets and at full size, the default on all
+    queries.
 
 Each path ingests, overwrites, removes, runs unfiltered searches and one
 filtered search at each of three selectivities (about 1 %, 10 % and 50 %),
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -101,6 +107,8 @@ N_SEARCH = 6                      # unfiltered search batches per path
 CHECK_QUERIES = 64                # full-size queries held against plain
 RTOL = 1e-5                       # distance tolerance, card vs CPU state
 FP32_PEAK = 67e12                 # H100 SXM fp32 (non-tensor) FLOP/s
+SM_COUNT, BOOST_HZ = 132, 1.98e9  # H100 SXM
+LOOKUP_RATE = SM_COUNT * 32 * BOOST_HZ   # 4-byte shared-memory lookups/s
 BF16_PEAK = 989e12                # H100 SXM bf16 dense tensor-core FLOP/s
 REPRESENTATIVE = "in_10pct"       # filtered selectivity in the kernels line
 
@@ -315,9 +323,9 @@ def phase_build() -> dict:
     """Build every kernel; count the flash library's tensor-core
     instructions in its SASS (``cuobjdump -sass``: ``HGMMA`` is wgmma) and
     keep its ``-Xptxas -v`` spill lines, one per kernel instance; report
-    the recurrence kernels' and the fused search's registers and spills
-    per instance (the wkv6 instances for dk = 128, prefill and decode, must
-    spill nothing)."""
+    the recurrence kernels' and the two fused searches' registers and
+    spills per instance (the wkv6 instances for dk = 128, prefill and
+    decode, must spill nothing)."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
@@ -326,6 +334,7 @@ def phase_build() -> dict:
     rec_usage = {n: ptxas_usage(b.build_log(n))
                  for n in ("wkv6", "mamba_scan")}
     fused_usage = ptxas_usage(b.build_log("sivf_fused_search"))
+    pq_usage = ptxas_usage(b.build_log("sivf_pq_fused_search"))
     dk128 = [f for f in rec_usage["wkv6"]
              if "wkv6_kernelILi128E" in f["function"]]
     check(len(dk128) == 2 and all(
@@ -347,7 +356,8 @@ def phase_build() -> dict:
     return {"phase": "build", "seconds": secs, "kernels": list(b.KERNELS),
             "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash,
             "recurrence_registers_and_spills": rec_usage,
-            "fused_search_registers_and_spills": fused_usage}
+            "fused_search_registers_and_spills": fused_usage,
+            "pq_fused_search_registers_and_spills": pq_usage}
 
 
 def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
@@ -490,10 +500,6 @@ def phase_kernel_checks(torch) -> dict:
     delete included) on the card against the same sequence on the CPU's
     plain versions."""
     from repro_torch.core import pq
-    from repro_torch.kernels.sivf_scan.pq_fused import (
-        sivf_pq_fused_search_cuda,
-    )
-    from repro_torch.kernels.sivf_scan.ref import sivf_pq_fused_search_ref
     rng = np.random.default_rng(1234)
     out = {"phase": "kernel_checks"}
     cases, max_err = fused_edge_checks(torch, rng)
@@ -518,30 +524,21 @@ def phase_kernel_checks(torch) -> dict:
                     for k in (10, 64):        # 64 > live count of row 2
                         args = (adc, table, p["codes"], p["ids"],
                                 p["bitmap"], k)
-                        dk, lk = sivf_pq_fused_search_cuda(*args)
-                        torch.cuda.synchronize()
-                        dp, lp = sivf_pq_fused_search_ref(*args)
                         name = f"{metric}/m={m}/nbits={nbits}/C={c}/k={k}"
-                        max_err = max(max_err, check_equal(
-                            name, dk, lk, dp, lp))
-                        check(bool((lk[0] == -1).all()),
-                              "empty row not all -1")
-                        cases.append(name)
-                    if (m, nbits, c) != (32, 8, 128):
+                        max_err = max(max_err, pq_variants(
+                            torch, name, args, {}, cases))
+                    if c != 128:              # filtered: every instance
                         continue
-                    for fname, (pred, fk) in edge_filters().items():
+                    for fname, (pred, fk) in fused_edge_filters().items():
                         fs, fc = compiled(torch, pred)
                         args = (adc, table, p["codes"], p["ids"],
                                 p["bitmap"], fk)
                         kw = dict(attrs=p["attrs"], fstruct=fs, fconsts=fc)
-                        dk, lk = sivf_pq_fused_search_cuda(*args, **kw)
-                        torch.cuda.synchronize()
-                        dp, lp = sivf_pq_fused_search_ref(*args, **kw)
                         fname = f"{metric}/m={m}/nbits={nbits}/C={c}/" \
                                 f"filter={fname}"
-                        max_err = max(max_err, check_equal(
-                            fname, dk, lk, dp, lp))
-                        cases.append(fname)
+                        max_err = max(max_err, pq_variants(
+                            torch, fname, args, kw, cases))
+    max_err = max(max_err, pq_compacted_edge_checks(torch, cases))
     out["sivf_pq_fused_search_cases"] = cases
     out["sivf_scan_cases"], err = scan_edge_checks(torch, rng)
     max_err = max(max_err, err)
@@ -553,6 +550,80 @@ def phase_kernel_checks(torch) -> dict:
         dt: max(perr[dt], ferr[dt]) for dt in ("float32", "bfloat16")}
     out["slice_card_vs_cpu"] = slice_small_check(torch, rng)
     return out
+
+
+def pq_variants(torch, name, args, kw, cases) -> float:
+    """Kernel 2 on every route that takes the shapes (``compacted`` where
+    :func:`pq_fused.route` picks it; ``per_query``) against its plain
+    version, ``==``; a ``-1`` row's labels must stay ``-1``."""
+    from repro_torch.kernels.sivf_scan import pq_fused
+    from repro_torch.kernels.sivf_scan.ref import sivf_pq_fused_search_ref
+    dp, lp = sivf_pq_fused_search_ref(*args, **kw)
+    adc, table, k = args[0], args[1], args[5]
+    empty = bool((table[0] < 0).all())
+    err = 0.0
+    routes = ["per_query"]
+    if pq_fused.route(*adc.shape[1:], k, table.shape[1]) == "compacted":
+        routes.append("compacted")
+    for route in routes:
+        dk, lk = pq_fused.search_route(route, *args, **kw)
+        torch.cuda.synchronize()
+        what = f"{name}/{route}"
+        err = max(err, check_equal(what, dk, lk, dp, lp))
+        check(not empty or bool((lk[0] == -1).all()), f"{what}: empty row")
+        cases.append(what)
+    return err
+
+
+def pq_compacted_edge_checks(torch, cases) -> float:
+    """Kernel 2's compacted route on the shapes the small cases above
+    miss: the PQ path's table shape (T = 1024, about 80 live entries a
+    row) at Q = 1 and 16 and at k = 10 and 1024 > C; m = 64 (a table above
+    48 KB) and m = 16, each also filtered by every edge predicate; C =
+    1024; a row of 1500 columns (compacted 1024 at a time); and ties
+    across every window, warp and step boundary (an ADC table of a few
+    integer values). Both routes, ``==`` to the plain version. Its own
+    random stream."""
+    rng = np.random.default_rng(4321)
+    err = 0.0
+
+    def pool_table(n_slabs, c, m, q, t, live_cols, dead=0.25):
+        p = synthetic_pool(torch, rng, n_slabs, c, 4, dead_frac=dead, m=m,
+                           ksub=256)
+        table = np.full((q, t), -1, np.int32)
+        for i in range(q):
+            cols = np.sort(rng.permutation(t)[:live_cols])
+            table[i, cols] = rng.integers(0, n_slabs, live_cols)
+        return p, torch.from_numpy(table).cuda()
+
+    for q, m, c, t, live, ks in ((1, 32, 128, 1024, 80, (10, 1024)),
+                                 (16, 32, 128, 1024, 80, (10,)),
+                                 (5, 64, 128, 1024, 40, (10, 64)),
+                                 (6, 32, 1024, 64, 12, (10, 64)),
+                                 (4, 16, 128, 1500, 300, (10,))):
+        p, table = pool_table(64, c, m, q, t, live)
+        adc = torch.from_numpy((4 * rng.random((q, m, 256))).astype(
+            np.float32)).cuda()
+        name = f"shape/Q={q}/m={m}/C={c}/T={t}"
+        for k in ks:
+            args = (adc, table, p["codes"], p["ids"], p["bitmap"], k)
+            err = max(err, pq_variants(torch, f"{name}/k={k}", args, {},
+                                       cases))
+        if m in (16, 64):                 # the filtered instances there
+            for fname, (pred, fk) in fused_edge_filters().items():
+                fs, fc = compiled(torch, pred)
+                args = (adc, table, p["codes"], p["ids"], p["bitmap"], fk)
+                kw = dict(attrs=p["attrs"], fstruct=fs, fconsts=fc)
+                err = max(err, pq_variants(
+                    torch, f"{name}/filter={fname}", args, kw, cases))
+    # ties everywhere: integer ADC values
+    p, table = pool_table(48, 128, 32, 8, 256, 40, dead=0.1)
+    adc = torch.from_numpy(rng.integers(0, 3, (8, 32, 256)).astype(
+        np.float32)).cuda()
+    for k in (10, 200):
+        args = (adc, table, p["codes"], p["ids"], p["bitmap"], k)
+        err = max(err, pq_variants(torch, f"ties/k={k}", args, {}, cases))
+    return err
 
 
 def scan_edge_checks(torch, rng) -> tuple[list, float]:
@@ -768,6 +839,14 @@ def recall(torch, lab, best) -> float:
     return float(hit) / max(int((best >= 0).sum()), 1)
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes: shows
+    whether two runs at one seed made the same tensor (trained PQ
+    codebooks, say)."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -779,6 +858,7 @@ def zero_counts() -> None:
     fused.launches = fused.filtered_launches = 0
     fused.launches_grouped = fused.launches_per_query = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
+    pq_fused.launches_compacted = pq_fused.launches_per_query = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
     paged_attention.launches = flash_attention.launches = 0
     flash_attention.launches_tensor_core = flash_attention.launches_simt = 0
@@ -946,8 +1026,15 @@ def phase_pq_main(torch, wl: dict, out: dict) -> list[dict]:
     check(launches["sivf_fused_search"] == 0
           and launches["sivf_fused_search[filtered]"] == 0,
           "raw kernel on the PQ path")
+    from repro_torch.kernels.sivf_scan import pq_fused
+    routes = {"compacted": pq_fused.launches_compacted,
+              "per_query": pq_fused.launches_per_query}
+    check(routes["compacted"] == N_SEARCH + len(filters_of())
+          and routes["per_query"] == 0,
+          f"PQ launches by route {routes}: the path's shapes take compacted")
     out["launches"] = launches
-    lines.append({"phase": "pq.launches", **launches})
+    lines.append({"phase": "pq.launches", **launches,
+                  "sivf_pq_fused_search_by_route": routes})
     # results: k finite live labels whose ADC distance, recomputed from
     # the stored codes, is the one returned
     res = out["result"]
@@ -967,6 +1054,7 @@ def phase_pq_main(torch, wl: dict, out: dict) -> list[dict]:
           "PQ distances do not match the stored codes")
     lines.append({"phase": "pq.results", "finite": True,
                   "labels_live": True, "dists_match_codes": True,
+                  "pq_codebooks_sha256": digest(st.pq_codebooks),
                   "recall_at_10_vs_exact": recall(
                       torch, lab, wl["oracle"]["unfiltered"])})
     out.update(index=index, cfg=cfg)
@@ -1404,9 +1492,14 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
 
 
 def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
-    """PQ kernel vs plain at the PQ path's shapes on one shared ADC table,
-    with times and bounds, unfiltered and at each selectivity."""
+    """Kernel 2 at the PQ path's shapes on one shared ADC table: the
+    default route held ``==`` to the plain version on all queries and to
+    ``Index.search``'s labels on every row, unfiltered and at each
+    selectivity, and every route on the first ``CHECK_QUERIES``; no host
+    sync; one call's device bytes; times and bounds (bytes, and the
+    lookups at ``LOOKUP_RATE``)."""
     from repro_torch.core import pq
+    from repro_torch.kernels.sivf_scan import pq_fused
     from repro_torch.kernels.sivf_scan.pq_fused import (
         sivf_pq_fused_search_cuda,
     )
@@ -1421,49 +1514,71 @@ def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     args = (adc, table, st.codes, st.ids, st.bitmap, K)
     sub = (adc[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
         + args[2:]
-    dk, lk = sivf_pq_fused_search_cuda(*sub)
-    torch.cuda.synchronize()
-    dp, lp = sivf_pq_fused_search_ref(*sub)
-    err = check_equal("pq full size", dk, lk, dp, lp)
-    check(torch.equal(lk, main["result"].labels[:CHECK_QUERIES]),
-          "pq: Index.search labels differ from the plain version's")
+    plan = pq_fused.launch_plan(adc, table, st.codes, K)
+    routes = {}
+
+    def held(what, kw, index_labels):
+        """The default route on every query (the plain version timed once)
+        and each route on the first CHECK_QUERIES, all ``==``; the labels
+        of Index.search too. Returns (max error, plain ms)."""
+        full = []
+        plain_ms = cuda_ms(lambda: full.append(sivf_pq_fused_search_ref(
+            *args, **kw)), reps=1, warm=False)
+        dp, lp = full.pop()
+        dk, lk = sivf_pq_fused_search_cuda(*args, **kw)
+        err = check_equal(f"{what}, all queries", dk, lk, dp, lp)
+        check(torch.equal(lp, index_labels),
+              f"{what}: Index.search labels differ from the plain version's")
+        dp, lp = sivf_pq_fused_search_ref(*sub, **kw)
+        for route in pq_fused.ROUTES:
+            dk, lk = pq_fused.search_route(route, *sub, **kw)
+            torch.cuda.synchronize()
+            err = max(err, check_equal(f"{what}/{route}", dk, lk, dp, lp))
+            routes[route] = routes.get(route, 0) + 1
+        return err, plain_ms
+
+    err, plain_ms = held("pq full size", {}, main["result"].labels)
+    syncs = host_sync_checks(torch, lambda: sivf_pq_fused_search_cuda(*args))
+    request = call_bytes(torch, lambda: sivf_pq_fused_search_cuda(*args), 0,
+                         N_QUERIES * K * 8)
     ms = cuda_median_ms(lambda: sivf_pq_fused_search_cuda(*args), reps=20)
-    plain_ms = cuda_ms(lambda: sivf_pq_fused_search_ref(*args), reps=1,
-                       warm=False)
     w = cfg.words
     n = scan_counts(torch, cfg, st, table)
     adc_bytes = adc.numel() * 4
     io = adc_bytes + table.numel() * 4 + N_QUERIES * K * 8
     bytes_once = n["distinct_live_slabs"] * w * 4 \
         + n["live_slots_of_distinct_slabs"] * (m + 4) + io
-    adds = n["live_slots_scored"] * m
+    lookups = n["live_slots_scored"] * m
     src = "src/repro_torch/csrc/sivf_pq_fused_search.cu"
     rep = "src/repro/kernels/sivf_scan/pq_fused.py:94"
     rows = [row("sivf_pq_fused_search", src, rep,
                 main["launches"]["sivf_pq_fused_search"], err, ms, plain_ms,
-                bytes_once, adds, hbm)]
-    lines = [{"phase": "pq_full_size", "queries_checked": CHECK_QUERIES,
+                bytes_once, lookups, hbm, peak=LOOKUP_RATE)]
+    rows[0].update(kernel_route=plan["route"], **request)
+    lines = [{"phase": "pq_full_size",
+              "queries_checked": {"default_route": N_QUERIES,
+                                  **{r: CHECK_QUERIES
+                                     for r in pq_fused.ROUTES}},
               "max_abs_err": err,
               "launches": main["launches"]["sivf_pq_fused_search"],
+              "route": plan["route"], "request": request,
+              "smem_bytes": plan["smem_bytes"],
               "shape": {"Q": N_QUERIES, "T": int(table.shape[1]),
                         "C": cfg.capacity, "m": m, "ksub": ksub, "k": K},
               **n, "adc_table_bytes": adc_bytes, "bound_bytes": bytes_once,
-              "ms": ms, "plain_ms": plain_ms,
+              "lookups": lookups, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": rows[0]["bound_ms"],
               "bound_by": rows[0]["bound_by"],
+              "bound_ms_bytes": bytes_once / hbm * 1e3,
+              "bound_ms_lookups": lookups / LOOKUP_RATE * 1e3,
               "pct_of_bound": rows[0]["bound_ms"] / ms * 100,
-              "adc_tables_ms": adc_ms}]
+              "host_syncs": syncs, "adc_tables_ms": adc_ms}]
     by_sel = {}
     for name, pred in filters_of().items():
         fs, fc = compiled(torch, pred)
         kw = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
-        dk, lk = sivf_pq_fused_search_cuda(*sub, **kw)
-        torch.cuda.synchronize()
-        dp, lp = sivf_pq_fused_search_ref(*sub, **kw)
-        ferr = check_equal(f"pq[{name}] full size", dk, lk, dp, lp)
-        check(torch.equal(lk, main["filtered"][name].labels[:CHECK_QUERIES]),
-              f"pq[{name}]: Index.search labels differ from the plain "
-              "version's")
+        ferr, fplain_ms = held(f"pq[{name}] full size", kw,
+                               main["filtered"][name].labels)
         fms = cuda_median_ms(lambda: sivf_pq_fused_search_cuda(*args, **kw),
                              reps=20)
         passing, n_tested = passing_plane(torch, st, pred)
@@ -1471,23 +1586,27 @@ def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         fbytes = n["distinct_live_slabs"] * w * 4 \
             + n["live_slots_of_distinct_slabs"] * 4 * n_tested \
             + fn["passing_slots_of_distinct_slabs"] * (m + 4) + io
+        flookups = fn["passing_slots_scored"] * m
         entry = row("sivf_pq_fused_search[filtered]", src, rep,
                     main["launches"]["sivf_pq_fused_search[filtered]"], ferr,
-                    fms, None, fbytes, fn["passing_slots_scored"] * m, hbm)
+                    fms, fplain_ms, fbytes, flookups, hbm, peak=LOOKUP_RATE)
         if name == REPRESENTATIVE:
-            entry["plain_ms"] = cuda_ms(
-                lambda: sivf_pq_fused_search_ref(*args, **kw), reps=1,
-                warm=False)
+            entry.update(kernel_route=plan["route"],
+                         **call_bytes(torch, lambda: sivf_pq_fused_search_cuda(
+                             *args, **kw), 0, N_QUERIES * K * 8))
             rows.append(entry)
         by_sel[name] = {"ms": fms, "vs_unfiltered": fms / ms,
                         "max_abs_err": ferr,
                         "passing_slots_scored": fn["passing_slots_scored"],
                         "bound_ms": entry["bound_ms"],
                         "bound_by": entry["bound_by"],
-                        "plain_ms": entry["plain_ms"]}
+                        "bound_ms_bytes": fbytes / hbm * 1e3,
+                        "bound_ms_lookups": flookups / LOOKUP_RATE * 1e3,
+                        "plain_ms": fplain_ms}
     lines.append({"phase": "pq_filtered_full_size",
-                  "queries_checked": CHECK_QUERIES, "unfiltered_ms": ms,
-                  "by_selectivity": by_sel})
+                  "queries_checked": lines[0]["queries_checked"],
+                  "unfiltered_ms": ms, "by_selectivity": by_sel,
+                  "route_checks": routes})
     return lines, rows
 
 
@@ -2185,7 +2304,6 @@ REC_RTOL = REC_ATOL = 1e-4
 # kernel check holds it to its own limit on the path's inputs
 RNN_F32_RTOL = 1e-3
 CONTROL_REL = 2.0 ** -23
-SM_COUNT, BOOST_HZ = 132, 1.98e9
 SFU_RATE = SM_COUNT * 16 * BOOST_HZ   # ex2 results/s (16 a clock per SM)
 
 

@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Time the fused raw scan -> top-k (kernel 1) on one NVIDIA GPU at the
-raw path's table, alone or in turns with another checkout.
+"""Time a fused scan -> top-k kernel on one NVIDIA GPU at its path's table,
+alone or in turns with another checkout.
 
-    python3 scripts/scan_kernel_sweep.py [--seed 0] [--reps 20]
-                                         [--tree DIR] [--baseline DIR]
+    python3 scripts/scan_kernel_sweep.py [--kernel raw|pq] [--seed 0]
+                                         [--reps 20] [--tree DIR]
+                                         [--baseline DIR]
 
-Builds ``csrc/sivf_fused_search.cu`` of the checkout at ``--tree`` (this
-one by default) and prints its instances' registers and spills from the
-``nvcc -Xptxas -v`` log. Then it builds the raw index of ``chip_smoke.py``
-with that script's own workload and traffic, through that checkout's
-``sivf_torch.Index`` (SIFT1M shape: 1,000,000
-rows of a 128-wide Gaussian mixture made from ``--seed``, IVF4096, C=128,
-16,384 overwrites, 100,000 removals), probes its 1024 queries at
-nprobe=32 into the ``[1024, 1024]`` slab table, and times
-``sivf_fused_search_cuda`` on it (the median of ``--reps`` back-to-back
-calls between CUDA events, the whole wrapper call): unfiltered at
-Q = 16, 64, 256 and 1024 (the first rows of the table), and filtered at
-about 1 %, 10 % and 50 % at Q = 1024; where the checkout's wrapper has
-routes (``fused.ROUTES``), each route too. Before it is timed, each
-variant is held to the plain version (``==`` on distances and labels) on
-the first 64 queries, unfiltered and at 10 %.
+``--kernel raw`` (the default) times kernel 1, ``csrc/sivf_fused_search.cu``;
+``--kernel pq`` times kernel 2, ``csrc/sivf_pq_fused_search.cu``. The script
+builds the kernel's source of the checkout at ``--tree`` (this one by
+default) and prints its instances' registers and spills from the ``nvcc
+-Xptxas -v`` log. Then it builds the path's index of ``chip_smoke.py`` with
+that script's own workload and traffic, through that checkout's
+``sivf_torch.Index`` (SIFT1M shape: 1,000,000 rows of a 128-wide Gaussian
+mixture made from ``--seed``, IVF4096, C=128, 16,384 overwrites, 100,000
+removals; for ``pq`` the IVF4096,PQ32 index trained on 65,536 rows),
+probes its 1024 queries at nprobe=32 into the ``[1024, 1024]`` slab table
+(and for ``pq`` builds their ADC tables once), and times the kernel's
+wrapper on it (the median of ``--reps`` back-to-back calls between CUDA
+events, the whole wrapper call): unfiltered at Q = 16, 64, 256 and 1024
+(the first rows of the table), and filtered at about 1 %, 10 % and 50 % at
+Q = 1024; where the checkout's wrapper has routes (``ROUTES``), each route
+too. At Q = 16 .. 256 a call is mostly host time, so each variant's call
+is also captured in a CUDA graph and its replays timed the same way
+(``graph_ms``: the device's time). Before it is timed, each variant is held
+to the plain version (``==`` on distances and labels) on the first 64
+queries, unfiltered and at 10 %. For ``pq`` the set-up line also gives a
+digest of the codebooks trained on the card and the index's recall@10, so
+that runs at one seed show whether training repeats itself.
 
 With ``--baseline DIR`` (another checkout, say the parent commit unpacked
 with ``git archive``) the script runs itself on the baseline, this tree,
@@ -48,59 +56,107 @@ def raw_index(torch, cs, seed: int):
                              device="cuda")
     cs.drive(torch, index, wl, "raw", {})
     torch.cuda.synchronize()
-    return index, wl["queries"]
+    return index, wl["queries"], {}
 
 
-def sweep(tree: Path, seed: int, reps: int) -> int:
+def pq_index(torch, cs, seed: int):
+    """The PQ path's index (trained as ``chip_smoke.py``'s ``pq`` path
+    trains it) after the same traffic, its queries, and its codebooks'
+    digest and recall@10 against exact search."""
+    import sivf_torch
+    wl, _ = cs.phase_workload(torch, seed)
+    cfg = sivf_torch.SIVFConfig(**cs.CFG, pq=sivf_torch.PQConfig(
+        m=cs.PQ_M, nbits=cs.PQ_NBITS))
+    index = sivf_torch.Index(cfg, wl["cents"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    index.train(wl["sample"], generator=gen)
+    out = {}
+    cs.drive(torch, index, wl, "pq", out)
+    torch.cuda.synchronize()
+    return index, wl["queries"], {
+        "pq_codebooks_sha256": cs.digest(index.state.pq_codebooks),
+        "recall_at_10_vs_exact": cs.recall(torch, out["result"].labels,
+                                           wl["oracle"]["unfiltered"])}
+
+
+def graph_ms(torch, cs, fn, reps: int) -> float:
+    """Median ms of replays of ``fn()`` captured in a CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cs.cuda_median_ms(g.replay, reps)
+
+
+def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
     import torch
     sys.path[:0] = [str(ROOT), str(tree / "src")]
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.sivf_scan import fused
-    from repro_torch.kernels.sivf_scan.ref import sivf_fused_search_ref
+    from repro_torch.kernels.sivf_scan import ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    secs = _build.build_all(("sivf_fused_search",))
-    cs.emit({"tree": str(tree), "build_seconds": secs,
-             "ptxas": cs.ptxas_usage(_build.build_log("sivf_fused_search"))})
+    source = "sivf_fused_search" if kernel == "raw" else "sivf_pq_fused_search"
+    secs = _build.build_all((source,))
+    cs.emit({"tree": str(tree), "kernel": kernel, "build_seconds": secs,
+             "ptxas": cs.ptxas_usage(_build.build_log(source))})
     t0 = time.perf_counter()
-    index, queries = raw_index(torch, cs, seed)
+    index, queries, quality = (raw_index if kernel == "raw" else pq_index)(
+        torch, cs, seed)
     cfg, st = index.cfg, index.state
     _, table = cs.probe_table(torch, cfg, st, queries)
     cs.emit({"tree": str(tree), "setup_seconds": time.perf_counter() - t0,
-             "table": list(table.shape),
+             "table": list(table.shape), **quality,
              **cs.scan_counts(torch, cfg, st, table)})
-    planes = (st.data, st.ids, st.norms, st.bitmap)
-    routes = getattr(fused, "ROUTES", None)
-    variants = {"default": fused.sivf_fused_search_cuda}
+    if kernel == "raw":
+        from repro_torch.kernels.sivf_scan import fused as mod
+        rows, planes = queries, (st.data, st.ids, st.norms, st.bitmap)
+        plain, default = ref.sivf_fused_search_ref, mod.sivf_fused_search_cuda
+    else:
+        from repro_torch.core import pq
+        from repro_torch.kernels.sivf_scan import pq_fused as mod
+        rows = pq.adc_tables(st.pq_codebooks, queries,
+                             cfg.metric).contiguous()
+        planes = (st.codes, st.ids, st.bitmap)
+        plain = ref.sivf_pq_fused_search_ref
+        default = mod.sivf_pq_fused_search_cuda
+    routes = getattr(mod, "ROUTES", None)
+    variants = {"default": default}
     for r in routes or ():
-        variants[r] = (lambda r_: lambda *a, **kw: fused.search_route(
+        variants[r] = (lambda r_: lambda *a, **kw: mod.search_route(
             r_, *a, **kw))(r)
     filters = {}
     for name, pred in cs.filters_of().items():
         fs, fc = cs.compiled(torch, pred)
         filters[name] = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
     failed = False
-    sub = (queries[:cs.CHECK_QUERIES], table[:cs.CHECK_QUERIES].contiguous())
+    sub = (rows[:cs.CHECK_QUERIES], table[:cs.CHECK_QUERIES].contiguous())
     for vname, fn in variants.items():
-        line = {"tree": str(tree), "variant": vname}
+        line = {"tree": str(tree), "kernel": kernel, "variant": vname}
         try:
             for kw in ({}, filters[cs.REPRESENTATIVE]):
-                dp, lp = sivf_fused_search_ref(*sub, *planes, cs.K, **kw)
+                dp, lp = plain(*sub, *planes, cs.K, **kw)
                 dk, lk = fn(*sub, *planes, cs.K, **kw)
                 torch.cuda.synchronize()
                 cs.check_equal(f"{vname} {sorted(kw)}", dk, lk, dp, lp)
             line["held_to_plain"] = True
-            ms = {}
+            ms, gms = {}, {}
             for q in cs.SWEEP_QUERIES:
-                a = (queries[:q], table[:q].contiguous()) + planes
+                a = (rows[:q], table[:q].contiguous()) + planes
                 ms[f"Q={q}"] = cs.cuda_median_ms(lambda: fn(*a, cs.K), reps)
-            a = (queries, table) + planes
+                if q < cs.N_QUERIES:
+                    gms[f"Q={q}"] = graph_ms(torch, cs,
+                                             lambda: fn(*a, cs.K), reps)
+            a = (rows, table) + planes
             for name, kw in filters.items():
                 ms[name] = cs.cuda_median_ms(lambda: fn(*a, cs.K, **kw), reps)
             line["ms"] = ms
+            line["graph_ms"] = gms
             if routes:
-                line["route_at_Q=1024"] = fused.route(
-                    *table.shape, cfg.capacity, cs.K)
+                line["route_at_Q=1024"] = (
+                    mod.route(*table.shape, cfg.capacity, cs.K)
+                    if kernel == "raw" else
+                    mod.launch_plan(rows, table, st.codes, cs.K))
         except Exception as e:                 # report, go on, fail
             failed = True
             line["error"] = f"{type(e).__name__}: {e}"[:600]
@@ -110,6 +166,7 @@ def sweep(tree: Path, seed: int, reps: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("raw", "pq"), default="raw")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tree", type=Path, default=ROOT)
@@ -123,13 +180,13 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     print(cs.smi(), flush=True)
     if args.baseline is None:
-        return sweep(args.tree.resolve(), args.seed, args.reps)
+        return sweep(args.tree.resolve(), args.kernel, args.seed, args.reps)
     rc = 0
     for tree in (args.baseline, ROOT, ROOT, args.baseline):
         rc |= subprocess.run(
-            [sys.executable, __file__, "--seed", str(args.seed), "--reps",
-             str(args.reps), "--tree", str(tree.resolve())],
-            timeout=900).returncode
+            [sys.executable, __file__, "--kernel", args.kernel, "--seed",
+             str(args.seed), "--reps", str(args.reps), "--tree",
+             str(tree.resolve())], timeout=900).returncode
     return rc
 
 

@@ -191,33 +191,6 @@ Scratch carve(void* base, int n_queries, int t_len, int n_slabs, int k) {
   return s;
 }
 
-// Exclusive scan over the block of one value a thread; returns this
-// thread's prefix and the block's total. warp_sum: kNT / 32 ints of shared
-// memory, free on entry, free again on return.
-template <int kNT>
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total,
-                                                    int* warp_sum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(~0u, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  int before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < kNT / 32; ++w) {
-    const int sw = warp_sum[w];
-    before += w < warp ? sw : 0;
-    all += sw;
-  }
-  __syncthreads();
-  *total = all;
-  return before + x - v;
-}
-
 // 1a. Live entries per slab, and ||q||^2 of every query (in index order).
 __global__ void plan_count(const int* __restrict__ table, long long n_entries,
                            int n_slabs, int* __restrict__ counts,
@@ -674,8 +647,8 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
       flags |= (unsigned)(s >= 0 && s < n_slabs) << u;
     }
     int n_cols;
-    int at = block_exclusive_scan<kMergeThreads>(__popc(flags), &n_cols,
-                                                 warp_sum);
+    int at = sivf::block_exclusive_scan<kMergeThreads>(__popc(flags),
+                                                       &n_cols, warp_sum);
 #pragma unroll
     for (int u = 0; u < 8; ++u)
       if ((flags >> u) & 1u) cols[at++] = tb + u;

@@ -1,5 +1,6 @@
-// Staging of a chunk of time steps into shared memory with cp.async, shared
-// by the recurrence kernels (wkv6.cu, mamba_scan.cu). Hopper (sm_90a).
+// Staging of rows into shared memory with cp.async, shared by the
+// recurrence kernels (wkv6.cu, mamba_scan.cu: a chunk of time steps) and
+// sivf_pq_fused_search.cu (a query's ADC table). Hopper (sm_90a).
 //
 // A chunk is `rows` rows of `width` float32, row r read from
 // src + r * src_stride and written to dst + r * dst_stride. With `vec` each

@@ -1,10 +1,12 @@
-// Running top-k fold and predicate test shared by the fused scan kernels
-// (sivf_fused_search.cu, sivf_pq_fused_search.cu). Hopper (sm_90a).
+// Running top-k fold, predicate test and block scan shared by the fused
+// scan kernels (sivf_fused_search.cu, sivf_pq_fused_search.cu). Hopper
+// (sm_90a).
 //
-// Both kernels run one thread block per query and one thread per slab
-// slot. After scoring a slab, every thread holds one candidate (distance,
-// label; +inf / -1 for a dead, padded or filtered-out slot) and the block
-// folds the C candidates into its running top-k, kept in shared memory.
+// The fold serves the kernels' per_query routes, one thread block per
+// query and one thread per slab slot, and kernel 1's grouped merge. After
+// scoring a slab, every thread holds one candidate (distance, label;
+// +inf / -1 for a dead, padded or filtered-out slot) and the block folds
+// the C candidates into its running top-k, kept in shared memory.
 //
 // The fold reproduces the reference's merge exactly
 // (repro/kernels/sivf_scan/fused.py:61-91): the merge row is
@@ -103,6 +105,33 @@ __device__ __forceinline__ void fold_write(const Fold& f, float* out_d,
     out_d[j] = dj;
     out_l[j] = isinf(dj) ? -1 : f.run_l[j];
   }
+}
+
+// Exclusive scan over the block of one value a thread; returns this
+// thread's prefix and the block's total. warp_sum: kNT / 32 ints of shared
+// memory, free on entry, free again on return.
+template <int kNT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total,
+                                                    int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(~0u, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kNT / 32; ++w) {
+    const int sw = warp_sum[w];
+    before += w < warp ? sw : 0;
+    all += sw;
+  }
+  __syncthreads();
+  *total = all;
+  return before + x - v;
 }
 
 // Leaf kinds of a compiled predicate's flat program

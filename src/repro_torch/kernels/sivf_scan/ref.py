@@ -17,8 +17,12 @@ place of the fold.
 :func:`sivf_fused_search_split_ref` computes the fused search's function
 in the grouped CUDA route's order instead (:func:`plan`, each slab's
 entries scored together, a partial top-k per ``(q, t)`` entry, a merge per
-query): the k smallest of the total order ``(distance, t, slot)`` are one
-set whatever the order, so it equals the fold bit for bit.
+query), and :func:`sivf_pq_fused_search_split_ref` the PQ search's in its
+compacted route's order (live entries compacted, rounds of candidates
+folded at once into several lists, a merge; optionally contiguous shares
+and a merge per query): the k smallest of the total
+order ``(distance, t, slot)`` are one set whatever the order, so each
+equals the fold bit for bit.
 
 A slot is a candidate when its validity bit is set, its table entry is
 not ``-1`` and, for a filtered search, its attributes pass the compiled
@@ -266,3 +270,78 @@ def sivf_pq_fused_search_ref(adc: torch.Tensor, table: torch.Tensor,
     """
     return _scan_topk(lambda sc: adc_in_order(adc, codes[sc]), table, ids,
                       bitmap, k, attrs, fstruct, fconsts)
+
+
+def sivf_pq_fused_search_split_ref(adc: torch.Tensor, table: torch.Tensor,
+                                   codes: torch.Tensor, ids: torch.Tensor,
+                                   bitmap: torch.Tensor, k: int,
+                                   attrs: torch.Tensor | None = None,
+                                   fstruct: tuple | None = None,
+                                   fconsts: torch.Tensor | None = None,
+                                   n_split: int = 1, window: int = 2048,
+                                   streams: int = 8, lanes: int = 32
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sivf_pq_fused_search_ref`'s function in the compacted
+    kernel's order (``csrc/sivf_pq_fused_search.cu``, route ``compacted``,
+    which runs ``n_split=1``; ``n_split > 1`` is the order of a row cut
+    into shares, held to the fold as well).
+
+    Each query's live table entries (``table >= 0``) are compacted in t
+    order and cut into ``n_split`` contiguous shares, share ``s`` taking
+    entries ``[s * n // n_split, (s + 1) * n // n_split)`` of its ``n``. A
+    share's candidates ``g = entry * C + slot`` are screened ``window`` at
+    a time; each window lists its live (passing) ones in g order and deals
+    them, ``lanes`` at a time, to ``streams`` streams in turn (a warp
+    each), every stream folding its chunks into its own running top-k (a
+    stable sort of ``[running k | chunk]``: the lower g wins a tie). The
+    streams' lists are merged under ``(distance, g)``, then the shares'
+    partials, laid out in ``(share, position)`` order, under ``(distance,
+    share, position)`` (stable sorts). Every ``+inf`` carries ``-1``.
+    Operands as in :func:`sivf_pq_fused_search_ref`.
+    """
+    qn, t_len = table.shape
+    c = ids.shape[1]
+    dev = table.device
+    inf_d = torch.full((k,), torch.inf, device=dev)
+    none_l = torch.full((k,), -1, dtype=torch.int64, device=dev)
+    out_d, out_l = [], []
+    for q in range(qn):
+        slabs = table[q][table[q] >= 0].long()
+        n = slabs.numel()
+        part_d, part_l = [], []
+        for s in range(n_split):
+            sl = slabs[s * n // n_split:(s + 1) * n // n_split]
+            ok = bm.unpack_batch(bitmap[sl], c).reshape(-1)     # [n_e * C]
+            if fstruct is not None:
+                ok &= predicate_mask(attrs[sl], fstruct,
+                                     fconsts).reshape(-1)
+            d = adc_in_order(adc[q:q + 1],
+                             codes[sl].reshape(1, -1, codes.shape[2]))[0]
+            g_all = torch.arange(ok.numel(), device=dev)
+            runs = [(inf_d, none_l)] * streams                   # (d, g)
+            for w0 in range(0, ok.numel(), window):
+                live = g_all[w0:w0 + window][ok[w0:w0 + window]]
+                for j, c0 in enumerate(range(0, live.numel(), lanes)):
+                    gs = live[c0:c0 + lanes]
+                    rd, rg = runs[j % streams]
+                    runs[j % streams] = fold_topk(
+                        rd[None], rg[None], d[gs][None], gs[None], k)
+                    runs[j % streams] = (runs[j % streams][0][0],
+                                         runs[j % streams][1][0])
+            rd = torch.cat([r[0] for r in runs])
+            rg = torch.cat([r[1] for r in runs])
+            by_g = torch.sort(torch.where(rg < 0, ok.numel() + 1, rg),
+                              stable=True).indices
+            idx = torch.sort(rd[by_g], stable=True).indices[:k]
+            pd, pg = rd[by_g][idx], rg[by_g][idx]
+            lab = torch.cat([ids[sl].reshape(-1).long(), none_l[:1]])
+            part_d.append(pd)
+            part_l.append(torch.where(torch.isinf(pd), -1,
+                                      lab[torch.where(pg < 0, -1, pg)]))
+        md, ml = torch.cat(part_d), torch.cat(part_l)
+        idx = torch.sort(md, stable=True).indices[:k]
+        out_d.append(md[idx])
+        out_l.append(torch.where(torch.isinf(md[idx]), -1, ml[idx]))
+    return (torch.stack(out_d) if qn else torch.empty((0, k), device=dev),
+            (torch.stack(out_l) if qn else torch.empty((0, k), device=dev))
+            .to(torch.int32))

@@ -18,7 +18,12 @@ Inputs are made with numpy from a seed and go through ``repro`` and
   * churn with overwrites and both abort kinds: every integer plane
     (``codes`` and ``attrs`` included) ``==``;
   * the ``Index`` flow with the reference's codebooks carried across
-    (``pq_codebooks=``): the same reports and search labels.
+    (``pq_codebooks=``): the same reports and search labels;
+  * the compacted route's order (``ref.sivf_pq_fused_search_split_ref``:
+    live entries compacted, windows dealt to streams, the merges; and rows
+    cut into contiguous shares): ``==`` to the fold and, through the same
+    inputs as the ADC scan test, to the reference's XLA scan on edge
+    cases; and ``pq_fused.launch_plan`` on meta tensors.
 
 Sizes stay small (dim 16, m in {4, 8}, nbits in {4, 5}, C=32).
 """
@@ -145,8 +150,9 @@ def filled_twin(rng, **kw) -> Twin:
     return tw
 
 
-@pytest.fixture(scope="module", params=[("l2", 4, 4), ("ip", 8, 5)],
-                ids=["l2-m4-nbits4", "ip-m8-nbits5"])
+@pytest.fixture(scope="module", params=[("l2", 4, 4), ("ip", 8, 5),
+                                        ("l2", 8, 4)],
+                ids=["l2-m4-nbits4", "ip-m8-nbits5", "l2-m8-nbits4"])
 def pq_twin(request):
     metric, m, nbits = request.param
     return filled_twin(np.random.default_rng(1), m=m, nbits=nbits,
@@ -256,6 +262,180 @@ def test_pq_plain_version_sums_from_the_first_term():
     d, lab = ref.sivf_pq_fused_search_ref(
         adc, torch.zeros((1, 1), dtype=torch.int32), codes, ids, bitmap, 3)
     assert torch.signbit(d).all() and lab.tolist() == [[0, 1, 2]]
+
+
+# ---------------------------------------------------------------------------
+# The compacted route's order: compaction, windows, merges (and shares)
+# ---------------------------------------------------------------------------
+
+SPLIT_PQ_CASES = ("share_boundary_ties", "neg_zero_first_term",
+                  "same_slab_consecutive_t", "all_pad_row",
+                  "fewer_live_than_e", "k_beyond_live", "k_at_least_c",
+                  "filtered_1pct", "filtered_50pct")
+# (n_split, window, streams, lanes): the kernel's grouping first, then
+# shares cut mid-row, windows of one or a few entries, streams of one lane
+SPLIT_PQ_ORDERS = ((1, 2048, 8, 32), (2, 64, 3, 8), (3, 32, 1, 32),
+                   (5, 96, 8, 4))
+
+
+def live_slot(tw, slab) -> int:
+    """The first live slot of ``slab`` in the port's state."""
+    words = tw.ts.bitmap[slab].numpy().view(np.uint32)
+    bits = (words[:, None] >> np.arange(32)) & 1
+    return int(np.nonzero(bits.reshape(-1))[0][0])
+
+
+def split_pq_case(tw, name, rng):
+    """(queries [6, D], table [6, T], adc [6, m, ksub], k, compiled filter)
+    of one edge case, built on the twin's state: the adc table is the
+    reference's for the queries unless the case rewrites it."""
+    from repro_torch.core import filters as flt
+    qs = rng.normal(size=(6, D)).astype(np.float32)
+    table = np.array(tw.table(qs, NL))
+    adc = np.array(jadc(tw.js.pq_codebooks, jnp.asarray(qs), tw.cfg.metric))
+    k, cf = 10, None
+    live_cols = [np.nonzero(r >= 0)[0] for r in table]
+    if name == "share_boundary_ties":   # integer terms: ties everywhere
+        adc = rng.integers(0, 2, adc.shape).astype(np.float32)
+    elif name == "neg_zero_first_term":
+        # row 0: slot a (an earlier column) sums to +0.0; slot b (a later
+        # column, another slab) to -0.0, from a -0.0 first term on; the
+        # rest of the row is >= 1
+        cols = live_cols[0]
+        sa = int(table[0, cols[0]])
+        sb = int(next(table[0, c] for c in cols[::-1] if table[0, c] != sa))
+        codes = tw.ts.codes.numpy()
+        ca = codes[sa, live_slot(tw, sa)].astype(int)
+        cb = codes[sb, live_slot(tw, sb)].astype(int)
+        adc[0] = 1.0 + np.abs(adc[0])
+        adc[0, np.arange(adc.shape[1]), ca] = 0.0
+        adc[0, np.arange(adc.shape[1]), cb] = -0.0
+    elif name == "same_slab_consecutive_t":
+        table[1, :3] = table[1, live_cols[1][0]]
+        table[2, 4:6] = table[2, live_cols[2][-1]]
+    elif name == "all_pad_row":
+        table[0] = -1
+    elif name == "fewer_live_than_e":   # one live entry: empty shares too
+        keep = table[3, live_cols[3][0]]
+        table[3] = -1
+        table[3, 7] = keep
+    elif name == "k_beyond_live":
+        k = len(tw.live_ids()) + 20
+    elif name == "k_at_least_c":
+        k = 40                           # C = 32
+    elif name == "filtered_1pct":
+        cf = flt.compile_filter(flt.Range("ts", 0, 1), ATTRS)
+    elif name == "filtered_50pct":
+        cf = flt.compile_filter(flt.Range("ts", 0, 50), ATTRS)
+    return qs, table, adc, k, cf
+
+
+def in_total_order(d, lab):
+    """A fold's result re-sorted as ``lax.top_k`` of ``-d`` orders it:
+    among equal distances -0.0 before +0.0 (the IEEE total order), else
+    the fold's own order."""
+    pos_zero = (d == 0) & ~np.signbit(d)
+    idx = np.lexsort((pos_zero, d), axis=1)
+    return (np.take_along_axis(d, idx, 1), np.take_along_axis(lab, idx, 1))
+
+
+@pytest.mark.parametrize("name", SPLIT_PQ_CASES)
+def test_split_order_equals_fold_and_reference(rng, pq_twin, name):
+    """The compacted route's order gives the fold's bits (``==`` on distances,
+    sign bits included, and labels) under every grouping of
+    ``SPLIT_PQ_ORDERS``, and the reference's XLA scan fed the same table
+    and ADC table gives the same result. The reference's ``lax.top_k``
+    puts -0.0 before +0.0 where the fold (and the TPU kernel's fold,
+    ``fused.py:61-91``) ties them, so the fold's result is compared in
+    that order; only the -0.0 case has a tie between signed zeros."""
+    tw = pq_twin
+    qs, table, adc, k, cf = split_pq_case(tw, name, rng)
+    jkw, tkw = filter_args(cf)
+    if cf is not None:
+        tkw["attrs"] = tw.ts.attrs
+    st = tw.ts
+    args = (torch.from_numpy(adc), torch.from_numpy(table), st.codes, st.ids,
+            st.bitmap, k)
+    fd, fl = ref.sivf_pq_fused_search_ref(*args, **tkw)
+    for n_split, window, streams, lanes in SPLIT_PQ_ORDERS:
+        sd, sl = ref.sivf_pq_fused_search_split_ref(
+            *args, **tkw, n_split=n_split, window=window, streams=streams,
+            lanes=lanes)
+        assert np.array_equal(sd.numpy().view(np.int32),
+                              fd.numpy().view(np.int32)), (name, n_split)
+        assert torch.equal(sl, fl), (name, n_split, window)
+    jd, jl = jscan_pq(tw.jcfg, tw.js, jnp.asarray(qs), jnp.asarray(table), k,
+                      adc=jnp.asarray(adc), **jkw)
+    td, tl = in_total_order(fd.numpy(), fl.numpy())
+    assert np.array_equal(td.view(np.int32), np.asarray(jd).view(np.int32))
+    assert np.array_equal(tl, np.asarray(jl))
+    assert ((fl == -1) == torch.isinf(fd)).all()
+    if name == "share_boundary_ties":
+        assert (fd[:, 1:] == fd[:, :-1]).sum() > 20
+    if name == "neg_zero_first_term":   # +0.0 (earlier column) ties -0.0
+        assert fd[0, 0] == 0 and fd[0, 1] == 0
+        assert not torch.signbit(fd[0, 0]) and torch.signbit(fd[0, 1])
+    if name == "all_pad_row":
+        assert bool(torch.isinf(fd[0]).all() and (fl[0] == -1).all())
+    if name == "k_beyond_live":
+        assert bool(torch.isinf(fd[:, -20:]).all())
+
+
+def test_pq_launch_plan_reads_shapes_only():
+    """Route and shared memory come from shapes alone (meta tensors):
+    ``compacted`` for m a multiple of 4 up to 64 and a power of two ksub
+    where its block's shared memory fits, at every Q; ``per_query``
+    elsewhere, another CUDA route, where the compacted block's slab list,
+    top-k or leaf program would not fit; the limits refused with
+    ValueError."""
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    q, t, s = 1024, 1024, 16384
+    for qn in (1, 16, q):
+        p = pq_fused.launch_plan(meta(qn, 32, 256), meta(qn, t),
+                                 meta(s, 128, 32), 10)
+        assert p == {"route": "compacted", "smem_bytes":
+                     pq_fused.compacted_smem_bytes(32, 256, 10, t)}
+    assert pq_fused.route(32, 256, 10, t) == "compacted"
+    # m = 64, k = 1024 at nprobe 256 x max_chain 64 columns, and m = 32,
+    # k = 1024 past about 21,000 columns: the compacted block exceeds
+    # 227 KB, the per_query one does not
+    for m, t_len in ((64, 16384), (32, 24000)):
+        assert pq_fused.route(m, 256, 1024, 1024) == "compacted"
+        assert pq_fused.route(m, 256, 1024, t_len) == "per_query"
+        p = pq_fused.launch_plan(meta(256, m, 256), meta(256, t_len),
+                                 meta(s, 128, m), 1024)
+        assert p == {"route": "per_query",
+                     "smem_bytes": pq_fused.smem_bytes(m, 256, 128, 1024)}
+        with pytest.raises(ValueError):
+            pq_fused.launch_plan(meta(256, m, 256), meta(256, t_len),
+                                 meta(s, 128, m), 1024, "compacted")
+    big = pq_fused.MAX_SMEM // 4         # filter words alone fill the block
+    assert pq_fused.route(32, 256, 10, t, big) == "per_query"
+    assert pq_fused.launch_plan(meta(8, 32, 256), meta(8, t),
+                                meta(s, 128, 32), 10,
+                                filter_words=big)["route"] == "per_query"
+    for m, ksub in ((6, 256), (68, 16), (32, 200)):
+        assert pq_fused.route(m, ksub, 10, 12) == "per_query"
+        p = pq_fused.launch_plan(meta(8, m, ksub), meta(8, 12),
+                                 meta(24, 32, m), 10)
+        assert p == {"route": "per_query",
+                     "smem_bytes": pq_fused.smem_bytes(m, ksub, 32, 10)}
+    for args, kw in (((meta(8, 32, 256), meta(8, 12), meta(24, 48, 32), 10),
+                      {}),                           # C not a multiple of 32
+                     ((meta(8, 32, 256), meta(8, 12), meta(24, 32, 32), 0),
+                      {}),
+                     ((meta(8, 32, 256), meta(8, 12), meta(24, 32, 32),
+                       1025), {}),
+                     ((meta(8, 6, 256), meta(8, 12), meta(24, 32, 6), 10),
+                      {"route_name": "compacted"}),
+                     ((meta(8, 32, 256), meta(8, 12), meta(24, 32, 32), 10),
+                      {"route_name": "other"}),
+                     ((meta(8, 256, 256), meta(8, 12), meta(24, 32, 256),
+                       10), {})):            # the table exceeds 227 KB
+        with pytest.raises(ValueError):
+            pq_fused.launch_plan(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
