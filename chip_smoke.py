@@ -28,9 +28,11 @@ queries that probe it); both of its routes are held against its plain
 version on edge sets and at full size, and one wrapper call is shown to
 read no device value on the host. On the raw path's index a third
 path, the unfused search (probe, ``gather_tables``, ``ops.sivf_scan``
-writing the whole ``[Q, T*C]`` candidate matrix, ``ops.topk``), is held
-bit for bit against the fused kernel and ``Index.search``, and swept
-against it in time and peak device memory over the batch size. The data
+writing the whole ``[Q, T*C]`` candidate matrix on its ``grouped`` route,
+``ops.topk`` on its ``warp`` route), is held bit for bit against the
+fused kernel and ``Index.search`` and each kernel against its plain
+version on all queries, and swept against the fused kernel in time and
+peak device memory over the batch size. The data
 is a synthetic 128-wide Gaussian mixture made from ``--seed`` with numpy;
 no dataset file is read.
 
@@ -63,8 +65,13 @@ engine reported beside it. For ``wkv6`` the kernel and its plain version
 are also held against a float64 evaluation of the recurrence on the
 path's step-0 and re-admit-step inputs, active and idle slots apart.
 
+The coarse centroids are trained twice from one generator state and the
+PQ codebooks twice from one seed: k-means sums in a fixed order, so each
+pair must agree bit for bit.
+
 Output: one JSON object per line, in this order: the card and toolchain,
-the kernel build, the kernel-vs-plain checks, the workload, each path's
+the kernel build, the kernel-vs-plain checks, the workload, the k-means
+repeat, each path's
 phases and full-size kernel checks and timings (the unfused path's after
 the raw path's phases), the ``lm``, ``lm.kernels_full_width`` and
 ``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
@@ -323,9 +330,9 @@ def phase_build() -> dict:
     """Build every kernel; count the flash library's tensor-core
     instructions in its SASS (``cuobjdump -sass``: ``HGMMA`` is wgmma) and
     keep its ``-Xptxas -v`` spill lines, one per kernel instance; report
-    the recurrence kernels' and the two fused searches' registers and
-    spills per instance (the wkv6 instances for dk = 128, prefill and
-    decode, must spill nothing)."""
+    the recurrence kernels', the two fused searches' and the unfused
+    pair's registers and spills per instance (the wkv6 instances for
+    dk = 128, prefill and decode, must spill nothing)."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
@@ -335,6 +342,8 @@ def phase_build() -> dict:
                  for n in ("wkv6", "mamba_scan")}
     fused_usage = ptxas_usage(b.build_log("sivf_fused_search"))
     pq_usage = ptxas_usage(b.build_log("sivf_pq_fused_search"))
+    unfused_usage = {n: ptxas_usage(b.build_log(n))
+                     for n in ("sivf_scan", "topk")}
     dk128 = [f for f in rec_usage["wkv6"]
              if "wkv6_kernelILi128E" in f["function"]]
     check(len(dk128) == 2 and all(
@@ -357,7 +366,8 @@ def phase_build() -> dict:
             "arch": b.ARCH, "ptxas": ptxas, "flash_attention_sass": flash,
             "recurrence_registers_and_spills": rec_usage,
             "fused_search_registers_and_spills": fused_usage,
-            "pq_fused_search_registers_and_spills": pq_usage}
+            "pq_fused_search_registers_and_spills": pq_usage,
+            "unfused_registers_and_spills": unfused_usage}
 
 
 def synthetic_pool(torch, rng, n_slabs, c, d, dead_frac, m=0, ksub=256):
@@ -627,19 +637,22 @@ def pq_compacted_edge_checks(torch, cases) -> float:
 
 
 def scan_edge_checks(torch, rng) -> tuple[list, float]:
-    """The unfused scan kernel vs its plain version (``==``) on the
-    synthetic pools and tables (``-1`` pads, an empty row, dead slots, an
-    empty slab, bit 31 set; L2 and IP; C=32 and 128; D=128 and 37), and on
-    an all-pad table; then ``topk`` of its output vs the fused kernel on
-    the same table (``==``), at k=10 and at k=64 beyond the live rows."""
+    """The unfused scan kernel on each of its routes vs its plain version
+    (``==``) on the synthetic pools and tables (``-1`` pads, an empty row,
+    dead slots, an empty slab, bit 31 set; L2 and IP; C=32, 128 and 1024;
+    D=128, 37, 16 and 300, the last staged 128 columns at a time on the
+    grouped route; Q*T off the fill tiles' 256), and on an all-pad table;
+    then ``topk`` of its output vs the fused kernel on the same table
+    (``==``), at k=10 and at k=64 beyond the live rows."""
+    from repro_torch.kernels.sivf_scan import sivf_scan as scan
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
-    from repro_torch.kernels.sivf_scan.sivf_scan import sivf_scan_cuda
     from repro_torch.kernels.topk.topk import topk_cuda
     cases, max_err = [], 0.0
     for metric in ("l2", "ip"):
-        for c in (32, 128):
-            for d, q, t in ((128, 33, 12), (37, 8, 5), (16, 4, 3)):
+        for c in (32, 128, 1024):
+            for d, q, t in ((128, 33, 12), (37, 8, 5), (16, 4, 3),
+                            (300, 7, 9)):
                 p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
                 table = synthetic_table(rng, 24, q, t)
                 if t == 3:
@@ -648,14 +661,17 @@ def scan_edge_checks(torch, rng) -> tuple[list, float]:
                 args = (torch.from_numpy(qs).cuda(),
                         torch.from_numpy(table).cuda(), p["data"], p["ids"],
                         p["norms"], p["bitmap"])
-                dk, lk = sivf_scan_cuda(*args, metric=metric)
-                torch.cuda.synchronize()
                 dp, lp = sivf_scan_ref(*args, metric=metric)
                 name = f"{metric}/C={c}/D={d}/T={t}"
-                max_err = max(max_err, check_equal(name, dk, lk, dp, lp))
-                check(bool(torch.isinf(dk[0]).all() and (lk[0] == -1).all()),
-                      f"{name}: empty row not all +inf / -1")
-                cases.append(name)
+                for route in scan.ROUTES:
+                    dk, lk = scan.scan_route(route, *args, metric=metric)
+                    torch.cuda.synchronize()
+                    max_err = max(max_err, check_equal(f"{name}/{route}", dk,
+                                                       lk, dp, lp))
+                    check(bool(torch.isinf(dk[0]).all()
+                               and (lk[0] == -1).all()),
+                          f"{name}/{route}: empty row not all +inf / -1")
+                    cases.append(f"{name}/{route}")
                 for k in (10, 64):
                     fd, fl = sivf_fused_search_cuda(*args, k, metric=metric)
                     td, tl = topk_cuda(dk, lk, k)
@@ -687,36 +703,47 @@ def topk_edge_rows(rng, n):
     return d, rng.integers(0, 1 << 30, (5, n)).astype(np.int32)
 
 
+def topk_variants(topk, k: int) -> list[str]:
+    """Every route of the top-k kernel that takes this ``k``: ``block``
+    always, ``warp`` for ``k <= 32``."""
+    return ["block"] + (["warp"] if k <= topk.MAX_WARP_K else [])
+
+
 def topk_edge_checks(torch, rng) -> tuple[list, float]:
-    """The top-k kernel vs its plain version (``==`` bits and labels): k=1
-    and k=L, L=1, L not a multiple of the block (256), the edge rows, rows
-    whose k smallest all lie in one thread's slice (columns 0 mod 256:
-    refills), and a wide row at the search's k."""
+    """The top-k kernel on each of its routes vs its plain version (``==``
+    bits and labels): k=1 and k=L, L=1, L not a multiple of the block
+    (256) nor of 4 (rows that start off a 16-byte boundary), the edge rows,
+    rows whose k smallest all lie in one thread's slice (columns 0 mod 256:
+    refills on the block route), ties everywhere, and a wide row at the
+    search's k."""
+    from repro_torch.kernels.topk import topk
     from repro_torch.kernels.topk.ref import topk_ref
-    from repro_torch.kernels.topk.topk import topk_cuda
     strided = topk_rows(rng, 4, 20000, inf_frac=0.0)
     strided[0][:, ::256] -= 100.0
     ties = (np.full((3, 3001), 2.0, np.float32),
             rng.integers(0, 1 << 30, (3, 3001)).astype(np.int32))
-    sets = {"random/L=1000": (topk_rows(rng, 33, 1000), (1, 10, 16, 17,
-                                                          1000)),
+    sets = {"random/L=1000": (topk_rows(rng, 33, 1000), (1, 10, 16, 17, 32,
+                                                          33, 1000)),
             "L=1": (topk_rows(rng, 4, 1), (1,)),
-            "L=131079": (topk_rows(rng, 8, 131079), (10,)),
+            "L=7": (topk_rows(rng, 5, 7), (1, 3, 7)),
+            "L=131079": (topk_rows(rng, 8, 131079), (10, 32)),
             "refill/L=5000": (topk_rows(rng, 2, 5000), (5000,)),
-            "one_slice/L=20000": (strided, (60, 100)),
-            "all_equal/L=3001": (ties, (50, 3001)),
-            "edge/L=40": (topk_edge_rows(rng, 40), (1, 10, 40)),
-            "edge/L=700": (topk_edge_rows(rng, 700), (10, 300))}
+            "one_slice/L=20000": (strided, (10, 60, 100)),
+            "all_equal/L=3001": (ties, (10, 32, 50, 3001)),
+            "edge/L=40": (topk_edge_rows(rng, 40), (1, 10, 32, 40)),
+            "edge/L=700": (topk_edge_rows(rng, 700), (10, 32, 300))}
     cases, max_err = [], 0.0
     for name, ((d, lab), ks) in sets.items():
         d, lab = torch.from_numpy(d).cuda(), torch.from_numpy(lab).cuda()
         for k in ks:
-            dk, lk = topk_cuda(d, lab, k)
-            torch.cuda.synchronize()
             dp, lp = topk_ref(d, lab, k)
-            max_err = max(max_err, check_equal(f"topk {name}/k={k}", dk, lk,
-                                               dp, lp))
-            cases.append(f"{name}/k={k}")
+            for route in topk_variants(topk, k):
+                dk, lk = topk.topk_route(route, d, lab, k)
+                torch.cuda.synchronize()
+                what = f"{name}/k={k}/{route}"
+                max_err = max(max_err, check_equal(f"topk {what}", dk, lk,
+                                                   dp, lp))
+                cases.append(what)
     return cases, max_err
 
 
@@ -788,6 +815,7 @@ def phase_workload(torch, seed: int) -> tuple[dict, dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sample = base[torch.randperm(N_BASE, generator=gen, device="cuda")
                   [:TRAIN_ROWS]]
+    train_state = gen.get_state()        # for kmeans_repeat_check
     cents = sivf_torch.train_kmeans(sample, N_LISTS, generator=gen)
     ow_ids = torch.from_numpy(rng.choice(N_BASE, OVERWRITE_ROWS,
                                          replace=False).astype(np.int32))
@@ -821,7 +849,8 @@ def phase_workload(torch, seed: int) -> tuple[dict, dict]:
     wl = dict(base=base, queries=queries, cents=cents, sample=sample,
               attrs=torch.from_numpy(attrs_h).cuda(), attrs_h=attrs_h,
               ow_ids=ow_ids, ow_vecs=ow_vecs, rm_ids=rm_ids, cur=cur,
-              removed=removed, oracle=oracle, seed=seed)
+              removed=removed, oracle=oracle, seed=seed,
+              train_state=train_state)
     line = {"phase": "workload", "setup_seconds": setup_s,
             "oracle_seconds": time.perf_counter() - t0, "n_base": N_BASE,
             "train_rows": TRAIN_ROWS, "n_live_after": int(live_ids.numel()),
@@ -829,6 +858,24 @@ def phase_workload(torch, seed: int) -> tuple[dict, dict]:
                 pred, ATTRS, attrs_h).mean())
                 for name, pred in filters_of().items()}}
     return wl, line
+
+
+def kmeans_repeat_check(torch, wl: dict) -> dict:
+    """The coarse centroids trained a second time on the same sample from
+    the same generator state: k-means sums in a fixed order, so the two
+    trainings must agree bit for bit (the PQ codebooks are held the same
+    way in ``phase_pq_main``). ``train_ms`` times the second training."""
+    import sivf_torch
+    gen = torch.Generator(device="cuda")
+    gen.set_state(wl["train_state"])
+    again, train_ms = timed(lambda: sivf_torch.train_kmeans(
+        wl["sample"], N_LISTS, generator=gen))
+    digests = [digest(wl["cents"]), digest(again)]
+    check(digests[0] == digests[1],
+          f"coarse k-means does not repeat itself: {digests}")
+    return {"phase": "kmeans_repeat", "train_ms": train_ms,
+            "rows": TRAIN_ROWS, "n_lists": N_LISTS,
+            "centroids_sha256_two_trainings": digests}
 
 
 def recall(torch, lab, best) -> float:
@@ -857,6 +904,8 @@ def zero_counts() -> None:
     from repro_torch.kernels.wkv6 import wkv6
     fused.launches = fused.filtered_launches = 0
     fused.launches_grouped = fused.launches_per_query = 0
+    sivf_scan.launches_grouped = sivf_scan.launches_per_entry = 0
+    topk.launches_warp = topk.launches_block = 0
     pq_fused.launches = pq_fused.filtered_launches = 0
     pq_fused.launches_compacted = pq_fused.launches_per_query = 0
     reclaim.launches = sivf_scan.launches = topk.launches = 0
@@ -1012,8 +1061,15 @@ def phase_pq_main(torch, wl: dict, out: dict) -> list[dict]:
     zero_counts()                                # counts of this path
     gen = torch.Generator(device="cuda").manual_seed(wl["seed"])
     _, train_ms = timed(lambda: index.train(wl["sample"], generator=gen))
+    # a second training from the same seed must repeat the codebooks
+    again = pq.train_pq(wl["sample"], PQ_M, PQ_NBITS, generator=torch.Generator(
+        device="cuda").manual_seed(wl["seed"]))
+    cb_digests = [digest(index.state.pq_codebooks), digest(again)]
+    check(cb_digests[0] == cb_digests[1],
+          f"PQ k-means does not repeat itself: {cb_digests}")
     lines = [{"phase": "pq.train", "ms": train_ms, "rows": TRAIN_ROWS,
               "m": PQ_M, "nbits": PQ_NBITS,
+              "codebooks_sha256_two_trainings": cb_digests,
               "state_bytes": sivf_torch.memory_report(cfg)}]
     lines += drive(torch, index, wl, "pq", out)
     launches = read_counts()
@@ -1359,20 +1415,33 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
 SWEEP_QUERIES = (16, 64, 256, 1024)     # benchmarks/paper.py fused sweep
 
 
+def route_usage(name: str, kernel: str) -> list[dict]:
+    """Registers and spills of each instance of ``kernel`` in the build
+    log of ``csrc/<name>.cu``."""
+    return [f for f in ptxas_usage(_build().build_log(name))
+            if kernel in f["function"]]
+
+
 def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
     """The unfused search path on the raw path's index at full width:
     probe, ``gather_tables``, ``ops.sivf_scan`` (the ``[Q, T*C]`` candidate
     matrix), ``ops.topk``. Driven once with the launch counts zeroed just
-    before and read just after; held bit for bit against the fused kernel
-    and ``Index.search`` on all queries, each kernel against its plain
-    version; then times, bounds and the fused-vs-unfused sweep of time
-    and peak device bytes over the batch size."""
+    before and read just after, each kernel on its shapes' route; held bit
+    for bit against the fused kernel and ``Index.search`` on all queries,
+    and each kernel against its plain version on all queries (its other
+    routes on the first ``CHECK_QUERIES`` rows for the scan, on all rows for
+    the top-k); no host sync in either wrapper; the scan's device bytes
+    (its plan's scratch and its outputs); then times, bounds and the
+    fused-vs-unfused sweep of time and peak device bytes over the batch
+    size, each kernel's route and time at each size."""
     from repro_torch.kernels.sivf_scan import fused
     from repro_torch.kernels.sivf_scan import ops as scan_ops
+    from repro_torch.kernels.sivf_scan import sivf_scan as scan
     from repro_torch.kernels.sivf_scan.fused import sivf_fused_search_cuda
     from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
     from repro_torch.kernels.sivf_scan.sivf_scan import sivf_scan_cuda
     from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk import topk
     from repro_torch.kernels.topk.ref import topk_ref
     from repro_torch.kernels.topk.topk import topk_cuda
     index, cfg, queries = main["index"], main["cfg"], main["queries"]
@@ -1396,6 +1465,16 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
     n_cols = t_len * c
     check(tuple(dists.shape) == (qn, n_cols) and tuple(d.shape) == (qn, K),
           "unfused shapes")
+    scan_plan = scan.launch_plan(queries, table, st.data)
+    topk_plan = topk.launch_plan(dists, K)
+    routes = {"sivf_scan": {"grouped": scan.launches_grouped,
+                            "per_entry": scan.launches_per_entry},
+              "topk": {"warp": topk.launches_warp,
+                       "block": topk.launches_block}}
+    check(routes["sivf_scan"][scan_plan["route"]] == 1
+          and routes["topk"][topk_plan["route"]] == 1,
+          f"unfused launches by route {routes}: the path's shapes take "
+          f"{scan_plan['route']} and {topk_plan['route']}")
     # the three-way identity: pair == fused kernel == Index.search, all
     # queries, distances bit for bit and labels
     args = (queries, table, st.data, st.ids, st.norms, st.bitmap)
@@ -1406,27 +1485,52 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
     res = main["result"]
     check_equal("topk(sivf_scan) vs Index.search", d, lab, res.distances,
                 res.labels)
-    # each kernel against its plain version: the scan on the check
-    # queries' rows, the top-k on all rows of the scan's output
+    # the scan against its plain version on all queries (the plain output
+    # of its timed run), its other route on the check queries
+    full = []
+    plain_scan = cuda_ms(lambda: full.append(sivf_scan_ref(
+        *args, metric=cfg.metric)), reps=1, warm=False)
+    dp, lp = full.pop()
+    err_scan = check_equal("sivf_scan full size, all queries", dists, labels,
+                           dp, lp)
     sub = (queries[:CHECK_QUERIES], table[:CHECK_QUERIES].contiguous()) \
         + args[2:]
-    dp, lp = sivf_scan_ref(*sub, metric=cfg.metric)
-    err_scan = check_equal("sivf_scan full size", dists[:CHECK_QUERIES],
-                           labels[:CHECK_QUERIES], dp, lp)
+    for route in scan.ROUTES:
+        if route != scan_plan["route"]:
+            dk, lk = scan.scan_route(route, *sub, metric=cfg.metric)
+            torch.cuda.synchronize()
+            err_scan = max(err_scan, check_equal(
+                f"sivf_scan full size/{route}", dk, lk, dp[:CHECK_QUERIES],
+                lp[:CHECK_QUERIES]))
+            del dk, lk
     del dp, lp
+    # the top-k against its plain version on all rows, every route
     tp, tlp = topk_ref(dists, labels, K)
     err_topk = check_equal("topk full size", d, lab, tp, tlp)
+    for route in topk_variants(topk, K):
+        if route != topk_plan["route"]:
+            dk, lk = topk.topk_route(route, dists, labels, K)
+            torch.cuda.synchronize()
+            err_topk = max(err_topk, check_equal(
+                f"topk full size/{route}", dk, lk, tp, tlp))
     lib_d, _ = torch.topk(dists, K, dim=1, largest=False, sorted=True)
     check(torch.equal(lib_d, d), "torch.topk distances differ from topk's")
     del tp, tlp, lib_d
+    syncs = {"sivf_scan": host_sync_checks(
+                 torch, lambda: sivf_scan_cuda(*args, cfg.metric)),
+             "sivf_scan_per_entry": host_sync_checks(
+                 torch, lambda: scan.scan_route("per_entry", *sub,
+                                                metric=cfg.metric)),
+             "topk": host_sync_checks(
+                 torch, lambda: topk_cuda(dists, labels, K))}
+    scratch = call_bytes(torch, lambda: sivf_scan_cuda(*args, cfg.metric),
+                         scan_plan["scratch_bytes"], qn * n_cols * 8)
     # times on the same inputs: median of 20 launches each
     ms_scan = cuda_median_ms(lambda: sivf_scan_cuda(*args, cfg.metric), 20)
     ms_topk = cuda_median_ms(lambda: topk_cuda(dists, labels, K), 20)
     lib_ms = cuda_median_ms(lambda: torch.topk(dists, K, dim=1, largest=False,
                                                sorted=True), 20)
     ms_fused = cuda_median_ms(lambda: sivf_fused_search_cuda(*args, K), 20)
-    plain_scan = cuda_ms(lambda: sivf_scan_ref(*args, metric=cfg.metric),
-                         reps=1, warm=False)
     plain_topk = cuda_median_ms(lambda: topk_ref(dists, labels, K), 5)
     # bounds: each input read once, each output written once. The scan
     # needs the live rows of each distinct probed slab and writes every
@@ -1443,10 +1547,16 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
             row("topk", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/topk/topk.py:38", launches["topk"],
                 err_topk, ms_topk, plain_topk, topk_bytes, qn * n_cols, hbm)]
-    rows[1]["library_ms"] = lib_ms
+    rows[0].update(kernel_route=scan_plan["route"], **scratch,
+                   registers_and_spills=route_usage("sivf_scan",
+                                                    "grouped_scan_kernel"))
+    rows[1].update(kernel_route=topk_plan["route"], library_ms=lib_ms,
+                   registers_and_spills=route_usage("topk",
+                                                    "warp_topk_kernel"))
     del dists, labels
     # fused vs unfused over the batch size (benchmarks/paper.py:329-351):
-    # time, and peak device bytes allocated above what is resident
+    # time, and peak device bytes allocated above what is resident; each
+    # kernel of the pair timed alone on its own inputs too
     sweep = []
     for q in SWEEP_QUERIES:
         a = (queries[:q], table[:q].contiguous()) + args[2:]
@@ -1454,7 +1564,9 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
                      *a, cfg.metric), K),
                  "fused": lambda: sivf_fused_search_cuda(*a, K)}
         entry = {"Q": q, "candidate_bytes": q * n_cols * 8,
-                 "fused_route": fused.route(q, t_len, c, K)}
+                 "fused_route": fused.route(q, t_len, c, K),
+                 "scan_route": scan.route(q, t_len, c),
+                 "topk_route": topk.route(q, n_cols, K)}
         for name, fn in paths.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1465,6 +1577,11 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
                 - base
             del got
             entry[f"{name}_ms"] = cuda_median_ms(fn, 10)
+        qd, ql = sivf_scan_cuda(*a, cfg.metric)
+        entry["sivf_scan_ms"] = cuda_median_ms(
+            lambda: sivf_scan_cuda(*a, cfg.metric), 10)
+        entry["topk_ms"] = cuda_median_ms(lambda: topk_cuda(qd, ql, K), 10)
+        del qd, ql
         if q >= 64:
             check(entry["fused_peak_bytes"] < entry["unfused_peak_bytes"],
                   f"Q={q}: fused allocates no less than unfused {entry}")
@@ -1472,9 +1589,19 @@ def phase_unfused(torch, hbm: float, main: dict) -> tuple[list, list]:
     line = {"phase": "unfused", "path_ms": path_ms,
             "launches": {"sivf_scan": launches["sivf_scan"],
                          "topk": launches["topk"]},
+            "launches_by_route": routes,
+            "routes": {"sivf_scan": scan_plan["route"],
+                       "topk": topk_plan["route"]},
             "shape": {"Q": qn, "T": t_len, "C": c, "D": dim, "k": K},
             "identity_all_queries": True, "equals_index_search": True,
-            "queries_checked_scan": CHECK_QUERIES, "rows_checked_topk": qn,
+            "queries_checked_scan": {scan_plan["route"]: qn,
+                                     **{r: CHECK_QUERIES for r in scan.ROUTES
+                                        if r != scan_plan["route"]}},
+            "rows_checked_topk": qn, "scan_scratch": scratch,
+            "host_syncs": syncs,
+            "registers_and_spills": {"sivf_scan": rows[0][
+                "registers_and_spills"], "topk": rows[1][
+                "registers_and_spills"]},
             **n, "ms": {"sivf_scan": ms_scan, "topk": ms_topk,
                         "pair": ms_scan + ms_topk, "torch_topk": lib_ms,
                         "sivf_fused_search": ms_fused},
@@ -2961,6 +3088,9 @@ def main(argv=None) -> int:
     if got:
         wl, line = got
         emit(line)
+        res = run("kmeans_repeat", lambda: kmeans_repeat_check(torch, wl))
+        if res:
+            emit(res)
         # each path, then the phases that reuse its index (the unfused path
         # first: the full-size phase ends with a reclaim-heavy delete)
         paths = (("main_path", phase_main,

@@ -1,13 +1,31 @@
 #!/usr/bin/env python3
-"""Time a fused scan -> top-k kernel on one NVIDIA GPU at its path's table,
-alone or in turns with another checkout.
+"""Time a scan kernel on one NVIDIA GPU at its path's table, alone or in
+turns with another checkout.
 
-    python3 scripts/scan_kernel_sweep.py [--kernel raw|pq] [--seed 0]
-                                         [--reps 20] [--tree DIR]
+    python3 scripts/scan_kernel_sweep.py [--kernel raw|pq|scan|topk|kmeans]
+                                         [--seed 0] [--reps 20] [--tree DIR]
                                          [--baseline DIR]
 
 ``--kernel raw`` (the default) times kernel 1, ``csrc/sivf_fused_search.cu``;
-``--kernel pq`` times kernel 2, ``csrc/sivf_pq_fused_search.cu``. The script
+``--kernel pq`` times kernel 2, ``csrc/sivf_pq_fused_search.cu``;
+``--kernel scan`` and ``--kernel topk`` time the unfused pair, kernel 3
+(``csrc/sivf_scan.cu``) on the raw path's table and kernel 4
+(``csrc/topk.cu``) on kernel 3's ``[Q, T*C]`` output of it, k = 10, each
+at Q = 16, 64, 256 and 1024 (the first rows), on the wrapper's own route
+and, where the checkout's wrapper has routes, on each route that takes
+the shape; before it is timed each variant is held ``==`` to the plain version
+on the first 64 queries (the top-k on all rows), then makes ``--reps``
+untimed calls at each Q (the first timings of a process ran slow
+without them). For ``scan`` the default
+call is also timed on a table of ``-1`` pads only (``all_pad_table_ms``:
+writing the outputs without a slab to score). ``--kernel kmeans`` times
+no kernel but the k-means training on the card
+(``core/quantizer.py::train_kmeans``) as ``chip_smoke.py`` trains: the
+coarse IVF4096 centroids on its 65,536-row sample of the workload, and
+the PQ32 x 256 codebooks on the same rows, each ``--reps`` times from one
+generator state after a first training, with each run's ms (between
+CUDA events) and the digests of what it trained, which must all be
+equal. For the other kernels the script
 builds the kernel's source of the checkout at ``--tree`` (this one by
 default) and prints its instances' registers and spills from the ``nvcc
 -Xptxas -v`` log. Then it builds the path's index of ``chip_smoke.py`` with
@@ -39,6 +57,7 @@ without a GPU.
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
 import time
@@ -89,6 +108,135 @@ def graph_ms(torch, cs, fn, reps: int) -> float:
     return cs.cuda_median_ms(g.replay, reps)
 
 
+def unfused_variants(mod, kernel: str) -> dict:
+    """The timed variants of kernel 3 (``scan``) or 4 (``topk``): the
+    wrapper's own route and each named route, as ``fn(rows, ...)``; a
+    checkout whose wrapper has no routes gives the first alone."""
+    if kernel == "scan":
+        out = {"default": mod.sivf_scan_cuda}
+        for r in getattr(mod, "ROUTES", ()):
+            out[r] = (lambda r_: lambda *a: mod.scan_route(r_, *a))(r)
+        return out
+    out = {"default": mod.topk_cuda}
+    for r in getattr(mod, "ROUTES", ()):
+        out[r] = (lambda r_: lambda *a: mod.topk_route(r_, *a))(r)
+    return out
+
+
+def sweep_unfused(torch, cs, tree: Path, kernel: str, seed: int,
+                  reps: int) -> int:
+    """Kernel 3 or 4 at the raw path's table (see the module's text)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sivf_scan import sivf_scan as scan_mod
+    from repro_torch.kernels.sivf_scan.ref import sivf_scan_ref
+    from repro_torch.kernels.topk import topk as topk_mod
+    from repro_torch.kernels.topk.ref import topk_ref
+    secs = _build.build_all(("sivf_scan", "topk"))
+    cs.emit({"tree": str(tree), "kernel": kernel, "build_seconds": secs,
+             "ptxas": {n: cs.ptxas_usage(_build.build_log(n))
+                       for n in ("sivf_scan", "topk")}})
+    t0 = time.perf_counter()
+    index, queries, _ = raw_index(torch, cs, seed)
+    cfg, st = index.cfg, index.state
+    _, table = cs.probe_table(torch, cfg, st, queries)
+    cs.emit({"tree": str(tree), "setup_seconds": time.perf_counter() - t0,
+             "table": list(table.shape),
+             **cs.scan_counts(torch, cfg, st, table)})
+    planes = (st.data, st.ids, st.norms, st.bitmap)
+    inputs = {}                 # Q -> the timed variants' operands
+    for q in cs.SWEEP_QUERIES:
+        a = (queries[:q], table[:q].contiguous()) + planes
+        inputs[q] = a if kernel == "scan" else \
+            scan_mod.sivf_scan_cuda(*a, cfg.metric) + (cs.K,)
+    mod = scan_mod if kernel == "scan" else topk_mod
+    failed = False
+    for vname, fn in unfused_variants(mod, kernel).items():
+        line = {"tree": str(tree), "kernel": kernel, "variant": vname}
+        try:
+            if kernel == "scan":
+                a = inputs[cs.N_QUERIES]
+                sub = (a[0][:cs.CHECK_QUERIES],
+                       a[1][:cs.CHECK_QUERIES].contiguous()) + planes
+                dk, lk = fn(*sub, cfg.metric)
+                torch.cuda.synchronize()
+                cs.check_equal(vname, dk, lk, *sivf_scan_ref(*sub,
+                                                            cfg.metric))
+            else:
+                a = inputs[cs.N_QUERIES]
+                dk, lk = fn(*a)
+                torch.cuda.synchronize()
+                cs.check_equal(vname, dk, lk, *topk_ref(*a))
+            del dk, lk
+            line["held_to_plain"] = True
+            ms, gms, routes = {}, {}, {}
+            calls = {q: (lambda a_: lambda: fn(*a_, cfg.metric))(a)
+                     if kernel == "scan" else (lambda a_: lambda: fn(*a_))(a)
+                     for q, a in inputs.items()}
+            for call in calls.values():        # untimed: a card at rest
+                for _ in range(reps):          # first runs small calls slow
+                    call()
+            for q, a in inputs.items():
+                call = calls[q]
+                ms[f"Q={q}"] = cs.cuda_median_ms(call, reps)
+                if q < cs.N_QUERIES:
+                    gms[f"Q={q}"] = graph_ms(torch, cs, call, reps)
+                if vname == "default" and hasattr(mod, "ROUTES"):
+                    routes[f"Q={q}"] = (
+                        mod.launch_plan(*a[:3]) if kernel == "scan"
+                        else mod.launch_plan(a[0], cs.K))["route"]
+            line.update(ms=ms, graph_ms=gms)
+            if routes:
+                line["route"] = routes
+            if kernel == "scan" and vname == "default":
+                # the same call on a table of -1 pads only: the output's
+                # fill alone (and the plan), without a slab to score
+                a = inputs[cs.N_QUERIES]
+                pads = (a[0], torch.full_like(a[1], -1)) + planes
+                line["all_pad_table_ms"] = cs.cuda_median_ms(
+                    lambda: fn(*pads, cfg.metric), reps)
+        except Exception as e:                 # report, go on, fail
+            failed = True
+            line["error"] = f"{type(e).__name__}: {e}"[:600]
+        cs.emit(line)
+    return 1 if failed else 0
+
+
+def sweep_kmeans(torch, cs, tree: Path, seed: int, reps: int) -> int:
+    """The coarse and PQ k-means trainings (see the module's text)."""
+    import sivf_torch
+    from repro_torch.core import pq
+    base, _, _ = cs.make_data(torch, seed, cs.N_BASE)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sample = base[torch.randperm(cs.N_BASE, generator=gen, device="cuda")
+                  [:cs.TRAIN_ROWS]]
+    coarse_state = gen.get_state()
+    del base
+    jobs = {"coarse": (lambda g: sivf_torch.train_kmeans(
+                sample, cs.N_LISTS, generator=g), coarse_state,
+                       [cs.TRAIN_ROWS, cs.DIM, cs.N_LISTS]),
+            "pq": (lambda g: pq.train_pq(sample, cs.PQ_M, cs.PQ_NBITS,
+                                         generator=g),
+                   torch.Generator(device="cuda").manual_seed(seed).get_state(),
+                   [cs.PQ_M, cs.TRAIN_ROWS, cs.DIM // cs.PQ_M,
+                    1 << cs.PQ_NBITS])}
+    failed = False
+    for name, (job, state, shape) in jobs.items():
+        ms, digests = [], []
+        for i in range(reps + 1):             # the first: first use
+            g = torch.Generator(device="cuda")
+            g.set_state(state)
+            out, t = cs.timed(lambda: job(g))
+            digests.append(cs.digest(out))
+            if i:
+                ms.append(t)
+        repeats = len(set(digests)) == 1
+        failed |= not repeats
+        cs.emit({"tree": str(tree), "kernel": "kmeans", "job": name,
+                 "shape": shape, "ms": ms, "median_ms": statistics.median(ms),
+                 "digests": sorted(set(digests)), "repeats": repeats})
+    return 1 if failed else 0
+
+
 def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
     import torch
     sys.path[:0] = [str(ROOT), str(tree / "src")]
@@ -96,6 +244,10 @@ def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.sivf_scan import ref
     torch.backends.cuda.matmul.allow_tf32 = False
+    if kernel == "kmeans":
+        return sweep_kmeans(torch, cs, tree, seed, reps)
+    if kernel in ("scan", "topk"):
+        return sweep_unfused(torch, cs, tree, kernel, seed, reps)
     source = "sivf_fused_search" if kernel == "raw" else "sivf_pq_fused_search"
     secs = _build.build_all((source,))
     cs.emit({"tree": str(tree), "kernel": kernel, "build_seconds": secs,
@@ -166,7 +318,9 @@ def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("raw", "pq"), default="raw")
+    ap.add_argument("--kernel", choices=("raw", "pq", "scan", "topk",
+                                         "kmeans"),
+                    default="raw")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tree", type=Path, default=ROOT)

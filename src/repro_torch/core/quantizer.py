@@ -24,6 +24,24 @@ def _initial_rows(n: int, n_lists: int, generator, device) -> torch.Tensor:
     return idx.to(device)
 
 
+def _cluster_sums(xs: torch.Tensor, a: torch.Tensor, n_lists: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster sums ``[B, L, D]`` and counts ``[B, L, 1]`` of ``xs``
+    [B, N, D] under assignments ``a`` [B, N]: the rows stably sorted by
+    (problem, cluster), then each cluster's rows added one after another
+    in row order (``torch.segment_reduce``: a sequential sum for each
+    cluster and column, no atomics); counts by ``bincount``, exact."""
+    b, n, d = xs.shape
+    keys = (a + n_lists * torch.arange(b, device=a.device).unsqueeze(1)
+            ).reshape(-1)                                        # [B*N]
+    order = torch.sort(keys, stable=True).indices
+    counts = torch.bincount(keys, minlength=b * n_lists)
+    sums = torch.segment_reduce(xs.reshape(b * n, d)[order], "sum",
+                                lengths=counts, unsafe=True)
+    return (sums.reshape(b, n_lists, d),
+            counts.to(xs.dtype).reshape(b, n_lists, 1))
+
+
 def train_kmeans(xs: torch.Tensor, n_lists: int, iters: int = 10,
                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Lloyd's k-means on ``xs`` [N, D] (on its device) -> [n_lists, D].
@@ -33,10 +51,10 @@ def train_kmeans(xs: torch.Tensor, n_lists: int, iters: int = 10,
     from the ``b``-th draw of initial rows.
 
     The initial centroids are ``n_lists`` rows drawn with ``generator``
-    (without replacement when ``N >= n_lists``). Cluster sums use
-    ``index_add_``, whose float atomics on the card may order additions
-    differently from run to run; the reference's one-hot matrix product
-    would need an ``[N, n_lists]`` temporary instead.
+    (without replacement when ``N >= n_lists``). Each cluster's sum adds
+    its rows in row order (:func:`_cluster_sums`), the value the
+    reference's one-hot product ``onehot.T @ x`` stands for, so a run on
+    the card repeats itself bit for bit; the counts are exact.
     """
     if xs.dim() == 2:
         return train_kmeans(xs.unsqueeze(0), n_lists, iters, generator)[0]
@@ -45,21 +63,11 @@ def train_kmeans(xs: torch.Tensor, n_lists: int, iters: int = 10,
     idx = torch.stack([_initial_rows(n, n_lists, generator, dev)
                        for _ in range(b)])                       # [B, L]
     cents = torch.gather(xs, 1, idx.unsqueeze(-1).expand(b, n_lists, d))
-    # problem p's cluster j is row p * n_lists + j of the flat sums
-    offs = (torch.arange(b, device=dev) * n_lists).unsqueeze(1)  # [B, 1]
-    ones = torch.ones((b * n, 1), dtype=xs.dtype, device=dev)
-    flat_x = xs.reshape(b * n, d)
     for _ in range(iters):
         a = torch.argmin(l2_sq(xs, cents), dim=-1)               # [B, N]
-        rows = (a + offs).reshape(-1)
-        sums = torch.zeros((b * n_lists, d), dtype=xs.dtype,
-                           device=dev).index_add_(0, rows, flat_x)
-        counts = torch.zeros((b * n_lists, 1), dtype=xs.dtype,
-                             device=dev).index_add_(0, rows, ones)
+        sums, counts = _cluster_sums(xs, a, n_lists)
         new = sums / counts.clamp(min=1)
-        cents = torch.where(counts > 0, new,
-                            cents.reshape(b * n_lists, d)
-                            ).reshape(b, n_lists, d)
+        cents = torch.where(counts > 0, new, cents)
     return cents
 
 

@@ -34,12 +34,14 @@
 //  * grouped (k < C; its partials [Q, T, k] are then strictly smaller than
 //    the unfused pair's [Q, T*C]): each probed slab is read once for all
 //    the queries that probe it, up to kEntries of them at a time.
-//     1. plan, on the card, no host sync: a histogram of the table's live
-//        entries over slabs (and ||q||^2 per query); each probed slab takes
-//        its range of entries and its work chunks (kEntries entries of one
-//        slab each) by warp-aggregated atomics; each entry q * T + t is
-//        scattered into its slab's range. The order of ranges, of chunks
-//        and inside a range is free: every output is keyed by (q, t).
+//     1. plan (slab_plan.cuh, shared with the unfused scan's route
+//        grouped), on the card, no host sync: a histogram of the table's
+//        live entries over slabs (and ||q||^2 per query); each probed slab
+//        takes its range of entries and its work chunks (kEntries entries
+//        of one slab each) by warp-aggregated atomics; each entry q * T + t
+//        is scattered into its slab's range. The order of ranges, of
+//        chunks and inside a range is free: every output is keyed by
+//        (q, t).
 //     2. scan: a persistent grid takes chunks from an atomic counter (the
 //        next one's record read while this one is scored). A block
 //        compacts the slab's live (and, filtered, passing: the predicate
@@ -71,6 +73,7 @@
 #include <cstdint>
 
 #include "dot_row.cuh"
+#include "slab_plan.cuh"
 #include "topk_fold.cuh"
 
 namespace {
@@ -137,151 +140,34 @@ void launch(const float* queries, const int* table, const float* data,
 // Route grouped: plan, scan, merge
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;            // scan block: 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kEntries = 16;             // (q, t) entries of one chunk, at most
-constexpr int kRows = kThreads;          // live rows scored at once: one a thread
-constexpr int kQd = 128;                 // query columns staged at a time
-constexpr int kRing = 2;                 // float4 of a row in flight (cp.async)
-constexpr int kRingStride = 4 * kRing + 4;   // a thread's ring, padded (floats)
-constexpr int kPlanThreads = 256;
+using namespace sivf::group;   // the plan, the row scoring, their constants
+
 constexpr int kMergeThreads = 128;       // merge block: one candidate a thread
 constexpr int kWarpEntries = kEntries / kWarps;  // entries a warp selects at once
 constexpr int kMergeSeg = 8 * kMergeThreads;   // table columns compacted at once
 
 // The grouped route's device scratch, carved from one workspace of
-// sivf_fused_search_grouped_scratch_bytes() (4-byte elements; the chunk
-// records first, 16-byte aligned).
+// sivf_fused_search_grouped_scratch_bytes(): the plan (slab_plan.cuh), then
+// the partials (4-byte elements).
 struct Scratch {
-  int4* chunks;       // [max_chunks] (slab, first entry, entries, 0)
-  int* counts;        // [n_slabs] entries a slab; zeroed again for the scatter
-  int* counters;      // [3] entries taken, chunks taken, the scan's work
-                      // counter: zeroed with counts by one memset
-  int* offsets;       // [n_slabs] each slab's first entry
-  int* entries;       // [Q * T] q * T + t, grouped by slab
-  float* qq;          // [Q] ||q||^2
+  Plan plan;
   float* part_d;      // [Q * T * k] each live entry's k smallest ...
   int* part_l;        // [Q * T * k] ... and their labels
 };
-
-size_t max_chunks(size_t n_entries, int n_slabs) {
-  const size_t s = (size_t)n_slabs;
-  return (n_entries + kEntries - 1) / kEntries + (s < n_entries ? s : n_entries);
-}
 
 // The wrapper's fused.grouped_scratch_bytes() mirrors this formula (it sizes
 // the workspace without a call into this library): change both together.
 size_t scratch_words(int n_queries, int t_len, int n_slabs, int k) {
   const size_t n = (size_t)n_queries * t_len;
-  return 4 * max_chunks(n, n_slabs) + 2 * (size_t)n_slabs + 3 + n +
-         (size_t)n_queries + 2 * n * (size_t)k;
+  return plan_words(n_queries, t_len, n_slabs) + 2 * n * (size_t)k;
 }
 
 Scratch carve(void* base, int n_queries, int t_len, int n_slabs, int k) {
   const size_t n = (size_t)n_queries * t_len;
   Scratch s;
-  s.chunks = static_cast<int4*>(base);
-  s.counts = reinterpret_cast<int*>(s.chunks + max_chunks(n, n_slabs));
-  s.counters = s.counts + n_slabs;
-  s.offsets = s.counters + 3;
-  s.entries = s.offsets + n_slabs;
-  s.qq = reinterpret_cast<float*>(s.entries + n);
-  s.part_d = s.qq + n_queries;
+  s.plan = carve_plan(base, n_queries, t_len, n_slabs, &s.part_d);
   s.part_l = reinterpret_cast<int*>(s.part_d + n * (size_t)k);
   return s;
-}
-
-// 1a. Live entries per slab, and ||q||^2 of every query (in index order).
-__global__ void plan_count(const int* __restrict__ table, long long n_entries,
-                           int n_slabs, int* __restrict__ counts,
-                           const float* __restrict__ queries, int n_queries,
-                           int d_dim, float* __restrict__ qq) {
-  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long q = i0; q < n_queries; q += stride)
-    qq[q] = sivf::query_norm(queries + q * d_dim, d_dim);
-  for (long long e = i0; e < n_entries; e += stride) {
-    const int s = table[e];
-    if (s >= 0 && s < n_slabs) atomicAdd(counts + s, 1);
-  }
-}
-
-// 1b. Each probed slab takes its range of entries and its chunk records,
-// a warp's slabs with one atomicAdd on each counter (the order of ranges
-// and of chunks is free: every output is keyed by (q, t)); counts are
-// zeroed for the scatter.
-__global__ void plan_alloc(int* __restrict__ counts, int n_slabs,
-                           int* __restrict__ counters,
-                           int* __restrict__ offsets,
-                           int4* __restrict__ chunks) {
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = s < n_slabs ? counts[s] : 0;
-  const int nc = (n + kEntries - 1) / kEntries;
-  int xe = n, xc = nc;                   // inclusive scans over the warp
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int ye = __shfl_up_sync(~0u, xe, o);
-    const int yc = __shfl_up_sync(~0u, xc, o);
-    if (lane >= o) {
-      xe += ye;
-      xc += yc;
-    }
-  }
-  int be = 0, bc = 0;
-  if (lane == 31) {
-    be = atomicAdd(counters, xe);
-    bc = atomicAdd(counters + 1, xc);
-  }
-  const int e = __shfl_sync(~0u, be, 31) + xe - n;
-  const int c = __shfl_sync(~0u, bc, 31) + xc - nc;
-  if (s < n_slabs) {
-    offsets[s] = e;
-    for (int j = 0; j < nc; ++j)
-      chunks[c + j] = make_int4(s, e + j * kEntries,
-                                min(kEntries, n - j * kEntries), 0);
-    counts[s] = 0;
-  }
-}
-
-// 1c. Each live entry into its slab's range.
-__global__ void plan_scatter(const int* __restrict__ table, long long n_entries,
-                             int n_slabs, const int* __restrict__ offsets,
-                             int* __restrict__ fill, int* __restrict__ entries) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < n_entries; e += stride) {
-    const int s = table[e];
-    if (s >= 0 && s < n_slabs)
-      entries[offsets[s] + atomicAdd(fill + s, 1)] = (int)e;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
 // An unsigned key whose order is the floats' `<` order: -0.0 keys as +0.0,
@@ -289,108 +175,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ unsigned order_key(float d) {
   const unsigned b = d == 0.f ? 0u : __float_as_uint(d);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-// acc[j] += q_j . x for the chunk's first kQ queries over `len` columns in
-// index order, each product and sum rounded on its own (dot_row.cuh);
-// x: this thread's row from the staged columns' first on, qs: [kEntries]
-// [kQd] staged query columns, zero from len to a multiple of 4.
-//  * kRing (16-byte aligned rows, len % 4 == 0): the row streams through
-//    this thread's ring of kRing float4 in shared memory by cp.async, each
-//    a commit group; only this thread reads its ring, so waiting on its own
-//    groups is enough: kRing copies in flight, no registers held for them.
-//  * otherwise: 4-byte loads, the next four columns read while these are
-//    used, zero past len (a zero times a zero adds +0.0, which leaves every
-//    sum as it is: a sum from +0.0 is never -0.0).
-template <bool kRingPath, int kQ>
-__device__ __forceinline__ void score_row(const float* __restrict__ x,
-                                          int len, const float* qs,
-                                          float* ring,
-                                          float (&acc)[kEntries]) {
-  auto add = [&](const float4 a, int i) {
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(qs + j * kQd + 4 * i);
-      float s = acc[j];
-      s = __fadd_rn(s, __fmul_rn(v.x, a.x));
-      s = __fadd_rn(s, __fmul_rn(v.y, a.y));
-      s = __fadd_rn(s, __fmul_rn(v.z, a.z));
-      s = __fadd_rn(s, __fmul_rn(v.w, a.w));
-      acc[j] = s;
-    }
-  };
-  const int n4 = (len + 3) >> 2;
-  if constexpr (kRingPath) {
-#pragma unroll
-    for (int u = 0; u < kRing; ++u) {
-      if (u < n4) cp_async16(ring + 4 * u, x + 4 * u);
-      cp_async_commit();
-    }
-    for (int i = 0; i < n4; ++i) {
-      cp_async_wait<kRing - 1>();        // copy i has landed
-      float* slot = ring + 4 * (i % kRing);
-      add(*reinterpret_cast<const float4*>(slot), i);
-      if (i + kRing < n4) cp_async16(slot, x + 4 * (i + kRing));
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-  } else {
-    auto load = [&](int i) {
-      const int c = 4 * i;
-      return make_float4(c < len ? __ldg(x + c) : 0.f,
-                         c + 1 < len ? __ldg(x + c + 1) : 0.f,
-                         c + 2 < len ? __ldg(x + c + 2) : 0.f,
-                         c + 3 < len ? __ldg(x + c + 3) : 0.f);
-    };
-    float4 cur = load(0);
-    for (int i = 0; i < n4; ++i) {
-      const float4 nxt = load(i + 1);
-      add(cur, i);
-      cur = nxt;
-    }
-  }
-}
-
-// score_row<ne>: one instantiation for each count of queries.
-template <bool kRingPath, int kQ = kEntries>
-__device__ __forceinline__ void score_rows(int ne, const float* __restrict__ x,
-                                           int len, const float* qs,
-                                           float* ring,
-                                           float (&acc)[kEntries]) {
-  if constexpr (kQ > 1) {
-    if (ne < kQ) {
-      score_rows<kRingPath, kQ - 1>(ne, x, len, qs, ring, acc);
-      return;
-    }
-  }
-  score_row<kRingPath, kQ>(x, len, qs, ring, acc);
-}
-
-// Copy columns [d0, d0 + len) of the query rows of `ne` entries (each
-// q * T + t) into qs [kEntries][kQd], asynchronously, and zero the columns
-// from len to a multiple of 4 (the caller waits, then syncs).
-__device__ __forceinline__ void stage_queries(
-    float* qs, const float* __restrict__ queries,
-    const int* __restrict__ entries, int ne, int t_len, int d_dim, int d0,
-    int len, bool vec4) {
-  const int tid = threadIdx.x;
-  if (vec4) {
-    const int w4 = len >> 2;
-    for (int i = tid; i < ne * w4; i += kThreads) {
-      const int r = i / w4, c = 4 * (i - r * w4);
-      cp_async16(qs + r * kQd + c,
-                 queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
-    }
-  } else {
-    for (int i = tid; i < ne * len; i += kThreads) {
-      const int r = i / len, c = i - r * len;
-      cp_async4(qs + r * kQd + c,
-                queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
-    }
-  }
-  const int pad = ((len + 3) & ~3) - len;
-  for (int i = tid; i < ne * pad; i += kThreads)
-    qs[(i / pad) * kQd + len + i % pad] = 0.f;
 }
 
 // Each entry's k smallest of its row of n distances under (d, position),
@@ -684,27 +468,10 @@ int launch_grouped(const float* queries, const int* table, const float* data,
                    int n_queries, int t_len, int n_slabs, int cap, int d_dim,
                    int words, int k, bool vec4, const Scratch& w,
                    cudaStream_t s) {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
   const long long n = (long long)n_queries * t_len;
+  const Plan& p = w.plan;
   cudaError_t err =
-      cudaMemsetAsync(w.counts, 0, sizeof(int) * (n_slabs + 3), s);
-  if (err) return err;
-  const long long want = (n > n_queries ? n : n_queries);
-  const int grid = (int)std::min<long long>((want + kPlanThreads - 1) /
-                                                kPlanThreads,
-                                            (long long)n_sm * 16);
-  plan_count<<<grid, kPlanThreads, 0, s>>>(table, n, n_slabs, w.counts,
-                                           queries, n_queries, d_dim, w.qq);
-  plan_alloc<<<(n_slabs + kPlanThreads - 1) / kPlanThreads, kPlanThreads, 0,
-               s>>>(w.counts, n_slabs, w.counters, w.offsets, w.chunks);
-  plan_scatter<<<grid, kPlanThreads, 0, s>>>(table, n, n_slabs, w.offsets,
-                                             w.counts, w.entries);
-  err = cudaGetLastError();
+      launch_plan(table, n_queries, t_len, n_slabs, queries, d_dim, p, s);
   if (err) return err;
   auto* kern = &grouped_scan_kernel<kL2, kFiltered>;
   const size_t smem = grouped_smem_bytes(cap);
@@ -717,10 +484,11 @@ int launch_grouped(const float* queries, const int* table, const float* data,
   if (err) return err;
   const long long most = (long long)max_chunks((size_t)n, n_slabs);
   const int blocks = (int)std::max<long long>(
-      1, std::min<long long>((long long)n_sm * std::max(per_sm, 1), most));
+      1, std::min<long long>((long long)sm_count() * std::max(per_sm, 1),
+                             most));
   kern<<<blocks, kThreads, smem, s>>>(
       queries, data, ids, norms, bitmap, attrs, prog, n_leaves, consts,
-      n_attrs, w.chunks, w.counters + 1, w.counters + 2, w.entries, w.qq,
+      n_attrs, p.chunks, p.counters + 1, p.counters + 2, p.entries, p.qq,
       w.part_d, w.part_l, t_len, cap, d_dim, words, k, vec4);
   err = cudaGetLastError();
   if (err) return err;

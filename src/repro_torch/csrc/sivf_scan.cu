@@ -10,30 +10,58 @@
 // (kernels/sivf_scan/ref.py), so on one table the top-k of these outputs
 // (topk.cu) equals the fused kernel's result bit for bit.
 //
-// Design (simple and correct first):
-//  * one warp per (query, table entry); a block holds kWarps consecutive
-//    entries of one query, whose row is staged in shared memory once.
-//    Lane l scores slots l, l + 32, ...: each store of the warp writes 32
-//    consecutive floats (coalesced). A -1 entry writes its +inf / -1 row
-//    and reads no slab.
-//  * the grid is one-dimensional (Q * ceil(T / kWarps) blocks in x), since
-//    gridDim.y stops at 65,535; output offsets are 64-bit.
-//
 // What bounds it on this card: bytes. The [Q, T*C] outputs are 8 bytes a
 // slot whether the slot is live or not (1 GiB at Q = T = 1024, C = 128:
-// 0.32 ms at the H100 SXM's published 3.35 TB/s); the reads of the
-// probed slabs' live rows add about a third of that. The design writes
-// each output once, coalesced; its slab reads are the fused kernel's (one
-// row per lane, no reuse across queries). The whole point of the fused
-// kernel is not to pay this bound.
+// 0.32 ms at the H100 SXM's published 3.35 TB/s), and on the main path's
+// table about 90 % of them belong to -1 entries; the live rows of the
+// distinct probed slabs add about a third of that. A design that reads a
+// slab once per probing query reads those rows about 15 times.
+//
+// Two routes, chosen by the wrapper from shapes alone:
+//  * grouped (C <= 1024, Q*T < 2**31): each probed slab is read once for
+//    all the queries that probe it, up to kEntries of them at a time.
+//     1. the plan of slab_plan.cuh (shared with kernel 1's route grouped):
+//        the table inverted on the card into chunks of one slab's live
+//        (q, t) entries, with no host sync.
+//     2. one persistent kernel takes work items from an atomic counter (the
+//        next item's record read while this one is worked on), two kinds
+//        spread evenly over one sequence so that an SM mixes them:
+//        - a chunk: the slab's live slots are compacted in slot order while
+//          the chunk's query rows and ||q||^2 are staged; each thread
+//          streams one live row through its cp.async ring and keeps one
+//          accumulator per query (slab_plan.cuh's scoring); the distances
+//          land in shared memory in slot order (dead slots +inf, their
+//          labels -1), and each entry's C distances and labels are written
+//          as 16-byte stores, C * 4 contiguous bytes a plane;
+//        - a fill tile: kFill consecutive table entries, whose rows are
+//          contiguous in the outputs; the tile's table entries are read at
+//          once, then the rows of those outside [0, n_slabs) (not in the
+//          plan) are written +inf / -1, a warp a row, 16 bytes a store.
+//        Every output byte is written exactly once. Interleaving the two
+//        kinds measured faster than either kind first; the chunks, whose
+//        cost is mostly fixed per chunk, overlap the fill only a little.
+//  * per_entry (any C): the first port's kernel. One warp per (query,
+//    table entry), a block holding kWarpsPerEntryBlock consecutive entries
+//    of one query whose row is staged in shared memory once; lane l scores
+//    slots l, l + 32, ... (each store of the warp writes 32 consecutive
+//    floats); a -1 entry writes its +inf / -1 row and reads no slab. The
+//    grid is one-dimensional (gridDim.y stops at 65,535); offsets are
+//    64-bit.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
+
 #include "dot_row.cuh"
+#include "slab_plan.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;   // table entries (warps) per block
+// ---------------------------------------------------------------------------
+// Route per_entry: one warp per (query, table entry)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsPerEntryBlock = 8;   // table entries (warps) per block
 
 template <bool kL2>
 __global__ void sivf_scan_kernel(
@@ -48,7 +76,7 @@ __global__ void sivf_scan_kernel(
   const int q = blockIdx.x / t_blocks;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int t = (blockIdx.x % t_blocks) * kWarps + warp;
+  const int t = (blockIdx.x % t_blocks) * kWarpsPerEntryBlock + warp;
   for (int i = threadIdx.x; i < d_dim; i += blockDim.x)
     qs[i] = queries[(size_t)q * d_dim + i];
   __syncthreads();
@@ -83,22 +111,241 @@ __global__ void sivf_scan_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Route grouped: plan, then chunks and fill tiles in one persistent kernel
+// ---------------------------------------------------------------------------
+
+using namespace sivf::group;   // the plan, the row scoring, their constants
+
+constexpr int kFill = 256;     // table entries of one fill tile
+
+// Work item w of n_chunks + n_fill, the chunks spread evenly among the fill
+// tiles: (slab, first entry, entries, 0) for a chunk, (-1, tile, 0, 0) for
+// a fill tile, (-2, ...) past the end.
+__device__ __forceinline__ int4 item_of(long long w, long long n_chunks,
+                                        long long total,
+                                        const int4* __restrict__ chunks) {
+  if (w >= total) return make_int4(-2, 0, 0, 0);
+  const long long a0 = w * n_chunks / total;
+  const long long a1 = (w + 1) * n_chunks / total;
+  if (a1 > a0) return chunks[a0];
+  return make_int4(-1, (int)(w - a0), 0, 0);
+}
+
+// Shared memory of the grouped kernel: staged query columns, the chunk's
+// distances, labels and live slots, and the rings.
+constexpr size_t grouped_smem_bytes(int cap) {
+  return sizeof(float) * ((size_t)kEntries * kQd + (size_t)kEntries * cap +
+                          (size_t)kThreads * kRingStride) +
+         2 * sizeof(int) * (size_t)cap;
+}
+
+template <bool kL2>
+__global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
+    const float* __restrict__ queries, const int* __restrict__ table,
+    const float* __restrict__ data, const int* __restrict__ ids,
+    const float* __restrict__ norms, const int* __restrict__ bitmap,
+    const int4* __restrict__ chunks, const int* __restrict__ n_chunks,
+    int* __restrict__ next_item, const int* __restrict__ entries,
+    const float* __restrict__ qq, float* __restrict__ out_d,
+    int* __restrict__ out_l, long long n_entries, int t_len, int n_slabs,
+    int cap, int d_dim, int words, bool vec4) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);      // [kEntries][kQd]
+  float* dist = qs + kEntries * kQd;                // [kEntries][cap]
+  int* labs = reinterpret_cast<int*>(dist + kEntries * cap);   // [cap]
+  int* live = labs + cap;                           // [cap] live slots
+  float* ring = reinterpret_cast<float*>(live + cap);  // [kThreads][kRingStride]
+  __shared__ int s_ent[kEntries];
+  __shared__ float s_qq[kEntries];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_tab[kFill];                      // fill: entry in the plan?
+  __shared__ int4 s_info;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long nc = *n_chunks;
+  const long long total = nc + (n_entries + kFill - 1) / kFill;
+  const int c4 = cap >> 2;                          // 16-byte stores a row
+  if (tid == 0) s_info = item_of(atomicAdd(next_item, 1), nc, total, chunks);
+  __syncthreads();
+  for (;;) {
+    const int4 info = s_info;
+    if (info.x == -2) break;                        // uniform: no item left
+    int w_next = 0;                                 // tid 0: the next item,
+    if (tid == 0) w_next = atomicAdd(next_item, 1); // decoded during this one
+    int4 nxt = make_int4(-2, 0, 0, 0);
+    if (info.x < 0) {
+      // a fill tile: the rows of its entries that are not in the plan, the
+      // tile's table entries read at once, then a warp an entry
+      const long long e0 = (long long)info.y * kFill;
+      const int cnt = (int)(n_entries - e0 < kFill ? n_entries - e0 : kFill);
+      for (int i = tid; i < cnt; i += kThreads) {
+        const int s = table[e0 + i];
+        s_tab[i] = s >= 0 && s < n_slabs;
+      }
+      __syncthreads();
+      if (tid == 0) nxt = item_of(w_next, nc, total, chunks);
+      const float4 inf4 = make_float4(CUDART_INF_F, CUDART_INF_F,
+                                      CUDART_INF_F, CUDART_INF_F);
+      const int4 none4 = make_int4(-1, -1, -1, -1);
+      for (int e = warp; e < cnt; e += kWarps) {
+        if (s_tab[e]) continue;                     // uniform per warp
+        const size_t base = (size_t)(e0 + e) * cap;
+        for (int j = 4 * lane; j < cap; j += 128) {
+          *reinterpret_cast<float4*>(out_d + base + j) = inf4;
+          *reinterpret_cast<int4*>(out_l + base + j) = none4;
+        }
+      }
+    } else {
+      // a chunk: up to kEntries live entries of one slab
+      const int slab = info.x, ne = info.z;
+      const size_t row0 = (size_t)slab * cap;
+      const int len0 = min(kQd, d_dim);
+      stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0,
+                    vec4);
+      if (tid < ne) {
+        const int e = entries[info.y + tid];
+        s_ent[tid] = e;
+        s_qq[tid] = kL2 ? qq[e / t_len] : 0.f;
+      }
+      // the slab's live slots, compacted in slot order; a dead slot's
+      // distances are +inf and its label -1
+      int n_live = 0;
+      for (int c0 = 0; c0 < cap; c0 += kThreads) {
+        const int c = c0 + tid;
+        bool ok = false;
+        if (c < cap) {
+          ok = ((unsigned)bitmap[(size_t)slab * words + (c >> 5)] >>
+                (c & 31)) & 1u;
+          labs[c] = ok ? ids[row0 + c] : -1;
+          if (!ok)
+            for (int i = 0; i < ne; ++i) dist[i * cap + c] = CUDART_INF_F;
+        }
+        const unsigned b = __ballot_sync(~0u, ok);
+        if (lane == 0) s_warp[warp] = __popc(b);
+        __syncthreads();
+        int before = n_live;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          if (w < warp) before += s_warp[w];
+          n_live += s_warp[w];
+        }
+        if (ok) live[before + __popc(b & ((1u << lane) - 1u))] = c;
+        __syncthreads();
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      // the next item's record, read while this chunk is scored
+      if (tid == 0) nxt = item_of(w_next, nc, total, chunks);
+      // thread tid scores live row r0 + tid against the chunk's queries;
+      // the queries' columns are staged kQd at a time (once a chunk when
+      // D <= kQd)
+      for (int r0 = 0; r0 < n_live; r0 += kRows) {
+        const int nr = min(kRows, n_live - r0);
+        const int c = live[min(r0 + tid, n_live - 1)];
+        const float* x = data + (row0 + c) * d_dim;
+        const float nrm = kL2 ? norms[row0 + c] : 0.f;
+        float acc[kEntries];
+#pragma unroll
+        for (int i = 0; i < kEntries; ++i) acc[i] = 0.f;
+        for (int d0 = 0; d0 < d_dim; d0 += kQd) {
+          const int len = min(kQd, d_dim - d0);
+          if (d_dim > kQd && (d0 > 0 || r0 > 0)) {   // the next columns
+            __syncthreads();                          // done with the buffer
+            stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim,
+                          d0, len, vec4);
+            cp_async_wait_all();
+            __syncthreads();
+          }
+          if (warp * 32 < nr) {                       // uniform per warp
+            float* my_ring = ring + tid * kRingStride;
+            if (vec4)
+              score_rows<true>(ne, x + d0, len, qs, my_ring, acc);
+            else
+              score_rows<false>(ne, x + d0, len, qs, my_ring, acc);
+          }
+        }
+        if (tid < nr) {
+#pragma unroll
+          for (int i = 0; i < kEntries; ++i)
+            if (i < ne)
+              dist[i * cap + c] = sivf::distance<kL2>(s_qq[i], acc[i], nrm);
+        }
+      }
+      __syncthreads();
+      // each entry's row of C distances and labels, 16 bytes a store
+      for (int i = tid; i < ne * c4; i += kThreads) {
+        const int r = i / c4, j = 4 * (i - r * c4);
+        const size_t at = (size_t)s_ent[r] * cap + j;
+        *reinterpret_cast<float4*>(out_d + at) =
+            *reinterpret_cast<const float4*>(dist + r * cap + j);
+        *reinterpret_cast<int4*>(out_l + at) =
+            *reinterpret_cast<const int4*>(labs + j);
+      }
+    }
+    if (tid == 0) s_info = nxt;
+    __syncthreads();
+  }
+}
+
+template <bool kL2>
+int launch_grouped(const float* queries, const int* table, const float* data,
+                   const int* ids, const float* norms, const int* bitmap,
+                   float* out_d, int* out_l, int n_queries, int t_len,
+                   int n_slabs, int cap, int d_dim, int words, bool vec4,
+                   const Plan& p, cudaStream_t s) {
+  cudaError_t err =
+      launch_plan(table, n_queries, t_len, n_slabs, queries, d_dim, p, s);
+  if (err) return err;
+  auto* kern = &grouped_scan_kernel<kL2>;
+  const size_t smem = grouped_smem_bytes(cap);
+  // the shared-memory limit and the occupancy it allows, set and asked once
+  // per device and size (host calls that cost more than the launch itself)
+  static int known_dev = -1, per_sm = 0;
+  static size_t known_smem = 0;
+  int dev;
+  err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev != known_dev || smem != known_smem) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kThreads, smem);
+    if (err) return err;
+    known_dev = dev;
+    known_smem = smem;
+  }
+  const long long n = (long long)n_queries * t_len;
+  const long long most =
+      (long long)max_chunks((size_t)n, n_slabs) + (n + kFill - 1) / kFill;
+  const int blocks = (int)std::max<long long>(
+      1, std::min<long long>((long long)sm_count() * std::max(per_sm, 1),
+                             most));
+  kern<<<blocks, kThreads, smem, s>>>(
+      queries, table, data, ids, norms, bitmap, p.chunks, p.counters + 1,
+      p.counters + 2, p.entries, p.qq, out_d, out_l, n, t_len, n_slabs, cap,
+      d_dim, words, vec4);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t sivf_scan_smem_bytes(int d_dim) {
   return sizeof(float) * (size_t)((d_dim + 3) & ~3);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// queries [Q, D], table [Q, T] int32 (-1 pad), data [S, C, D], ids and
-// norms [S, C], bitmap [S, W] int32 words -> out_d, out_l [Q, T*C].
+// Launches the per_entry route on `stream`; returns the cudaError_t of the
+// launch (0 = ok). queries [Q, D], table [Q, T] int32 (-1 pad), data
+// [S, C, D], ids and norms [S, C], bitmap [S, W] int32 words -> out_d,
+// out_l [Q, T*C].
 extern "C" int sivf_scan_launch(
     const float* queries, const int* table, const float* data,
     const int* ids, const float* norms, const int* bitmap, float* out_d,
     int* out_l, int n_queries, int t_len, int cap, int d_dim, int words,
     int metric_l2, void* stream) {
   if (n_queries == 0 || t_len == 0) return 0;
-  const int t_blocks = (t_len + kWarps - 1) / kWarps;
+  const int t_blocks = (t_len + kWarpsPerEntryBlock - 1) / kWarpsPerEntryBlock;
   const long long blocks = (long long)n_queries * t_blocks;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sivf_scan_smem_bytes(d_dim);
@@ -106,7 +353,7 @@ extern "C" int sivf_scan_launch(
   // float4 loads need every payload row 16-byte aligned
   const bool vec4 = (d_dim % 4 == 0) &&
                     (reinterpret_cast<size_t>(data) % 16 == 0);
-  const dim3 grid((unsigned)blocks), block(kWarps * 32);
+  const dim3 grid((unsigned)blocks), block(kWarpsPerEntryBlock * 32);
   if (metric_l2)
     sivf_scan_kernel<true><<<grid, block, smem, s>>>(
         queries, table, data, ids, norms, bitmap, out_d, out_l, t_len,
@@ -116,4 +363,40 @@ extern "C" int sivf_scan_launch(
         queries, table, data, ids, norms, bitmap, out_d, out_l, t_len,
         t_blocks, cap, d_dim, words, vec4);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the grouped route's scratch workspace (the plan) for these
+// shapes; the wrapper's fused.plan_bytes() gives the same.
+extern "C" size_t sivf_scan_grouped_scratch_bytes(int n_queries, int t_len,
+                                                  int n_slabs) {
+  return sizeof(int) * plan_words(n_queries, t_len, n_slabs);
+}
+
+// Launches the grouped route (plan, then one persistent kernel) on
+// `stream`; returns the first cudaError_t (0 = ok). `scratch` holds
+// scratch_bytes bytes, at least sivf_scan_grouped_scratch_bytes(); C a
+// multiple of 32 up to 1024 and out_d / out_l 16-byte aligned (the wrapper
+// checks). Reads no device value on the host.
+extern "C" int sivf_scan_grouped_launch(
+    const float* queries, const int* table, const float* data,
+    const int* ids, const float* norms, const int* bitmap, float* out_d,
+    int* out_l, int n_queries, int t_len, int n_slabs, int cap, int d_dim,
+    int words, int metric_l2, void* scratch, size_t scratch_bytes,
+    void* stream) {
+  if (n_queries == 0 || t_len == 0) return 0;
+  if (scratch_bytes < sivf_scan_grouped_scratch_bytes(n_queries, t_len,
+                                                      n_slabs) ||
+      cap % 32 || cap > 1024 || reinterpret_cast<size_t>(out_d) % 16 ||
+      reinterpret_cast<size_t>(out_l) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* rest;
+  const Plan p = carve_plan(scratch, n_queries, t_len, n_slabs, &rest);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte cp.async of payload and query rows: both 16-byte aligned
+  const bool vec4 = (d_dim % 4 == 0) &&
+                    (reinterpret_cast<size_t>(data) % 16 == 0) &&
+                    (reinterpret_cast<size_t>(queries) % 16 == 0);
+  auto* fn = metric_l2 ? &launch_grouped<true> : &launch_grouped<false>;
+  return fn(queries, table, data, ids, norms, bitmap, out_d, out_l,
+            n_queries, t_len, n_slabs, cap, d_dim, words, vec4, p, s);
 }

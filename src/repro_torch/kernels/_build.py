@@ -125,6 +125,14 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def stream_of(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, the ``stream``
+    argument of the C entry points (``torch.cuda.current_stream()`` builds
+    a ``Stream`` object first, several microseconds of host time a call)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)

@@ -84,15 +84,22 @@ def route(qn: int, t_len: int, c: int, k: int) -> str:
     return "grouped" if k < c and qn * t_len <= _MAX_ENTRIES else "per_query"
 
 
-def grouped_scratch_bytes(qn: int, t_len: int, n_slabs: int, k: int) -> int:
-    """Bytes of the grouped route's scratch (``csrc/sivf_fused_search.cu``
-    ``scratch_words``; the C side refuses a smaller workspace): a 16-byte
-    record per work chunk (at most 16 entries of one slab), a count and an
-    offset per slab, the chunk count and work counter, the entries,
-    ``||q||^2``, and ``[Q*T, k]`` partial distances and labels."""
+def plan_bytes(qn: int, t_len: int, n_slabs: int) -> int:
+    """Bytes of the grouped scans' plan (``csrc/slab_plan.cuh``
+    ``plan_words``; shared with the unfused scan's route ``grouped``): a
+    16-byte record per work chunk (at most 16 entries of one slab), a count
+    and an offset per slab, the chunk count and work counter, the entries
+    and ``||q||^2``."""
     n = qn * t_len
     chunks = -(-n // 16) + min(n_slabs, n)
-    return 4 * (4 * chunks + 2 * n_slabs + 3 + n + qn + 2 * n * k)
+    return 4 * (4 * chunks + 2 * n_slabs + 3 + n + qn)
+
+
+def grouped_scratch_bytes(qn: int, t_len: int, n_slabs: int, k: int) -> int:
+    """Bytes of the grouped route's scratch (``csrc/sivf_fused_search.cu``
+    ``scratch_words``; the C side refuses a smaller workspace): the plan
+    (:func:`plan_bytes`) and ``[Q*T, k]`` partial distances and labels."""
+    return plan_bytes(qn, t_len, n_slabs) + 8 * qn * t_len * k
 
 
 def launch_plan(queries: torch.Tensor, table: torch.Tensor,

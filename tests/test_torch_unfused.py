@@ -34,11 +34,12 @@ from repro import core as jcore
 from repro.kernels.sivf_scan import ops as jops
 from repro.kernels.topk.ref import topk_ref as jtopk_ref
 from repro_torch import interop
+from repro_torch.kernels.sivf_scan import fused as fused_kernel
 from repro_torch.kernels.sivf_scan import ops, ref
 from repro_torch.kernels.sivf_scan import sivf_scan as scan_kernel
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk import topk as topk_kernel
-from repro_torch.kernels.topk.ref import topk_ref
+from repro_torch.kernels.topk.ref import topk_ref, topk_warp_ref
 
 from test_torch_state import jax_planes
 
@@ -241,3 +242,141 @@ def test_topk_refuses_bad_operands_and_cpu_calls_launch_nothing():
                   torch.zeros((1, 32, 4)), ids, torch.zeros((1, 32)),
                   ids[:, :1])
     assert scan_kernel.launches == 0 and topk_kernel.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# (e) the CUDA routes' plans, from shapes alone (meta tensors)
+# ---------------------------------------------------------------------------
+
+def meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("q,t,c,d,route", [
+    (1024, 1024, 128, 128, "grouped"), (16, 1024, 128, 128, "grouped"),
+    (3, 5, 1024, 300, "grouped"), (1, 1, 32, 20000, "grouped"),
+    (3, 5, 2048, 16, "per_entry"), (2 ** 16, 2 ** 15, 32, 16, "per_entry"),
+    (2 ** 11, 2 ** 20 - 1, 1024, 128, "grouped")])
+def test_scan_route_and_scratch_follow_from_shapes(q, t, c, d, route):
+    """``sivf_scan.route`` and the grouped route's scratch (the plan of
+    ``csrc/slab_plan.cuh``: 16-byte chunk records, a count and an offset a
+    slab, 3 counters, the entries and ``||q||^2``) read shapes only; the
+    per_entry route, taken past the grouped route's limits (C > 1024, Q*T
+    beyond int32), has no scratch. Kernel 1's scratch is the same plan
+    plus its partials."""
+    n_slabs = 16384
+    plan = scan_kernel.launch_plan(meta(q, d), meta(q, t, dtype=torch.int32),
+                                   meta(n_slabs, c, d))
+    assert plan["route"] == route == scan_kernel.route(q, t, c)
+    n = q * t
+    chunks = -(-n // 16) + min(n_slabs, n)
+    want = 4 * (4 * chunks + 2 * n_slabs + 3 + n + q)
+    assert fused_kernel.plan_bytes(q, t, n_slabs) == want
+    assert plan["scratch_bytes"] == (want if route == "grouped" else 0)
+    assert fused_kernel.grouped_scratch_bytes(q, t, n_slabs, 10) \
+        == want + 8 * n * 10
+
+
+@pytest.mark.parametrize("q,n,k,route", [
+    (1024, 131072, 10, "warp"), (256, 131072, 10, "warp"),
+    (64, 131072, 10, "warp"), (16, 131072, 10, "warp"),
+    (1, 40, 10, "warp"), (16, 131072, 33, "block"),
+    (1024, 131072, 32, "warp"), (4, 10 ** 6, 5, "warp")])
+def test_topk_route_and_scratch_follow_from_shapes(q, n, k, route):
+    """``topk.route`` / ``launch_plan``: ``warp`` up to k = 32, ``block``
+    past it, whatever the rows' count and length; neither has scratch."""
+    plan = topk_kernel.launch_plan(meta(q, n), k)
+    assert plan == {"route": route}
+    assert topk_kernel.route(q, n, k) == route
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: scan_kernel.launch_plan(meta(3, 20000),
+                                     meta(3, 5, dtype=torch.int32),
+                                     meta(8, 2048, 20000)), "shared memory"),
+    (lambda: scan_kernel.launch_plan(meta(3, 16), meta(3, 5, dtype=torch.int32),
+                                     meta(8, 2048, 16), "grouped"), "C <="),
+    (lambda: scan_kernel.launch_plan(meta(3, 16), meta(3, 5, dtype=torch.int32),
+                                     meta(8, 32, 16), "fused"), "unknown"),
+    (lambda: topk_kernel.launch_plan(meta(4, 100), 33, "warp"), "k <= 32"),
+    (lambda: topk_kernel.launch_plan(meta(4, 100), 10, "split"), "unknown"),
+    (lambda: topk_kernel.launch_plan(meta(4, 20), 21, "warp"), "k=21"),
+    (lambda: topk_kernel.launch_plan(meta(4, 100), 101), "k=101"),
+    (lambda: topk_kernel.launch_plan(meta(4, 2 ** 31), 10), "31 bits"),
+    (lambda: topk_kernel.launch_plan(meta(4, 100), 10, "rows"), "unknown")])
+def test_shapes_no_route_takes_raise(call, match):
+    """A shape that no route takes (or that the named route does not
+    take) raises ``ValueError``: nothing falls back to a plain version."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def falling_rows(rng, n):
+    """Rows whose distances mostly fall along the row, with ties and
+    signed zeros: nearly every key enters a warp's list, so its
+    threshold moves at every merge."""
+    d = np.linspace(4, -4, n, dtype=np.float32)[None].repeat(3, 0)
+    d[1] = np.round(d[1])                        # runs of equal distances
+    d[2, rng.random(n) < 0.5] = 0.0
+    d[2, rng.random(n) < 0.5] = -0.0
+    return d, rng.integers(0, 1000, (3, n)).astype(np.int32)
+
+
+def late_rows(rng, n=4096):
+    """Rows whose tenth smallest distance comes last, in warp 0's second
+    step (column 3080), after the nine smallest (columns 0-8, in its
+    first float4s) and a full buffer of 49s (its float4 256-287) have
+    merged into its list: it enters only if that warp's threshold is its
+    list's tenth key, not a lower one. Row 1's tenth ties the ninth
+    (distance 8) at a higher column."""
+    d = np.full((2, n), 100.0, np.float32)
+    d[:, :132] = 50.0
+    d[:, 1024:1156] = 49.0
+    d[:, :9] = np.arange(9)
+    d[0, 3080], d[1, 3080] = 9.5, 8.0
+    return d, rng.integers(0, 1000, (2, n)).astype(np.int32)
+
+
+WARP_CASES = {name: TOPK_CASES[name] for name in (
+    "edge-L40-k10", "sweep-16x256-k17", "L1-k1")}
+WARP_CASES["falling-3x9001-k32"] = (lambda r: falling_rows(r, 9001), 32)
+WARP_CASES["sweep-2x5003-k10"] = (lambda r: random_rows(r, 2, 5003), 10)
+WARP_CASES["late-2x4096-k10"] = (late_rows, 10)
+
+
+@pytest.mark.parametrize("case", list(WARP_CASES))
+@pytest.mark.parametrize("misalign", [0, 1, 2, 3])
+def test_topk_warp_order_equals_reference(case, misalign):
+    """The warp route's steps in plain Python (``topk_warp_ref``: a scalar
+    head and tail where a row's start is ``misalign`` floats past a
+    16-byte boundary, float4 screened as a whole and then key by key,
+    32-key merges that move each warp's threshold) against the
+    reference's ``topk_ref``, bit for bit, labels included."""
+    make, k = WARP_CASES[case]
+    d, lab = make(np.random.default_rng(11))
+    td, tl = topk_warp_ref(torch.from_numpy(d), torch.from_numpy(lab), k,
+                           misalign)
+    rd, rl = jtopk(jnp.asarray(d), jnp.asarray(lab), k)
+    assert_bits_equal(td.numpy(), tl.numpy(), rd, rl)
+
+
+ROUTE_COUNTS = {scan_kernel: ("launches", "launches_grouped",
+                              "launches_per_entry"),
+                topk_kernel: ("launches", "launches_warp", "launches_block")}
+
+
+@pytest.mark.parametrize("q", [1, 16, 1024])
+def test_cpu_calls_launch_nothing_on_any_route(q):
+    """On CPU tensors the ops run the plain versions: no count of either
+    wrapper moves, whatever route the shapes would take on the card."""
+    before = {(m, a): getattr(m, a) for m, names in ROUTE_COUNTS.items()
+              for a in names}
+    ids = torch.zeros((2, 32), dtype=torch.int32)
+    d, lab = ops.sivf_scan(torch.zeros((q, 4)),
+                           torch.zeros((q, 2), dtype=torch.int32),
+                           torch.zeros((2, 32, 4)), ids, torch.zeros((2, 32)),
+                           torch.full((2, 1), -1, dtype=torch.int32))
+    topk_ops.topk(d, lab, 10)
+    after = {(m, a): getattr(m, a) for m, names in ROUTE_COUNTS.items()
+             for a in names}
+    assert after == before
