@@ -36,6 +36,24 @@ peak device memory over the batch size. The data
 is a synthetic 128-wide Gaussian mixture made from ``--seed`` with numpy;
 no dataset file is read.
 
+On the raw path's index, after those phases, its lifecycle runs: the
+``persist`` phase saves it (checkpoint format 3, under ``build/``),
+loads it back on the card and holds every plane (digests) and six search
+batches ``==``; the ``tiered`` phase loads the same checkpoint with
+``device_slabs=8192`` (half the pool in cache frames, the payloads in
+pinned host memory) and holds Q = 64 batches at nprobe 32, cold and then
+warm, ``==`` the all-resident index, warm ones making no host-to-device
+copy, through an overwrite and a remove applied to both and under a
+filter, and runs one Q = 1024 batch over every live slab (``==``, or the
+``device_slabs`` ``ValueError`` when they outnumber the frames); every
+kernel-1 launch of the tiered index must take ``grouped``. The
+``maintain`` phase applies three policy sweeps of ``Index.maintain`` and
+an explicit split, merge and recluster to both indexes, and after each
+op holds the live set (ids, payloads, attributes), the metadata planes
+and the searches ``==``. The PQ path's ``pq_lifecycle`` saves and loads
+its index the same way and runs one tiered batch on kernel 2's
+``compacted`` route.
+
 Once the index paths are freed, the ``lm`` phase serves Llama-3-8B at
 full width (32 layers, bf16, random weights from ``init_params`` seeded
 with ``--seed``) through ``repro_torch.serve.paged_lm.PagedLMEngine``: a
@@ -73,7 +91,10 @@ Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, the k-means
 repeat, each path's
 phases and full-size kernel checks and timings (the unfused path's after
-the raw path's phases), the ``lm``, ``lm.kernels_full_width`` and
+the raw path's phases), the raw path's ``raw.persist``,
+``tiered.search``, ``tiered.churn``, ``tiered.full_probe``,
+``tiered.launches`` and ``maintain`` lines, the PQ path's
+``pq.persist`` and ``pq.tiered``, the ``lm``, ``lm.kernels_full_width`` and
 ``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
 ``rwkv.wkv6_float64`` before ``rwkv.vs_ref``), the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
@@ -85,12 +106,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1737,6 +1760,455 @@ def phase_pq_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     return lines, rows
 
 
+# ---------------------------------------------------------------------------
+# The index's lifecycle: persistence, the tiered pool, maintenance
+# ---------------------------------------------------------------------------
+
+DEVICE_SLABS = 8192                     # half the pool's 16,384 slabs
+PERSIST_NPROBES = (8, 16, 32, 64, 128, 256)   # the six search batches
+TIERED_Q = 64                           # queries a tiered batch
+TIERED_OVERWRITE, TIERED_REMOVE = 16384, 65536
+MAINT_SWEEPS = 3
+
+
+def kernel_counts() -> dict:
+    """The scan kernels' launch counters, by route."""
+    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    return {"fused": fused.launches + fused.filtered_launches,
+            "fused_grouped": fused.launches_grouped,
+            "fused_per_query": fused.launches_per_query,
+            "pq": pq_fused.launches + pq_fused.filtered_launches,
+            "pq_compacted": pq_fused.launches_compacted,
+            "pq_per_query": pq_fused.launches_per_query}
+
+
+class Launches:
+    """Kernel launches made inside ``with launches.of():`` blocks only, so
+    that a tiered index's launches are counted apart from the launches of
+    the all-resident index it is compared with."""
+
+    def __init__(self):
+        self.n = {k: 0 for k in kernel_counts()}
+
+    @contextlib.contextmanager
+    def of(self):
+        before = kernel_counts()
+        yield
+        after = kernel_counts()
+        for k in self.n:
+            self.n[k] += after[k] - before[k]
+
+
+def same_result(what: str, a, b) -> None:
+    """Two SearchResults: labels and distances ``==`` bit for bit."""
+    import torch
+    check(torch.equal(a.labels, b.labels)
+          and torch.equal(a.distances.view(torch.int32),
+                          b.distances.view(torch.int32)),
+          f"{what}: results differ")
+
+
+def plane_digests(index) -> dict:
+    """SHA-256 (16 hex digits) of each plane as a checkpoint stores it."""
+    from repro_torch import interop
+    planes = interop.state_to_numpy(index.state)
+    return {name: hashlib.sha256(np.ascontiguousarray(a).reshape(-1).view(
+        np.uint8)).hexdigest()[:16] for name, a in planes.items()}
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def persist_check(torch, index, queries, path: str) -> tuple[dict, object]:
+    """Save ``index`` under ``build/``, load it back on the card: every
+    plane ``==`` (digests) and the six search batches ``==``. Returns the
+    line and the checkpoint directory (removed by the caller)."""
+    import shutil
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix=f"ckpt_{path}_", dir=ROOT / "build"))
+    try:
+        return _persist_check(torch, index, queries, path, ckpt), ckpt
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+
+
+def _persist_check(torch, index, queries, path: str, ckpt: Path) -> dict:
+    import sivf_torch
+    before = [index.search(queries, K, nprobe) for nprobe in PERSIST_NPROBES]
+    digests = plane_digests(index)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.save(ckpt)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loaded = sivf_torch.Index.load(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(loaded.state.ids.device == index.state.ids.device
+          and loaded.cfg == index.cfg,
+          f"{path}: the loaded index is not the saved one on the card")
+    got = plane_digests(loaded)
+    bad = [n for n in digests if got[n] != digests[n]]
+    check(not bad, f"{path}: planes differ after the load: {bad}")
+    for nprobe, want in zip(PERSIST_NPROBES, before):
+        same_result(f"{path} persist nprobe={nprobe}", loaded.search(
+            queries, K, nprobe), want)
+    from repro_torch.core.state import memory_report
+    line = {"phase": f"{path}.persist", "bytes_on_disk": dir_bytes(ckpt),
+            "device_bytes": memory_report(index.cfg)["device_bytes"],
+            "save_ms": save_ms, "load_ms": load_ms, "planes_equal": True,
+            "plane_sha256": digests,
+            "searches_equal": {"queries": int(queries.shape[0]), "k": K,
+                               "nprobe": list(PERSIST_NPROBES)}}
+    del loaded
+    return line
+
+
+def phase_persist(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """Save the raw index and load it back (``persist_check``)."""
+    line, ckpt = persist_check(torch, main["index"], main["queries"], "raw")
+    main["ckpt"] = ckpt                 # the tiered phase loads it
+    return [line], []
+
+
+class UploadTimes:
+    """Wraps ``TieredRuntime._upload``: the slabs of each upload, the
+    device time between events around it (its gather into the staging
+    buffer on the host, the one copy and the frame writes) and the host
+    time of the gather alone (``last_upload["pack_ms"]``)."""
+
+    def __init__(self, torch):
+        from repro_torch.core import tiered as trt
+        self.torch, self.trt = torch, trt
+        self.real = trt.TieredRuntime._upload
+        self.calls = []
+
+        def upload(rt, frames, slabs):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            b0 = rt.h2d_bytes
+            s.record()
+            self.real(rt, frames, slabs)
+            e.record()
+            self.calls.append({"slabs": [int(x) for x in slabs],
+                               "events": (s, e),
+                               "bytes": rt.h2d_bytes - b0,
+                               "pack_ms": rt.last_upload["pack_ms"]})
+        trt.TieredRuntime._upload = upload
+
+    def restore(self):
+        self.trt.TieredRuntime._upload = self.real
+
+    def summary(self, since: int = 0) -> dict:
+        self.torch.cuda.synchronize()
+        calls = self.calls[since:]
+        ms = sum(c["events"][0].elapsed_time(c["events"][1]) for c in calls)
+        pack = sum(c["pack_ms"] for c in calls)
+        nbytes = sum(c["bytes"] for c in calls)
+        return {"uploads": len(calls), "bytes": nbytes, "ms": ms,
+                "gb_per_s": nbytes / ms / 1e6 if ms else None,
+                "host_gather_ms": pack,
+                "gb_per_s_without_gather": nbytes / (ms - pack) / 1e6
+                if ms > pack else None}
+
+
+def phase_tiered(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The raw checkpoint loaded with ``device_slabs=DEVICE_SLABS``: Q=64
+    batches at nprobe 32, cold then warm, ``==`` the all-resident index;
+    churn applied to both; a filtered batch; a full-probe Q=1024 batch."""
+    import shutil
+
+    import sivf_torch
+    from repro_torch.core.state import memory_report
+    index, queries, wl = main["index"], main["queries"], main["wl"]
+    ckpt = main.pop("ckpt")
+    try:
+        t0 = time.perf_counter()
+        tindex = sivf_torch.Index.load(ckpt, device="cuda",
+                                       device_slabs=DEVICE_SLABS)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rt = tindex._tiered
+    mem = {"all_resident": memory_report(index.cfg),
+           "tiered": memory_report(tindex.cfg)}
+    check(tindex.state.data.shape[0] == 0 and rt.cache.data.shape[0]
+          == DEVICE_SLABS, "tiered: the payload planes are on the card")
+    check(mem["tiered"]["device_cache_bytes"] == rt.cache.data.numel() * 4
+          + rt.cache.attrs.numel() * 4 + rt.cache.codes.numel(),
+          "tiered: memory_report's cache bytes are not the frames'")
+    launches = Launches()
+    uploads = UploadTimes(torch)
+    lines = []
+    try:
+        batches = []
+        for b0 in range(0, N_QUERIES, TIERED_Q):
+            qs = queries[b0:b0 + TIERED_Q]
+            want = index.search(qs, K, NPROBE)
+            n_up = len(uploads.calls)
+            with launches.of():
+                cold, cold_ms = timed(lambda: tindex.search(qs, K, NPROBE))
+            same_result(f"tiered cold batch {b0 // TIERED_Q}", cold, want)
+            unique = rt.last_prefetch["unique"]
+            check(unique <= DEVICE_SLABS, f"batch probes {unique} slabs")
+            up = uploads.summary(n_up)
+            copies, ups = rt.h2d_copies, rt.stats()["cache_uploads"]
+            warm_ms = []
+            for _ in range(3):
+                with launches.of():
+                    warm, ms = timed(lambda: tindex.search(qs, K, NPROBE))
+                same_result(f"tiered warm batch {b0 // TIERED_Q}", warm, want)
+                warm_ms.append(ms)
+            check(rt.h2d_copies == copies
+                  and rt.stats()["cache_uploads"] == ups,
+                  "tiered: a warm search copied to the card")
+            batches.append({"unique_slabs": unique,
+                            "refs": rt.last_prefetch["refs"],
+                            "cold_ms": cold_ms, "warm_ms": warm_ms,
+                            "uploaded_slabs": sum(
+                                len(c["slabs"]) for c in
+                                uploads.calls[n_up:]),
+                            "upload_bytes": up["bytes"],
+                            "upload_ms": up["ms"],
+                            "upload_gb_per_s": up["gb_per_s"],
+                            "upload_host_gather_ms": up["host_gather_ms"]})
+        st = tindex.stats()
+        total = uploads.summary()
+        lines.append({
+            "phase": "tiered.search", "device_slabs": DEVICE_SLABS,
+            "load_ms": load_ms, "queries_per_batch": TIERED_Q,
+            "nprobe": NPROBE, "batches": len(batches),
+            "memory_report": {k: {f: v[f] for f in (
+                "host_bytes", "device_bytes", "device_cache_bytes",
+                "total_bytes")} for k, v in mem.items()},
+            "unique_slabs_max": max(b["unique_slabs"] for b in batches),
+            "cold_ms_median": float(np.median([b["cold_ms"]
+                                               for b in batches])),
+            "warm_ms_median": float(np.median([m for b in batches
+                                               for m in b["warm_ms"]])),
+            "upload_bytes": total["bytes"], "upload_ms": total["ms"],
+            "upload_gb_per_s": total["gb_per_s"],
+            "upload_host_gather_ms": total["host_gather_ms"],
+            "upload_gb_per_s_without_gather":
+                total["gb_per_s_without_gather"],
+            "hit_rate": st["hit_rate"], "cache_hits": st["cache_hits"],
+            "cache_misses": st["cache_misses"],
+            "cache_uploads": st["cache_uploads"],
+            "cache_evictions": st["cache_evictions"],
+            "resident_slabs": st["resident_slabs"], "per_batch": batches})
+
+        # churn on both: an overwrite and a remove, then the next search
+        rng = np.random.default_rng(wl["seed"] + 7)
+        live = torch.nonzero(index.state.att_slab >= 0).reshape(-1).cpu()
+        pick = rng.choice(live.numel(), TIERED_OVERWRITE + TIERED_REMOVE,
+                          replace=False)
+        ow = live[pick[:TIERED_OVERWRITE]].to(torch.int32).cuda()
+        rm = live[pick[TIERED_OVERWRITE:]].to(torch.int32).cuda()
+        ow_vecs = wl["cur"][ow.long()] + 0.02
+        ow_attrs = wl["attrs"][ow.long()]
+        for x in (index, tindex):
+            r = x.add(ow_vecs, ow, attrs=ow_attrs)
+            check(r.ok and r.overwritten == TIERED_OVERWRITE,
+                  f"tiered churn: overwrite report {r}")
+            r = x.remove(rm)
+            check(r.ok and r.accepted == TIERED_REMOVE,
+                  f"tiered churn: remove report {r}")
+        qs = queries[:TIERED_Q]
+        rt.drain_plans()
+        dirty = set(rt.res.dirty)
+        n_up = len(uploads.calls)
+        with launches.of():
+            res, ms = timed(lambda: tindex.search(qs, K, NPROBE))
+        same_result("tiered after churn", res, index.search(qs, K, NPROBE))
+        after_churn = dict(rt.last_prefetch)
+        slabs = [s for c in uploads.calls[n_up:] for s in c["slabs"]]
+        check(set(slabs) <= dirty, "tiered: uploaded a slab that no write "
+              "dirtied")
+        # a filtered batch at about 10 %
+        pred = filters_of()["in_10pct"]
+        with launches.of():
+            fres, fms = timed(lambda: tindex.search(qs, K, NPROBE,
+                                                    filter=pred))
+        same_result("tiered filtered", fres, index.search(qs, K, NPROBE,
+                                                          filter=pred))
+        lines.append({"phase": "tiered.churn",
+                      "overwritten": TIERED_OVERWRITE,
+                      "removed": TIERED_REMOVE, "dirty_slabs": len(dirty),
+                      "search_ms": ms, "uploaded_slabs": len(slabs),
+                      "uploaded_all_dirtied": True,
+                      "prefetch": after_churn,
+                      "filtered_in_10pct_ms": fms,
+                      "filtered_results": int((fres.labels >= 0).sum())})
+
+        # every live slab at once: Q=1024 at nprobe = n_lists
+        used = tindex.stats()["slabs_used"]
+        n0 = len(uploads.calls)
+        if used > DEVICE_SLABS:
+            err = None
+            try:
+                tindex.search(queries, K, N_LISTS)
+            except ValueError as e:
+                err = str(e)
+            check(err is not None and "device_slabs" in err,
+                  f"a full probe of {used} slabs with {DEVICE_SLABS} frames "
+                  f"gave {err!r}, not the device_slabs ValueError")
+            case = {"case": "raised", "error": err[:200]}
+        else:
+            with launches.of():
+                full, fms = timed(lambda: tindex.search(queries, K, N_LISTS))
+            same_result("tiered full probe", full,
+                        index.search(queries, K, N_LISTS))
+            case = {"case": "equal", "ms": fms,
+                    "uploads": uploads.summary(n0)}
+        lines.append({"phase": "tiered.full_probe", "queries": N_QUERIES,
+                      "nprobe": N_LISTS, "live_slabs": used,
+                      "device_slabs": DEVICE_SLABS, **case})
+    finally:
+        uploads.restore()
+    n = launches.n
+    check(n["fused"] > 0 and n["fused_grouped"] == n["fused"]
+          and n["fused_per_query"] == 0 and n["pq"] == 0,
+          f"tiered launches by route {n}: kernel 1 takes grouped")
+    lines.append({"phase": "tiered.launches", **n,
+                  "h2d_copies": rt.h2d_copies, "h2d_bytes": rt.h2d_bytes,
+                  "d2h_reads": rt.d2h_reads})
+    main["tindex"] = tindex
+    return lines, []
+
+
+def live_payloads(torch, index) -> tuple:
+    """(ids, payload rows, attribute rows) of every live id, id order, on
+    the host: read from the card's planes, or from the host store of a
+    tiered index."""
+    att_slab = index.state.att_slab.cpu().numpy()
+    att_slot = index.state.att_slot.cpu().numpy()
+    ids = np.flatnonzero(att_slab >= 0)
+    s, o = att_slab[ids], att_slot[ids]
+    if index._tiered is not None:
+        st = index._tiered.store
+        return ids, st.data[s, o], st.attrs[s, o]
+    st = index.state
+    si = torch.from_numpy(s).cuda().long()
+    so = torch.from_numpy(o).cuda().long()
+    return ids, st.data[si, so].cpu().numpy(), st.attrs[si, so].cpu().numpy()
+
+
+def exact_top(torch, index, queries) -> "torch.Tensor":
+    """The exact top-K over the index's live set (float64 distances)."""
+    ids, rows, _ = live_payloads(torch, index)
+    xs = torch.from_numpy(rows).cuda().double()
+    live = torch.from_numpy(ids).cuda()
+    out = []
+    for q0 in range(0, queries.shape[0], 128):
+        dd = torch.cdist(queries[q0:q0 + 128].double(), xs)
+        out.append(live[dd.topk(K, largest=False).indices])
+    return torch.cat(out)
+
+
+def phase_maintain(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The same maintenance on the all-resident and the tiered index:
+    policy sweeps, then an explicit split, merge and recluster; after
+    each op the live set, the metadata planes and the searches hold."""
+    import sivf_torch
+    from repro_torch.core.state import PLANES
+    index, tindex, queries = main["index"], main.pop("tindex"), \
+        main["queries"]
+    ids0, rows0, attrs0 = live_payloads(torch, index)
+    best = exact_top(torch, index, queries)
+    recall0 = recall(torch, index.search(queries, K, NPROBE).labels, best)
+    qs = queries[:TIERED_Q]
+    launches = Launches()
+    ops_out = []
+
+    def after_op(what: str, reps, treps) -> None:
+        check([dataclasses.astuple(r) for r in reps]
+              == [dataclasses.astuple(r) for r in treps],
+              f"{what}: reports differ {reps} {treps}")
+        for x in (index, tindex):
+            ids, rows, attrs = live_payloads(torch, x)
+            check(np.array_equal(ids, ids0) and np.array_equal(rows, rows0)
+                  and np.array_equal(attrs, attrs0),
+                  f"{what}: the live set changed")
+        bad = [n for n in PLANES if n not in ("data", "codes", "attrs")
+               and not torch.equal(getattr(index.state, n),
+                                   getattr(tindex.state, n))]
+        check(not bad, f"{what}: metadata planes differ {bad}")
+        with launches.of():
+            tres = tindex.search(qs, K, NPROBE)
+        same_result(f"{what}: tiered search", tres,
+                    index.search(qs, K, NPROBE))
+        ops_out.append({
+            "op": what,
+            "reports": [{"kind": r.kind, "lists": list(r.lists),
+                         "rows": r.rows, "committed": r.committed}
+                        for r in reps],
+            "ms": index.last_maintain_ms, "tiered_ms":
+            tindex.last_maintain_ms,
+            "recall_at_10": recall(torch, index.search(
+                queries, K, NPROBE).labels, best)})
+
+    for sweep in range(MAINT_SWEEPS):
+        reps = index.maintain(max_ops=2)
+        after_op(f"sweep {sweep}", reps, tindex.maintain(max_ops=2))
+    occ = np.asarray(index.stats()["list_occupancy"])
+    order = np.argsort(occ, kind="stable")
+    hot, cold = int(order[-1]), int(order[0])
+    small = [int(i) for i in order if occ[i] > 0 and i not in (hot, cold)]
+    mid = int(order[len(order) // 2])
+    explicit = [sivf_torch.split(hot, cold), sivf_torch.merge(*small[:2]),
+                sivf_torch.recluster(mid)]
+    chosen = {"split": [hot, cold], "merge": small[:2], "recluster": [mid],
+              "occupancy": {str(i): int(occ[i])
+                            for i in (hot, cold, *small[:2], mid)}}
+    for op in explicit:
+        reps = index.maintain([op], strict=True)
+        after_op(f"{op.kind} {list(op.lists)}", reps,
+                 tindex.maintain([op], strict=True))
+    n = launches.n
+    check(n["fused"] > 0 and n["fused_grouped"] == n["fused"]
+          and n["fused_per_query"] == 0,
+          f"maintain: tiered launches by route {n}")
+    return [{"phase": "maintain", "live_rows": int(ids0.size),
+             "explicit_lists": chosen, "recall_at_10_before": recall0,
+             "recall_at_10_after": ops_out[-1]["recall_at_10"],
+             "ops": ops_out, "tiered_launches": n,
+             "epoch": index.epoch, "tiered_epoch": tindex.epoch}], []
+
+
+def phase_pq_lifecycle(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The PQ index saved and loaded back (``persist_check``), then
+    loaded tiered for one Q=64 batch ``==`` the all-resident index on
+    kernel 2's compacted route."""
+    import shutil
+
+    import sivf_torch
+    index, queries = main["index"], main["queries"]
+    line, ckpt = persist_check(torch, index, queries, "pq")
+    try:
+        tindex = sivf_torch.Index.load(ckpt, device="cuda",
+                                       device_slabs=DEVICE_SLABS)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    qs = queries[:TIERED_Q]
+    launches = Launches()
+    with launches.of():
+        res, ms = timed(lambda: tindex.search(qs, K, NPROBE))
+    same_result("pq tiered", res, index.search(qs, K, NPROBE))
+    n = launches.n
+    check(n["pq"] == 1 and n["pq_compacted"] == 1 and n["fused"] == 0,
+          f"pq tiered launches by route {n}: kernel 2 takes compacted")
+    st = tindex.stats()
+    return [line, {"phase": "pq.tiered", "device_slabs": DEVICE_SLABS,
+                   "queries": TIERED_Q, "nprobe": NPROBE, "cold_ms": ms,
+                   "unique_slabs": tindex._tiered.last_prefetch["unique"],
+                   "cache_uploads": st["cache_uploads"],
+                   "h2d_bytes": tindex._tiered.h2d_bytes,
+                   "device_bytes": st["device_bytes"],
+                   "launches": n}], []
+
+
 RECLAIM_PLANES = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
                   "free_stack", "free_top", "tables", "table_len",
                   "table_pos")
@@ -3094,11 +3566,14 @@ def main(argv=None) -> int:
         # each path, then the phases that reuse its index (the unfused path
         # first: the full-size phase ends with a reclaim-heavy delete)
         paths = (("main_path", phase_main,
-                  (("unfused", phase_unfused), ("full_size", phase_full_size))),
+                  (("unfused", phase_unfused), ("full_size", phase_full_size),
+                   ("persist", phase_persist), ("tiered", phase_tiered),
+                   ("maintain", phase_maintain))),
                  ("pq_main_path", phase_pq_main,
-                  (("pq_full_size", phase_pq_full_size),)))
+                  (("pq_full_size", phase_pq_full_size),
+                   ("pq_lifecycle", phase_pq_lifecycle))))
         for name, drive_fn, then in paths:
-            out = {"queries": wl["queries"]}
+            out = {"queries": wl["queries"], "wl": wl}
             lines = run(name, lambda: drive_fn(torch, wl, out))
             for ln in lines or []:
                 emit(ln)

@@ -26,12 +26,21 @@ from repro_torch.core.filters import (  # noqa: F401
     Range,
     compile_filter,
 )
+from repro_torch.core.maintenance import (  # noqa: F401
+    MaintenanceReport,
+    MaintOp,
+    maintain,
+    merge,
+    recluster,
+    split,
+)
 from repro_torch.core.pq import PQConfig, train_pq  # noqa: F401
 from repro_torch.core.quantizer import assign, probe, train_kmeans  # noqa: F401
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
     Index,
     IndexProtocol,
+    MaintenanceAborted,
     MutationRejected,
     MutationReport,
     PendingReport,

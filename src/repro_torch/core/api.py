@@ -12,6 +12,9 @@ PyTorch counterpart of ``repro/core/api.py``:
         futs = [index.add(v, i) for v, i in stream]    # -> PendingReport
         reports = index.flush()                        # one copy, N reports
 
+    index.save(path); index = Index.load(path, device="cuda")
+    index.maintain()                               # split / merge / recluster
+
 The handle owns a :class:`~repro_torch.core.state.SlabPoolState` on one
 device, pads ragged batches to power-of-two buckets (as the reference
 does, which keeps the shapes its kernels see few), turns the sticky
@@ -24,31 +27,42 @@ encodes batches to uint8 codes and search scores them by ADC. With
 ``SIVFConfig(attributes=...)`` every ``add`` stamps each row's attributes
 and ``search(filter=...)`` masks failing rows inside the scan.
 
+With ``SIVFConfig(device_slabs=N)`` the payload planes live on the host
+(pinned on CUDA) and ``N`` cache frames on the device (``core/tiered.py``):
+searches prefetch their probed slabs, :meth:`Index.prefetch` stages a
+coming batch, and results are ``==`` the all-resident pool's.
+:meth:`Index.save` / :meth:`Index.load` write and read the reference's
+checkpoint format 3 (``checkpoint/manager.py``), and :meth:`Index.maintain`
+runs split / merge / recluster ops (``core/maintenance.py``).
+
 What the reference's handle does and this port does not yet: mesh
-backends, maintenance, persistence, resharding, tiered prefetch and
-telemetry raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them. The reference's ``impl`` / ``block_q`` (TPU kernel
-and tiling choices) have no counterpart: the tensor's device picks the
-scan path.
+backends, resharding and telemetry raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them. The reference's ``impl`` /
+``block_q`` (TPU kernel and tiling choices) have no counterpart: the
+tensor's device picks the scan path.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import time
 from typing import Iterator, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import interop
 from repro_torch.core import filters as flt
 from repro_torch.core import index as ix
 from repro_torch.core import pq as pqmod
+from repro_torch.core import quantizer
+from repro_torch.core import tiered as trt
 from repro_torch.core.state import (
     ERR_CHAIN_OVERFLOW,
     ERR_ID_RANGE,
     ERR_POOL_EXHAUSTED,
-    ROADMAP_TIERED,
+    PLANES,
     SIVFConfig,
     SlabPoolState,
     clear_error as _clear_error,
@@ -56,8 +70,6 @@ from repro_torch.core.state import (
 )
 from repro_torch.utils import resolve_device
 
-ROADMAP_MAINT = "ROADMAP.md queue 1 item 9 (core/maintenance.py)"
-ROADMAP_PERSIST = "ROADMAP.md queue 1 item 7 (persistence)"
 ROADMAP_DIST = "ROADMAP.md queue 1 item 10 (core/distributed.py)"
 
 
@@ -109,6 +121,23 @@ class MutationRejected(RuntimeError):
             f"{report.op} batch rejected: errors={report.errors!r} "
             f"accepted={report.accepted} overwritten={report.overwritten} "
             f"rejected={report.rejected} of requested={report.requested}")
+        self.report = report
+
+
+class MaintenanceAborted(RuntimeError):
+    """Raised in strict mode when a maintenance op aborts atomically.
+
+    The abort is clean by construction (every live id stays searchable
+    under the old list layout, old centroids included), so catching this
+    and retrying after evictions is safe. Raised after every requested op
+    has resolved, like :meth:`Index.flush`.
+    """
+
+    def __init__(self, report):
+        super().__init__(
+            f"maintenance {report.kind} on lists {report.lists} aborted: "
+            f"error bits {report.errors:#x} ({report.rows} rows kept "
+            f"under the old layout)")
         self.report = report
 
 
@@ -249,7 +278,9 @@ class _SingleOps:
     The aux dict returned next to the new state holds *device* scalars
     only; nothing is copied to the host until the handle resolves a report
     (at once in eager mode, at ``flush()`` in deferred mode). An insert
-    still reads its commit decision on the host (``index._insert_impl``).
+    still reads its commit decision on the host (``index._insert_impl``);
+    with ``want_plan`` (the tiered pool) it also returns the commit's plan,
+    on the device, for the host-store replay.
     """
 
     def __init__(self, cfg: SIVFConfig, use_tables: bool | None):
@@ -267,15 +298,22 @@ class _SingleOps:
         return pb, aux
 
     def insert(self, state: SlabPoolState, vecs: torch.Tensor,
-               ids: torch.Tensor, attrs: torch.Tensor | None = None):
+               ids: torch.Tensor, attrs: torch.Tensor | None = None,
+               want_plan: bool = False):
         pb, aux = self._pre(state, ids)
-        st = ix.insert(self.cfg, _clear_error(state), vecs, ids, attrs=attrs)
+        vecs = vecs.to(self.cfg.dtype)
+        lists = quantizer.assign(state.centroids, vecs, self.cfg.metric)
+        out = ix._insert_impl(self.cfg, _clear_error(state), vecs, ids, lists,
+                              attrs=attrs, want_plan=want_plan)
+        st, plan = out if want_plan else (out, None)
         aux["errors"] = _or_bits(st.error)
         aux["n_live_after"] = st.n_live.clone()
         # overwritten == present-before AND the batch committed; on an
         # atomic abort the old payload survives, so nothing is overwritten
         failed = (st.error & _ABORT_BITS) != 0
         aux["n_overwritten"] = _count_unique(ids, pb & ~failed)
+        if want_plan:
+            return _clear_error(st), aux, plan
         return _clear_error(st), aux
 
     def delete(self, state: SlabPoolState, ids: torch.Tensor):
@@ -326,13 +364,20 @@ class Index:
                 otherwise call :meth:`train` before the first ``add``.
 
     Mutations update the state's planes in place (the reference donated
-    them to ``jit``); :attr:`state` always names the current planes.
+    them to ``jit``); :attr:`state` always names the current planes. With
+    ``cfg.device_slabs`` the state's payload planes are zero-width and the
+    tiered runtime (``core/tiered.py``) holds the payloads.
+
+    ``_state`` (a ``SlabPoolState`` or ``{plane: array}`` with the
+    reference's dtypes, full-pool or, when tiered, meta) and
+    ``_pq_trained`` are :meth:`load`'s way in.
     """
 
     def __init__(self, cfg: SIVFConfig, centroids, backend="single", *,
                  device="cuda", use_tables: bool | None = None,
                  strict: bool = False, min_bucket: int = 64,
-                 deferred: bool = False, pq_codebooks=None):
+                 deferred: bool = False, pq_codebooks=None,
+                 _state=None, _pq_trained: bool | None = None):
         if not (isinstance(backend, str) and backend == "single"):
             raise _not_ported(f"backend={backend!r}", ROADMAP_DIST)
         if min_bucket < 1:
@@ -347,10 +392,28 @@ class Index:
         self._pending: list[tuple[PendingReport, str, dict, int,
                                   bool | None]] = []
         self._epoch = 0
+        self._use_tables = use_tables
         self._ops = _SingleOps(cfg, use_tables)
-        self._state = init_state(cfg, centroids, pq_codebooks,
-                                 device=self.device)
-        self._pq_trained = cfg.pq is None or pq_codebooks is not None
+        self._maint_cursor = 0      # round-robin recluster position
+        self.last_maintain_ms: list[dict] = []
+        store = None
+        if _state is not None and cfg.tiered \
+                and trt.is_full_state(cfg, _state):
+            # a full pool (a load): payloads to the host store, only the
+            # metadata to the device
+            _state, store = trt.split_full(cfg, _state,
+                                           pin=self.device.type == "cuda")
+        if isinstance(_state, dict):
+            _state = interop.state_from_numpy(cfg, _state, self.device)
+        if _state is None:
+            _state = init_state(cfg, centroids, pq_codebooks,
+                                device=self.device)
+        self._state = _state
+        self._tiered = trt.TieredRuntime(cfg, self.device, use_tables, store) \
+            if cfg.tiered else None
+        if _pq_trained is None:
+            _pq_trained = cfg.pq is None or pq_codebooks is not None
+        self._pq_trained = bool(_pq_trained)
 
     # -- introspection ------------------------------------------------------
 
@@ -390,15 +453,19 @@ class Index:
         return self.n_live
 
     def stats(self) -> dict:
-        """Occupancy/fragmentation report + handle/backend metadata."""
+        """Occupancy/fragmentation report + handle/backend metadata (and
+        the tiered cache's counters, ``core/tiered.py``)."""
         s = ix.stats(self.cfg, self._state)
         s["backend"] = "single"
         s["n_shards"] = 1
-        # all-resident pool: every used slab is trivially "resident"
-        s["tiered"] = False
-        s["resident_slabs"] = s["slabs_used"]
-        s["hit_rate"] = 1.0
-        s["hit_rate_kind"] = "cumulative"
+        if self._tiered is not None:
+            s.update(self._tiered.stats())
+        else:
+            # all-resident pool: every used slab is trivially "resident"
+            s["tiered"] = False
+            s["resident_slabs"] = s["slabs_used"]
+            s["hit_rate"] = 1.0
+            s["hit_rate_kind"] = "cumulative"
         return s
 
     # -- batch bucketing ----------------------------------------------------
@@ -507,21 +574,8 @@ class Index:
 
     # -- not ported yet -----------------------------------------------------
 
-    def maintain(self, *_, **__):
-        raise _not_ported("Index.maintain", ROADMAP_MAINT)
-
-    def save(self, *_, **__):
-        raise _not_ported("Index.save", ROADMAP_PERSIST)
-
-    @classmethod
-    def load(cls, *_, **__):
-        raise _not_ported("Index.load", ROADMAP_PERSIST)
-
     def reshard(self, *_, **__):
         raise _not_ported("Index.reshard", ROADMAP_DIST)
-
-    def prefetch(self, *_, **__):
-        raise _not_ported("Index.prefetch (tiered pool)", ROADMAP_TIERED)
 
     # -- mutation -----------------------------------------------------------
 
@@ -554,10 +608,20 @@ class Index:
             raise ValueError(
                 "attrs= given but SIVFConfig(attributes=...) is empty")
         bucket = self._bucket(ids_a.shape[0])
-        self._state, aux = self._ops.insert(
-            self._state, self._pad_rows(vecs, bucket),
-            self._pad_ids(ids_a, bucket),
-            self._pad_attrs(attrs, bucket) if self.cfg.n_attrs else None)
+        pv = self._pad_rows(vecs, bucket)
+        pa = self._pad_attrs(attrs, bucket) if self.cfg.n_attrs else None
+        if self._tiered is None:
+            self._state, aux = self._ops.insert(
+                self._state, pv, self._pad_ids(ids_a, bucket), pa)
+        else:
+            self._state, aux, plan = self._ops.insert(
+                self._state, pv, self._pad_ids(ids_a, bucket), pa,
+                want_plan=True)
+            # the commit plan waits for the host-store replay, with
+            # snapshots of the rows (the caller may reuse its buffers)
+            self._tiered.queue_plan(
+                plan, pv.clone() if pv is vecs else pv,
+                None if pa is None else (pa.clone() if pa is attrs else pa))
         return self._emit("add", aux, bucket, strict)
 
     def remove(self, ids, *, strict: bool | None = None
@@ -610,6 +674,8 @@ class Index:
         after the entire queue has resolved. ``[]`` when nothing is pending.
         """
         pending, self._pending = self._pending, []
+        if self._tiered is not None:   # the host store catches up where
+            self._tiered.drain_plans()  # the reports resolve
         reports: list[MutationReport] = []
         first_err: MutationRejected | None = None
         k = 0
@@ -645,7 +711,7 @@ class Index:
     # -- search -------------------------------------------------------------
 
     def search(self, queries, k: int, nprobe: int | None = None, *,
-               filter=None) -> SearchResult:
+               filter=None, _prefetched=None) -> SearchResult:
         """Top-k search; ``nprobe=None`` probes every list (exact recall).
 
         ``filter`` is a ``core.filters`` predicate (``Eq`` / ``In`` /
@@ -653,6 +719,11 @@ class Index:
         compiled ``CompiledFilter``. Only rows that match it can appear in
         the result: failing slots mask to ``inf`` / ``-1`` inside the
         scan, before the top-k, so they never displace passing rows.
+
+        On a tiered index the search plans, prefetches its probed slabs
+        and scans the frames; a valid ``_prefetched`` ticket
+        (:meth:`prefetch`) skips the first two stages, a stale one falls
+        back to them.
         """
         queries = self._as_batch(queries, np.float32)
         if queries.ndim == 1:
@@ -674,7 +745,195 @@ class Index:
             else min(int(nprobe), self.cfg.n_lists)
         q = queries.shape[0]
         bucket = self._bucket(q)
-        d, lab = self._ops.search(self._state, self._pad_rows(queries, bucket),
-                                  int(k), nprobe, fstruct, fconsts)
+        padded = self._pad_rows(queries, bucket)
+        if self._tiered is not None:
+            d, lab = self._tiered.search(
+                self._state, padded, int(k), nprobe, fstruct, fconsts,
+                epoch=self._epoch, ticket=_prefetched)
+        else:
+            d, lab = self._ops.search(self._state, padded, int(k), nprobe,
+                                      fstruct, fconsts)
         return SearchResult(distances=d[:q], labels=lab[:q], k=int(k),
                             nprobe=nprobe, padded_to=bucket)
+
+    def prefetch(self, queries, nprobe: int | None = None):
+        """Stage the slabs a coming query batch will probe (tiered only).
+
+        Runs the plan + prefetch stages of the tiered search and returns
+        a ticket for ``search(..., _prefetched=ticket)``. The ticket is
+        valid until the next prefetch or mutation; a stale ticket is
+        safe, merely not used. Returns ``None`` on an untiered handle.
+        """
+        if self._tiered is None:
+            return None
+        queries = self._as_batch(queries, np.float32)
+        if queries.ndim == 1:
+            queries = queries[None]
+        nprobe = self.cfg.n_lists if nprobe is None \
+            else min(int(nprobe), self.cfg.n_lists)
+        padded = self._pad_rows(queries, self._bucket(queries.shape[0]))
+        table = self._tiered.plan(self._state, padded, nprobe)
+        return self._tiered.prefetch(table, nprobe, self._epoch)
+
+    # -- maintenance --------------------------------------------------------
+
+    def maintain(self, ops=None, *, max_ops: int = 2,
+                 strict: bool | None = None) -> list:
+        """Run maintenance ops (``core/maintenance.py``).
+
+        ``ops`` is a list of :class:`~repro_torch.core.maintenance.MaintOp`
+        (``split`` / ``merge`` / ``recluster``); omitted, the drift policy
+        plans up to ``max_ops`` ops from ``stats()["list_occupancy"]``,
+        round-robining re-clustering across sweeps. Each op commits
+        atomically through the staged insert, so a failed op leaves every
+        live id searchable under the old layout and bumps no epoch; a
+        committed op bumps :attr:`epoch` like a mutation batch. On a
+        tiered index the queued plans drain before the gather, whose
+        payloads come from the host store, and the commit's plan is
+        replayed into it after.
+
+        Returns the per-op ``MaintenanceReport`` list. In strict mode an
+        aborted op raises :class:`MaintenanceAborted` after every op has
+        resolved. Each op's host milliseconds (``gather``, ``plan``,
+        ``commit``) are left in :attr:`last_maintain_ms`. The reference's
+        telemetry spans and counters are not ported (ROADMAP.md queue 1
+        item 11).
+        """
+        from repro_torch.core import maintenance as mt
+        self._require_trained()
+        if self._tiered is not None:
+            self._tiered.drain_plans()      # host store current pre-gather
+        if ops is None:
+            occ = self.stats()["list_occupancy"]
+            ops, self._maint_cursor = mt.plan_ops(
+                occ, self._maint_cursor, max_ops=max_ops)
+        strict = self.strict if strict is None else strict
+        stores = None if self._tiered is None else self._tiered.stores
+        want_plan = self._tiered is not None
+        reports: list = []
+        self.last_maintain_ms = []
+        first_abort = None
+        for op in ops:
+            t0 = time.perf_counter()
+            views = mt.shard_views(self.cfg, self._state, stores)
+            gathered = mt.gather_live(self.cfg, self._state, views, op.lists)
+            t1 = time.perf_counter()
+            plan = mt.plan_op(self.cfg, op, gathered,
+                              self._state.centroids.cpu().numpy())
+            t2 = time.perf_counter()
+            times = {"gather": (t1 - t0) * 1e3, "plan": (t2 - t1) * 1e3,
+                     "commit": 0.0}
+            self.last_maintain_ms.append(times)
+            if plan is None:                # nothing to move: host no-op
+                reports.append(mt.MaintenanceReport(
+                    op.kind, op.lists, len(gathered["ids"]), True, 0,
+                    self.n_live))
+                continue
+            new_cents, lists = plan
+            batch = mt.pad_batch(self.cfg, gathered, lists,
+                                 mt.maint_batch_size(self.cfg))
+            out = mt._commit_op(self.cfg, self._state, new_cents, batch,
+                                want_plan)
+            self._state, aux = out[0], mt.read_aux(out[1])
+            committed = bool(aux["committed"])
+            if want_plan and committed:
+                self._tiered.queue_plan(
+                    out[2], batch["vecs"],
+                    batch["attrs"] if self.cfg.n_attrs else None)
+                self._tiered.drain_plans()
+            times["commit"] = (time.perf_counter() - t2) * 1e3
+            rep = mt.MaintenanceReport(op.kind, op.lists, batch["rows"],
+                                       committed, int(aux["errors"]),
+                                       int(aux["n_live"]))
+            if committed:
+                self._epoch += 1            # a new committed prefix entry
+            elif first_abort is None:
+                first_abort = rep
+            reports.append(rep)
+        if strict and first_abort is not None:
+            raise MaintenanceAborted(first_abort)
+        return reports
+
+    # -- persistence --------------------------------------------------------
+
+    _META = "index"
+
+    def save(self, path) -> None:
+        """Persist the index in the reference's checkpoint format 3
+        (``checkpoint/manager.py``: atomic, checksummed): one array per
+        plane in ``PLANES`` order with the reference's dtypes, and the
+        ``index.json`` sidecar. A tiered index saves its assembled full
+        pool, the same arrays an untiered one would."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        mgr = CheckpointManager(path, keep_last=1)
+        mgr.save_metadata(self._META, {
+            "format": 3,
+            "pq_trained": self._pq_trained,
+            "backend": "single",
+            "n_shards": 1,
+            "routing": {"rule": "mod", "n_shards": 1, "axis": "data"},
+            "axis": "data",
+            # the reference's defaults: the port has no impl or block_q
+            "impl": "xla",
+            "block_q": 8,
+            "use_tables": self._use_tables,
+            "strict": self.strict,
+            "min_bucket": self.min_bucket,
+            "deferred": self.deferred,
+            "cfg": interop.config_to_dict(self.cfg),
+        })
+        if self._tiered is not None:
+            self._tiered.drain_plans()
+            planes = trt.assemble_full(self.cfg, self._state,
+                                       self._tiered.store)
+        else:
+            planes = interop.state_to_numpy(self._state)
+        mgr.save(0, [planes[name] for name in PLANES])
+
+    @classmethod
+    def load(cls, path, backend=None, **overrides) -> "Index":
+        """Rebuild a handle from :meth:`save` output, the reference's
+        included (formats 1-3; the planes a format-1 or -2 checkpoint
+        lacks fill fresh). The planes go onto ``device`` (``"cuda"``
+        unless given in ``overrides``) directly; a tiered target
+        (``device_slabs=`` here, or in the saved config) puts only the
+        metadata there. Other ``overrides`` replace saved handle options
+        (``strict``, ``min_bucket``, ...); the sidecar's ``impl`` and
+        ``block_q`` are ignored. A mesh checkpoint raises
+        ``NotImplementedError`` (ROADMAP.md queue 1 item 10)."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        if backend not in (None, "single"):
+            raise _not_ported(f"Index.load(backend={backend!r})",
+                              ROADMAP_DIST)
+        mgr = CheckpointManager(path)
+        meta = mgr.load_metadata(cls._META)
+        if meta.get("backend", "single") != "single" \
+                or int(meta.get("n_shards", 1)) > 1:
+            raise _not_ported(
+                f"loading a {meta.get('backend')} checkpoint of "
+                f"{meta.get('n_shards')} shards", ROADMAP_DIST)
+        cfg = interop.config_from_dict(meta["cfg"])
+        if "device_slabs" in overrides:     # retier on load
+            cfg = dataclasses.replace(
+                cfg, device_slabs=overrides.pop("device_slabs"))
+        kw = {"use_tables": meta["use_tables"], "strict": meta["strict"],
+              "min_bucket": meta["min_bucket"],
+              "deferred": meta.get("deferred", False)}
+        kw.update(overrides)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint steps under {path}")
+        out = mgr.restore_arrays(step)
+        # older formats lack trailing planes, filled fresh: format 1
+        # ``codes`` / ``pq_codebooks`` / ``attrs``, format 2 ``attrs``
+        n_miss = {1: 3, 2: 1}.get(int(meta.get("format", 1)), 0)
+        ns, c = cfg.n_slabs, cfg.capacity
+        fresh = {"codes": np.zeros((ns, c, cfg.code_m), np.uint8),
+                 "pq_codebooks": np.zeros(cfg.codebook_shape, np.float32),
+                 "attrs": np.zeros((ns, c, cfg.n_attrs), np.int32)}
+        out += [fresh[name] for name in PLANES[len(PLANES) - n_miss:]]
+        if len(out) != len(PLANES):
+            raise ValueError(f"checkpoint stored {len(out)} leaves but the "
+                             f"state needs {len(PLANES)}")
+        return cls(cfg, None, _state=dict(zip(PLANES, out)),
+                   _pq_trained=meta.get("pq_trained", True), **kw)

@@ -95,7 +95,8 @@ def _dedupe_keep_last(ext_ids: torch.Tensor, valid: torch.Tensor
 def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
                  ext_ids: torch.Tensor, lists: torch.Tensor,
                  codes: torch.Tensor | None = None,
-                 attrs: torch.Tensor | None = None) -> SlabPoolState:
+                 attrs: torch.Tensor | None = None,
+                 want_plan: bool = False):
     """All-or-nothing batched insert (reference ``_insert_impl``).
 
     The overwrite-deletes run on clones of the delete planes (``staged``)
@@ -110,6 +111,17 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     omitted, the batch's rows are encoded once. With ``cfg.attributes``,
     ``attrs`` [B, n_attrs] stamps each row (zeros when omitted). Both ride
     the batch's sort and its commit; an aborted batch writes neither.
+
+    With ``want_plan=True`` (the tiered pool, ``core/tiered.py``) the
+    return value is ``(state, plan)``: ``plan["slab"]`` / ``plan["slot"]``
+    [B] int32 give the (slab, slot) the commit wrote for each *input*
+    row, slab -1 (slot 0) for padding rows, ids out of range, rows
+    superseded by a later duplicate and every row of an aborted batch;
+    ``plan["codes"]`` [B, code_m] uint8 holds the device-encoded PQ codes
+    in input order (zeros where the slab is -1). The plan stays on the
+    device. In tiered mode (``cfg.payload_slabs == 0``) the payload
+    planes are zero-width and their writes are skipped: the host store
+    replays them from the plan.
     """
     b = vecs.shape[0]
     c = cfg.capacity
@@ -152,11 +164,16 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     ok, n_valid, n_new = torch.stack(
         [pool_ok & chain_ok, (sl < nl).sum(), total_new]).tolist()
     range_bit = torch.where(err_range, ERR_ID_RANGE, 0).to(_I32)
+    if want_plan:
+        plan = {"slab": torch.full((b,), -1, dtype=_I32, device=dev),
+                "slot": torch.zeros((b,), dtype=_I32, device=dev),
+                "codes": torch.zeros((b, cfg.code_m), dtype=torch.uint8,
+                                     device=dev)}
     if not ok:
         state.error |= (torch.where(pool_ok, 0, ERR_POOL_EXHAUSTED)
                         | torch.where(chain_ok, 0, ERR_CHAIN_OVERFLOW)
                         ).to(_I32) | range_bit
-        return state
+        return (state, plan) if want_plan else state
 
     # -- per-item coordinates (valid rows only) ----------------------------
     sl, rank = sl[:n_valid].long(), rank[:n_valid]
@@ -220,12 +237,13 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
         staged.free_top -= n_new
 
     # -- payload writes + publication (distinct bits per word: add == OR) --
-    if cfg.payload_dim:
-        staged.data[item_slab, item_slot] = sv.to(cfg.dtype)
-    if cfg.pq is not None:
-        staged.codes[item_slab, item_slot] = new_codes
-    if cfg.n_attrs:
-        staged.attrs[item_slab, item_slot] = sattrs
+    if cfg.payload_slabs:              # tiered: the host store replays them
+        if cfg.payload_dim:
+            staged.data[item_slab, item_slot] = sv.to(cfg.dtype)
+        if cfg.pq is not None:
+            staged.codes[item_slab, item_slot] = new_codes
+        if cfg.n_attrs:
+            staged.attrs[item_slab, item_slot] = sattrs
     staged.ids[item_slab, item_slot] = sids
     staged.norms[item_slab, item_slot] = torch.sum(
         sv.to(torch.float32) ** 2, dim=-1)
@@ -238,7 +256,13 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     staged.att_slot[sids.long()] = item_slot.to(_I32)
     staged.n_live += n_valid
     staged.error |= range_bit
-    return staged
+    if not want_plan:
+        return staged
+    plan["slab"][rows] = item_slab.to(_I32)
+    plan["slot"][rows] = item_slot.to(_I32)
+    if cfg.pq is not None:
+        plan["codes"][rows] = new_codes
+    return staged, plan
 
 
 def insert(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,

@@ -24,17 +24,13 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core.pq import PQConfig
 from repro_torch.utils import resolve_device
 
-# ROADMAP queue 1 item that will lift the NotImplementedError below
-ROADMAP_TIERED = "ROADMAP.md queue 1 item 8 (core/tiered.py)"
-
-
 @dataclasses.dataclass(frozen=True)
 class SIVFConfig:
     """Static configuration; field names and defaults mirror the reference.
 
-    ``device_slabs`` (the tiered pool) is part of the schema so a
-    reference config round-trips (``interop.config_from_dict``), but it
-    raises ``NotImplementedError`` for any value but ``None``.
+    ``device_slabs`` (the tiered pool, ``core/tiered.py``) keeps that many
+    cache frames of payload on the device; the canonical payload planes
+    (``data`` / ``codes`` / ``attrs``) then live on the host.
     """
 
     dim: int                       # vector dimensionality D
@@ -48,7 +44,7 @@ class SIVFConfig:
     dtype: torch.dtype = torch.float32
     pq: PQConfig | None = None     # product-quantized payloads (core/pq.py)
     attributes: tuple[str, ...] = ()  # named int32 filter attributes
-    device_slabs: int | None = None
+    device_slabs: int | None = None  # tiered mode: cache frames on device
 
     def __post_init__(self):
         bm.n_words(self.capacity)  # validates capacity
@@ -56,9 +52,11 @@ class SIVFConfig:
             raise ValueError(f"unknown metric {self.metric}")
         if self.dtype != torch.float32:
             raise ValueError(f"dtype must be torch.float32, got {self.dtype}")
-        if self.device_slabs is not None:
-            raise NotImplementedError(
-                f"SIVFConfig(device_slabs=...): {ROADMAP_TIERED}")
+        if self.device_slabs is not None and not (
+                1 <= self.device_slabs <= self.n_slabs):
+            raise ValueError(
+                f"device_slabs must be in [1, n_slabs={self.n_slabs}], got "
+                f"{self.device_slabs}")
         if self.pq is not None and self.dim % self.pq.m:
             raise ValueError(
                 f"dim {self.dim} not divisible by pq.m {self.pq.m}")
@@ -101,9 +99,16 @@ class SIVFConfig:
         return (self.pq.m, self.pq.ksub, self.dim // self.pq.m)
 
     @property
+    def tiered(self) -> bool:
+        """True when the payload planes are host-resident (device_slabs)."""
+        return self.device_slabs is not None
+
+    @property
     def payload_slabs(self) -> int:
-        """Leading dim of the payload planes (all-resident pool)."""
-        return self.n_slabs
+        """Leading dim of the *device* payload planes: 0 in tiered mode,
+        where the canonical planes live on the host and the device keeps
+        ``device_slabs`` cache frames (``core/tiered.py``)."""
+        return 0 if self.tiered else self.n_slabs
 
 
 PLANES = (
@@ -239,10 +244,13 @@ def host_live_mask(cfg: SIVFConfig, bitmap) -> np.ndarray:
 def memory_report(cfg: SIVFConfig) -> dict:
     """Structural-overhead accounting (paper §5.6.2 / Fig. 12).
 
-    Same keys and byte math as the reference for an all-resident pool:
-    the payload is the fp32 ``data`` plane (zero-width under PQ unless
-    ``store_raw``) plus the uint8 code plane; attributes count raw on both
-    sides of ``compression_ratio``. The tiered terms are zero.
+    Same keys and byte math as the reference: the payload is the fp32
+    ``data`` plane (zero-width under PQ unless ``store_raw``) plus the
+    uint8 code plane; attributes count raw on both sides of
+    ``compression_ratio``. In tiered mode (``cfg.device_slabs``) the
+    payload planes are ``host_bytes`` and the device holds the metadata
+    and ``device_slabs`` cache frames (``device_cache_bytes``);
+    ``total_bytes`` is always ``host_bytes + device_bytes``.
     """
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     slots = cfg.n_slabs * cfg.capacity
@@ -262,7 +270,12 @@ def memory_report(cfg: SIVFConfig) -> dict:
         if cfg.track_tables else 0
     stored = payload + codes + attrs
     metadata = codebooks + ids + norms + headers + att + heads + stack + tables
-    total = metadata + stored
+    per_slab = cfg.capacity * (cfg.payload_dim * itemsize + cfg.code_m
+                               + cfg.n_attrs * 4)
+    cache = cfg.device_slabs * per_slab if cfg.tiered else 0
+    host = stored if cfg.tiered else 0
+    device = metadata + cache + (0 if cfg.tiered else stored)
+    total = host + device
     return {
         "payload_bytes": int(payload),
         "code_bytes": int(codes),
@@ -270,9 +283,9 @@ def memory_report(cfg: SIVFConfig) -> dict:
         "codebook_bytes": int(codebooks),
         "compression_ratio": float(raw_equiv / stored) if stored else 1.0,
         "metadata_bytes": int(metadata),
-        "host_bytes": 0,
-        "device_bytes": int(total),
-        "device_cache_bytes": 0,
+        "host_bytes": int(host),
+        "device_bytes": int(device),
+        "device_cache_bytes": int(cache),
         "total_bytes": int(total),
         "overhead_frac_vs_payload": float((total - stored) / max(stored, 1)),
     }

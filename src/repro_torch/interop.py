@@ -70,7 +70,9 @@ def state_from_numpy(cfg: SIVFConfig, planes: dict, device="cuda"
         a = np.asarray(planes[name])
         if name == "bitmap":
             a = a.astype(np.uint32, copy=False).view(np.int32)
-        out[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
+        if dev.type == "cpu" or not a.flags.writeable:
+            a = np.array(a, copy=True)      # never alias the caller's array
+        out[name] = torch.from_numpy(a).to(dev)
     state = SlabPoolState(**out)
     c, ps = cfg.capacity, cfg.payload_slabs
     want = {"bitmap": ((cfg.n_slabs, cfg.words), torch.int32),

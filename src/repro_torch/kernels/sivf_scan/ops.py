@@ -10,6 +10,11 @@ no fallback from the card to the plain versions. The launch counts live
 on the kernels' wrappers (``sivf_scan.launches``, ``fused.launches``,
 ``pq_fused.launches`` and the latter two's ``filtered_launches``).
 
+:func:`translate_table` (the reference's, an XLA op there, not a
+Pallas kernel) rewrites a slab table into the cache-frame coordinates of
+the tiered pool (``core/tiered.py``); the scans then run unchanged on the
+frame-indexed planes.
+
 The PQ entry takes a materialized ADC table (``core.pq.adc_tables``),
 never queries and codebooks: the table is built once per query batch and
 the same tensor scores, whichever implementation runs.
@@ -78,3 +83,18 @@ def sivf_pq_fused_search(adc: torch.Tensor, table: torch.Tensor,
     return pq_fused.sivf_pq_fused_search_cuda(
         adc.contiguous(), table.to(torch.int32).contiguous(), codes, ids,
         bitmap, k, **filt)
+
+
+def translate_table(table: torch.Tensor, frame_of: torch.Tensor
+                    ) -> torch.Tensor:
+    """Rewrite a pool-slab-id table into cache-frame coordinates.
+
+    ``table`` [Q, T] int32 pool slab ids (-1 pad), ``frame_of`` [n_slabs]
+    int32 residency map (slab -> frame, -1 cold). Returns the same-shape
+    int32 table with each live entry replaced by its frame, pads kept.
+    Every live entry must be resident; the tiered prefetch makes it so.
+    Both scans order candidates by (distance, t, slot), never by slab id,
+    so a translated table scores the same candidates in the same order.
+    """
+    return torch.where(table >= 0, frame_of[table.clamp(min=0).long()],
+                       -1).to(torch.int32)

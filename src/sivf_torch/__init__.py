@@ -15,15 +15,21 @@
     index.add(vecs, ids, attrs={"tenant": tenant, "ts": ts})
     res = index.search(queries, 10, 32, filter=sivf_torch.Eq("tenant", 7))
 
+    index.save(path)                               # checkpoint format 3
+    index = sivf_torch.Index.load(path, device_slabs=8192)   # tiered
+    index.maintain([sivf_torch.split(3, 9), sivf_torch.recluster(5)])
+
 Everything re-exported here lives in ``repro_torch.core``. It is the port
 of the single-backend path of ``sivf`` (raw fp32 or PQ payloads, with or
-without filter attributes); what is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+without filter attributes, all-resident or tiered, with persistence and
+maintenance); what is not ported yet raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
     Index,
     IndexProtocol,
+    MaintenanceAborted,
     MutationRejected,
     MutationReport,
     PendingReport,
@@ -37,6 +43,13 @@ from repro_torch.core.filters import (  # noqa: F401
     Range,
     compile_filter,
 )
+from repro_torch.core.maintenance import (  # noqa: F401
+    MaintenanceReport,
+    MaintOp,
+    merge,
+    recluster,
+    split,
+)
 from repro_torch.core.pq import PQConfig, train_pq  # noqa: F401
 from repro_torch.core.quantizer import train_kmeans  # noqa: F401
 from repro_torch.core.state import (  # noqa: F401
@@ -47,7 +60,9 @@ from repro_torch.core.state import (  # noqa: F401
 
 __all__ = [
     "And", "CompiledFilter", "Eq", "ErrorCode", "In", "Index",
-    "IndexProtocol", "MutationRejected", "MutationReport", "PendingReport",
-    "PQConfig", "Range", "SearchResult", "SIVFConfig", "compile_filter",
-    "init_state", "memory_report", "train_kmeans", "train_pq",
+    "IndexProtocol", "MaintOp", "MaintenanceAborted", "MaintenanceReport",
+    "MutationRejected", "MutationReport", "PendingReport", "PQConfig",
+    "Range", "SearchResult", "SIVFConfig", "compile_filter", "init_state",
+    "memory_report", "merge", "recluster", "split", "train_kmeans",
+    "train_pq",
 ]

@@ -7,6 +7,7 @@ centroids. Reports must be identical, search labels ``==`` and distances
 allclose(rtol=atol=1e-5), and at the end every integer plane ``==``.
 """
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -154,17 +155,19 @@ def test_strict_mode_raises_on_both(setup):
             d.flush()
 
 
-def test_unported_surface_names_its_roadmap_item(setup):
+def test_unported_surface_names_its_roadmap_item(setup, tmp_path):
     _, cents, _, tcfg = setup
     index = sivf_torch.Index(tcfg, cents, device="cpu")
-    for call, item in ((lambda: index.maintain(), "item 9"),
-                       (lambda: index.save("x"), "item 7"),
-                       (lambda: sivf_torch.Index.load("x"), "item 7"),
-                       (lambda: index.reshard("m"), "item 10"),
-                       (lambda: index.prefetch(None), "item 8"),
-                       (lambda: sivf_torch.SIVFConfig(
-                           dim=D, n_lists=N_LISTS, n_slabs=8,
-                           device_slabs=4), "item 8"),
+    # a mesh checkpoint: the sidecar of a saved index, marked as the
+    # reference's mesh backend writes it
+    index.save(tmp_path)
+    side = tmp_path / "index.json"
+    meta = json.loads(side.read_text())
+    side.write_text(json.dumps({**meta, "backend": "mesh", "n_shards": 2}))
+    for call, item in ((lambda: index.reshard("m"), "item 10"),
+                       (lambda: sivf_torch.Index.load(tmp_path,
+                                                      device="cpu"),
+                        "item 10"),
                        (lambda: sivf_torch.Index(tcfg, cents, backend="mesh",
                                                  device="cpu"), "item 10")):
         with pytest.raises(NotImplementedError, match=item):

@@ -75,8 +75,14 @@ def test_config_round_trip_and_limits():
     assert d["dtype"] == "float32"
     assert interop.config_from_dict(d) == cfg
     assert jcore.SIVFConfig(**{**d, "dtype": jnp.float32}).words == cfg.words
-    with pytest.raises(NotImplementedError, match="item 8"):
-        st.SIVFConfig(dim=16, n_lists=4, n_slabs=8, device_slabs=4)
+    for bad in (0, 9):              # device_slabs must be in [1, n_slabs]
+        with pytest.raises(ValueError, match="device_slabs"):
+            st.SIVFConfig(dim=16, n_lists=4, n_slabs=8, device_slabs=bad)
+        with pytest.raises(ValueError, match="device_slabs"):
+            jcore.SIVFConfig(dim=16, n_lists=4, n_slabs=8, device_slabs=bad)
+    for good in (1, 8):
+        assert st.SIVFConfig(dim=16, n_lists=4, n_slabs=8,
+                             device_slabs=good).payload_slabs == 0
     for kw in ({"capacity": 48}, {"pq": st.PQConfig(m=5)},
                {"attributes": ("a", "a")}, {"attributes": ("",)}):
         with pytest.raises(ValueError):
