@@ -54,6 +54,22 @@ and the searches ``==``. The PQ path's ``pq_lifecycle`` saves and loads
 its index the same way and runs one tiered batch on kernel 2's
 ``compacted`` route.
 
+Then ``sivf_torch.ServeEngine`` serves the raw checkpoint (one scheduler
+thread in front of a ``deferred=True`` index): ``serve.coalesce`` holds
+every result of searches queued while the engine is paused, then
+coalesced into tiles, ``==`` its rows of one direct ``Index.search`` of
+its tile; ``serve.prefix`` streams 32 adds of 4,096 planted ids and 32
+removes of 4,096 old ids while a reader searches planted vectors, and
+holds every result to the prefix of mutations its epoch names;
+``serve.load`` reads open-loop single-query latency at 1,000, 4,000 and
+16,000 searches a second, idle and beside an ingest of 50,000 rows a
+second each way (a reading, not a gate); ``serve.tiered`` runs a tiered
+engine with 2,048 frames beside an all-resident one, tiles evicting each
+other's frames, every result ``==``; ``serve.telemetry`` holds the
+Prometheus text to the snapshot and the cache-event counters to
+``stats()``. The PQ path ends with a coalescing burst on its checkpoint
+(kernel 2 and 2f on ``compacted``).
+
 Once the index paths are freed, the ``lm`` phase serves Llama-3-8B at
 full width (32 layers, bf16, random weights from ``init_params`` seeded
 with ``--seed``) through ``repro_torch.serve.paged_lm.PagedLMEngine``: a
@@ -93,8 +109,9 @@ repeat, each path's
 phases and full-size kernel checks and timings (the unfused path's after
 the raw path's phases), the raw path's ``raw.persist``,
 ``tiered.search``, ``tiered.churn``, ``tiered.full_probe``,
-``tiered.launches`` and ``maintain`` lines, the PQ path's
-``pq.persist`` and ``pq.tiered``, the ``lm``, ``lm.kernels_full_width`` and
+``tiered.launches``, ``maintain``, ``serve.coalesce``, ``serve.prefix``,
+``serve.load``, ``serve.tiered`` and ``serve.telemetry`` lines, the PQ
+path's ``pq.persist``, ``pq.tiered`` and ``serve.coalesce``, the ``lm``, ``lm.kernels_full_width`` and
 ``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
 ``rwkv.wkv6_float64`` before ``rwkv.vs_ref``), the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
@@ -111,6 +128,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1785,16 +1803,18 @@ def kernel_counts() -> dict:
 class Launches:
     """Kernel launches made inside ``with launches.of():`` blocks only, so
     that a tiered index's launches are counted apart from the launches of
-    the all-resident index it is compared with."""
+    the all-resident index it is compared with (``counts``: the counters
+    read, ``kernel_counts`` by default)."""
 
-    def __init__(self):
-        self.n = {k: 0 for k in kernel_counts()}
+    def __init__(self, counts=None):
+        self.counts = counts or kernel_counts
+        self.n = {k: 0 for k in self.counts()}
 
     @contextlib.contextmanager
     def of(self):
-        before = kernel_counts()
+        before = self.counts()
         yield
-        after = kernel_counts()
+        after = self.counts()
         for k in self.n:
             self.n[k] += after[k] - before[k]
 
@@ -1869,7 +1889,7 @@ def _persist_check(torch, index, queries, path: str, ckpt: Path) -> dict:
 def phase_persist(torch, hbm: float, main: dict) -> tuple[list, list]:
     """Save the raw index and load it back (``persist_check``)."""
     line, ckpt = persist_check(torch, main["index"], main["queries"], "raw")
-    main["ckpt"] = ckpt                 # the tiered phase loads it
+    main["ckpt"] = ckpt                 # the tiered and serve phases load it
     return [line], []
 
 
@@ -1917,20 +1937,14 @@ def phase_tiered(torch, hbm: float, main: dict) -> tuple[list, list]:
     """The raw checkpoint loaded with ``device_slabs=DEVICE_SLABS``: Q=64
     batches at nprobe 32, cold then warm, ``==`` the all-resident index;
     churn applied to both; a filtered batch; a full-probe Q=1024 batch."""
-    import shutil
-
     import sivf_torch
     from repro_torch.core.state import memory_report
     index, queries, wl = main["index"], main["queries"], main["wl"]
-    ckpt = main.pop("ckpt")
-    try:
-        t0 = time.perf_counter()
-        tindex = sivf_torch.Index.load(ckpt, device="cuda",
-                                       device_slabs=DEVICE_SLABS)
-        torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    tindex = sivf_torch.Index.load(main["ckpt"], device="cuda",
+                                   device_slabs=DEVICE_SLABS)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
     rt = tindex._tiered
     mem = {"all_resident": memory_report(index.cfg),
            "tiered": memory_report(tindex.cfg)}
@@ -2181,16 +2195,12 @@ def phase_pq_lifecycle(torch, hbm: float, main: dict) -> tuple[list, list]:
     """The PQ index saved and loaded back (``persist_check``), then
     loaded tiered for one Q=64 batch ``==`` the all-resident index on
     kernel 2's compacted route."""
-    import shutil
-
     import sivf_torch
     index, queries = main["index"], main["queries"]
     line, ckpt = persist_check(torch, index, queries, "pq")
-    try:
-        tindex = sivf_torch.Index.load(ckpt, device="cuda",
-                                       device_slabs=DEVICE_SLABS)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    main["ckpt"] = ckpt                 # the serve phase loads it
+    tindex = sivf_torch.Index.load(ckpt, device="cuda",
+                                   device_slabs=DEVICE_SLABS)
     qs = queries[:TIERED_Q]
     launches = Launches()
     with launches.of():
@@ -2207,6 +2217,721 @@ def phase_pq_lifecycle(torch, hbm: float, main: dict) -> tuple[list, list]:
                    "h2d_bytes": tindex._tiered.h2d_bytes,
                    "device_bytes": st["device_bytes"],
                    "launches": n}], []
+
+
+# ---------------------------------------------------------------------------
+# The serve engine (sivf_torch.ServeEngine) on the raw and PQ checkpoints
+# ---------------------------------------------------------------------------
+
+SERVE_TENANT = "t7"                     # its mandatory filter: tenant == 7
+SERVE_COALESCE = {"raw": (64, 16, 4), "pq": (32, 16, 2)}   # app, t7, Q=16
+PREFIX_BATCHES, PREFIX_ROWS = 32, 4096
+LOAD_RATES = (1000, 4000, 16000)        # open-loop searches a second
+LOAD_HALF_S = 2.0                       # each rate: idle, then active
+LOAD_PROFILE_S = 1.0                    # one profiled active second
+LOAD_BATCH, LOAD_ROWS_PER_S = 1024, 50_000   # ingest, each way
+SERVE_DEVICE_SLABS = 2048
+SERVE_TILED_CYCLES = 3
+SERVE_STAGES = ("serve.tile", "serve.queue", "serve.mutation_queue",
+                "index.search", "mutation.dispatch", "mutation.flush",
+                "plan", "prefetch", "scan")
+SERVE_LAUNCHES: dict = {}    # kernels 1 / 1f / 2 / 2f: serve launches by route
+
+
+def serve_counts() -> dict:
+    """Kernels 1 and 2's launch counters, filtered apart, by route."""
+    from repro_torch.kernels.sivf_scan import fused, pq_fused
+    return {"sivf_fused_search": fused.launches,
+            "sivf_fused_search[filtered]": fused.filtered_launches,
+            "sivf_fused_search.grouped": fused.launches_grouped,
+            "sivf_fused_search.per_query": fused.launches_per_query,
+            "sivf_pq_fused_search": pq_fused.launches,
+            "sivf_pq_fused_search[filtered]": pq_fused.filtered_launches,
+            "sivf_pq_fused_search.compacted": pq_fused.launches_compacted,
+            "sivf_pq_fused_search.per_query": pq_fused.launches_per_query}
+
+
+def serve_engine(index, **kw):
+    """The smoke's engine over ``index``: k=10, nprobe 32, tiles up to 256
+    rows, the ``t7`` tenant pinned to tenant 7, 1,024 searches in flight
+    a tenant, the perf_counter clock."""
+    import sivf_torch
+    kw = {"default_k": K, "default_nprobe": NPROBE, "max_coalesce": 256,
+          "tenant_filters": {SERVE_TENANT: sivf_torch.Eq("tenant", 7)},
+          "quota": sivf_torch.TenantQuota(max_inflight_searches=1024),
+          "clock": time.perf_counter, **kw}
+    return sivf_torch.ServeEngine(index, **kw)
+
+
+def load_served(torch, ckpt, tel=None, **kw):
+    """The checkpoint on the card, as the engine needs it."""
+    import sivf_torch
+    index = sivf_torch.Index.load(ckpt, device="cuda", deferred=True,
+                                  strict=False, telemetry=tel, **kw)
+    torch.cuda.synchronize()
+    return index
+
+
+def host(t) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def plain_search(torch, index, qs: np.ndarray, k: int, cf=None):
+    """``Index.search`` of ``qs`` by its own steps on the card index's
+    planes (the bucket's zero rows, the probe, the slab tables, the PQ
+    path's ADC table), with the scan taken by kernel 1's or 2's plain
+    version in place of the kernel: (distances, labels) of ``qs``'s rows."""
+    from repro_torch.core import index as ix
+    from repro_torch.core import pq, quantizer
+    from repro_torch.kernels.sivf_scan.ref import (
+        sivf_fused_search_ref, sivf_pq_fused_search_ref,
+    )
+    cfg, st = index.cfg, index.state
+    q = index._pad_rows(qs, index._bucket(len(qs))).to(cfg.dtype)
+    lists = quantizer.probe(st.centroids, q, NPROBE, cfg.metric)
+    ut = cfg.track_tables if index._use_tables is None \
+        else index._use_tables
+    table = (ix.gather_tables if ut else ix.walk_chains)(cfg, st, lists)
+    filt = {} if cf is None else dict(
+        attrs=st.attrs, fstruct=cf.structure,
+        fconsts=torch.tensor(cf.consts, dtype=torch.int32, device=q.device))
+    if cfg.pq is not None:
+        adc = pq.adc_tables(st.pq_codebooks, q, cfg.metric)
+        d, lab = sivf_pq_fused_search_ref(adc, table, st.codes, st.ids,
+                                          st.bitmap, k, **filt)
+    else:
+        d, lab = sivf_fused_search_ref(q.to(torch.float32), table, st.data,
+                                       st.ids, st.norms, st.bitmap, k,
+                                       cfg.metric, **filt)
+    return d[:len(qs)], lab[:len(qs)]
+
+
+def coalesce_check(torch, index, queries, attrs_h, path: str,
+                   launches) -> dict:
+    """Searches queued while the engine is paused — single queries from
+    ``app``, single queries from ``t7``, Q = 16 batches at k = 5 — then
+    released at once: the engine coalesces them into one tile per (k,
+    filter) group, and each result is ``==`` its rows of one direct
+    ``Index.search`` of the tile's queries at the same epoch, which is
+    ``==`` the plain version's search of those queries (kernel 1's or
+    2's shapes on this path: 64-row buckets, k 10 and 5, a filter)."""
+    import sivf_torch
+    from repro_torch.core.filters import compile_filter
+    n_app, n_t7, n_16 = SERVE_COALESCE[path]
+    qh = host(queries)
+    groups = {"app": [qh[i:i + 1] for i in range(n_app)],
+              "t7": [qh[n_app + i:n_app + i + 1] for i in range(n_t7)],
+              "k5": [qh[n_app + n_t7 + 16 * i:n_app + n_t7 + 16 * (i + 1)]
+                     for i in range(n_16)]}
+    eng = serve_engine(index)
+    try:
+        eng.pause()
+        futs = {"app": [eng.session("app").search(q) for q in groups["app"]],
+                "t7": [eng.session(SERVE_TENANT).search(q)
+                       for q in groups["t7"]],
+                "k5": [eng.session("app").search(q, k=5)
+                       for q in groups["k5"]]}
+        t0 = time.perf_counter()
+        with launches.of():
+            eng.resume()
+            res = {g: [f.result(120) for f in fs] for g, fs in futs.items()}
+        cycle_ms = (time.perf_counter() - t0) * 1e3
+        st = eng.stats()
+    finally:
+        eng.close()
+    epoch = index.epoch
+    cf = compile_filter(sivf_torch.Eq("tenant", 7), ATTRS)
+    per_group, plain_err = {}, 0.0
+    for g, rs in res.items():
+        k = 5 if g == "k5" else K
+        qs = np.concatenate(groups[g])
+        gf = cf if g == "t7" else None
+        want = index.search(qs, k, NPROBE, filter=gf)
+        plain_err = max(plain_err, check_equal(
+            f"{path} serve.coalesce {g}: the tile's search vs the plain "
+            f"version", want.distances, want.labels,
+            *plain_search(torch, index, qs, k, gf)))
+        wd, wl_ = host(want.distances), host(want.labels)
+        off = 0
+        for q, r in zip(groups[g], rs):
+            n = q.shape[0]
+            check(np.array_equal(r.labels, wl_[off:off + n])
+                  and np.array_equal(r.distances.view(np.int32),
+                                     wd[off:off + n].view(np.int32)),
+                  f"{path} serve.coalesce {g}: a result differs from the "
+                  f"direct search of its tile")
+            check(r.coalesced == qs.shape[0] and r.epoch == epoch
+                  and r.padded_to == want.padded_to and r.k == k,
+                  f"{path} serve.coalesce {g}: provenance {r.coalesced} "
+                  f"{r.epoch} {r.padded_to}")
+            off += n
+        if g == "t7":
+            lab = wl_[wl_ >= 0]
+            check(bool((attrs_h[lab, 0] == 7).all()),
+                  f"{path} serve.coalesce: a t7 label is not tenant 7")
+        per_group[g] = {"requests": len(rs), "rows": int(qs.shape[0]),
+                        "padded_to": rs[0].padded_to,
+                        "service_ms": rs[0].service_s * 1e3,
+                        "queue_ms_max": max(r.queue_s for r in rs) * 1e3}
+    check(st["search_tiles"] == 3 and st["prefetch_errors"] == 0,
+          f"{path} serve.coalesce: {st['search_tiles']} tiles, "
+          f"{st['prefetch_errors']} prefetch errors")
+    return {"phase": "serve.coalesce", "path": path, "epoch": epoch,
+            "tiles": st["search_tiles"], "groups": per_group,
+            "cycle_ms": cycle_ms, "results_equal_direct_search": True,
+            "direct_search_equal_plain": True, "max_abs_err": plain_err}
+
+
+def phase_serve_coalesce(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The raw checkpoint loaded for the engine; the coalescing check."""
+    from repro_torch.obs import Telemetry
+    zero_counts()                       # the serve phases' launches
+    tel = Telemetry(enabled=True)
+    t0 = time.perf_counter()
+    index = load_served(torch, main["ckpt"], tel)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    launches = Launches(serve_counts)
+    main["serve"] = {"index": index, "tel": tel, "launches": launches}
+    line = coalesce_check(torch, index, main["queries"],
+                          main["wl"]["attrs_h"], "raw", launches)
+    line["load_ms"] = load_ms
+    return [line], []
+
+
+def phase_serve_prefix(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """A writer streams PREFIX_BATCHES batches — each an add of
+    PREFIX_ROWS new planted ids and a remove of PREFIX_ROWS old ids —
+    while a reader searches planted vectors: a result stamped epoch ``e``
+    finds its planted id at rank 0 exactly when the id's add is within
+    the first ``e`` mutations, and never returns an id added later or one
+    removed within them."""
+    import threading
+    s = main["serve"]
+    index, launches = s["index"], s["launches"]
+    wl = main["wl"]
+    rng = np.random.default_rng(wl["seed"] + 23)
+    n_new = PREFIX_BATCHES * PREFIX_ROWS
+    base = host(wl["base"][torch.from_numpy(
+        rng.choice(N_BASE, n_new)).cuda()])
+    planted = base + rng.normal(scale=0.5, size=base.shape).astype(
+        np.float32)
+    new_ids = np.arange(N_BASE, N_BASE + n_new, dtype=np.int32)
+    new_attrs = np.stack([rng.integers(0, N_TENANTS, n_new),
+                          rng.integers(0, N_TS, n_new)], 1).astype(np.int32)
+    live0 = host(torch.nonzero(index.state.att_slab >= 0).reshape(-1))
+    old_ids = rng.choice(live0, n_new, replace=False).astype(np.int32)
+    n_live0 = index.n_live
+    # the epoch each id enters / leaves at: add b -> 2b + 1, remove b -> 2b + 2
+    e0 = index.epoch
+    add_epoch = np.zeros(index.cfg.n_max, np.int64)    # live from the start
+    rm_epoch = np.full(index.cfg.n_max, np.iinfo(np.int32).max, np.int64)
+    for b in range(PREFIX_BATCHES):
+        sl = slice(b * PREFIX_ROWS, (b + 1) * PREFIX_ROWS)
+        add_epoch[new_ids[sl]] = e0 + 2 * b + 1
+        rm_epoch[old_ids[sl]] = e0 + 2 * b + 2
+    eng = serve_engine(index)
+    reads, stop = [], threading.Event()
+    writer, reader = eng.session("ingest"), eng.session("app")
+
+    def search_planted():
+        r = np.random.default_rng(wl["seed"] + 29)
+        while not stop.is_set():
+            i = int(r.integers(n_new))
+            reads.append((i, reader.search(planted[i:i + 1])))
+            time.sleep(0.0002)
+
+    t0 = time.perf_counter()
+    try:
+        with launches.of():
+            th = threading.Thread(target=search_planted)
+            th.start()
+            muts = []
+            for b in range(PREFIX_BATCHES):
+                sl = slice(b * PREFIX_ROWS, (b + 1) * PREFIX_ROWS)
+                muts.append(writer.add(planted[sl], new_ids[sl],
+                                       attrs=new_attrs[sl]))
+                muts.append(writer.remove(old_ids[sl]))
+                time.sleep(0.02)
+            stop.set()
+            th.join()
+            reps = [f.result(120) for f in muts]
+            results = [(i, f.result(120)) for i, f in reads]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        st = eng.stats()
+    finally:
+        eng.close()
+    check([r.epoch for r in reps] == list(range(e0 + 1, e0 + 2 * PREFIX_BATCHES
+                                                + 1)),
+          "serve.prefix: the batches did not resolve at consecutive epochs")
+    check(all(r.ok and r.report.accepted == PREFIX_ROWS for r in reps),
+          "serve.prefix: a batch was not applied whole")
+    check(index.n_live == n_live0,
+          f"serve.prefix: n_live {index.n_live} != {n_live0}")
+    found = absent = 0
+    epochs = set()
+    for i, r in results:
+        e = r.epoch
+        epochs.add(e)
+        present = int(r.labels[0, 0]) == int(new_ids[i])
+        check(present == (add_epoch[new_ids[i]] <= e),
+              f"serve.prefix: planted id {new_ids[i]} present={present} "
+              f"at epoch {e}")
+        found += present
+        absent += not present
+        lab = r.labels[0][r.labels[0] >= 0].astype(np.int64)
+        check(bool((add_epoch[lab] <= e).all()
+                   and (rm_epoch[lab] > e).all()),
+              f"serve.prefix: epoch {e} returned an id outside its prefix")
+    check(found > 0 and absent > 0, "serve.prefix: the oracle saw one side")
+    return [{"phase": "serve.prefix", "batches": PREFIX_BATCHES,
+             "rows_each_way": PREFIX_ROWS,
+             "mutation_epochs": [e0 + 1, e0 + 2 * PREFIX_BATCHES],
+             "searches": len(results), "found": found, "absent": absent,
+             "distinct_epochs_read": len(epochs), "n_live": index.n_live,
+             "wall_ms": wall_ms, "flushes": st["flushes"],
+             "tiles": st["search_tiles"], "oracle_held": True}], []
+
+
+def idle_share(torch, seconds: float) -> dict:
+    """The device's busy and idle shares over ``seconds`` of whatever the
+    process runs meanwhile (``torch.profiler``: the union of the device's
+    kernel and copy intervals over the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"device_events": len(spans),
+            "busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
+            "idle_share": (1 - busy / wall_us) if spans else None}
+
+
+def open_loop(eng, rate: float, seconds: float, qh, ingest=None) -> dict:
+    """Single-query searches at ``rate`` a second for ``seconds``, each
+    submitted at its scheduled time whatever the earlier ones' fate (open
+    loop), and, with ``ingest``, paced add and remove batches beside them.
+    Latency runs from the scheduled arrival to the results on the host:
+    (submit - schedule) + queue_s + service_s. The achieved rates count
+    what resolved over the time from the first scheduled arrival to the
+    last result's (a search's, or a mutation's acknowledgement), so a
+    generator or an engine that falls behind shows below the offered
+    rate."""
+    import threading
+
+    from repro_torch.serve.quota import Backpressure
+    sess = eng.session("app")
+    subs, rejected = [], [0]
+    n = int(rate * seconds)
+    t_start = time.perf_counter() + 0.005
+
+    def searches():
+        for i in range(n):
+            ts = t_start + i / rate
+            wait = ts - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            tc = time.perf_counter()
+            try:
+                subs.append((ts, tc, sess.search(qh[i % len(qh)])))
+            except Backpressure:
+                rejected[0] += 1
+
+    muts = []
+
+    def mutations():
+        add, remove, every = ingest
+        w = eng.session("ingest")
+        for j in range(int(seconds * LOAD_ROWS_PER_S / LOAD_BATCH)):
+            wait = t_start + j * every - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            vecs, ids, attrs = add(j)
+            muts.append((time.perf_counter(),
+                         w.add(vecs, ids, attrs=attrs)))
+            muts.append((time.perf_counter(), w.remove(remove(j))))
+
+    threads = [threading.Thread(target=searches)]
+    if ingest is not None:
+        threads.append(threading.Thread(target=mutations))
+    st0 = eng.stats()
+    n_sizes = len(eng._coalesce_sizes)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results = [(ts, tc, f.result(120)) for ts, tc, f in subs]
+    reps = [(tc, f.result(120)) for tc, f in muts]
+    st1 = eng.stats()
+    lat = [tc - ts + r.queue_s + r.service_s for ts, tc, r in results]
+    search_end = max((ts + x for (ts, _, _), x in zip(results, lat)),
+                     default=t_start)
+    mut_end = max((tc + r.queue_s for tc, r in reps), default=t_start)
+    from repro_torch.obs import latency_summary_ms, percentiles
+    sizes = eng._coalesce_sizes[n_sizes:]
+    qd = percentiles([r.queue_s for _, _, r in results], (50.0, 99.0))
+    sv = percentiles([r.service_s for _, _, r in results], (50.0, 99.0))
+    late = percentiles([tc - ts for ts, tc, _ in results], (50.0, 99.0))
+    return {"rate": rate, "searches": len(results),
+            "rejected": rejected[0],
+            "offered_qps": rate,
+            "qps": len(results) / (search_end - t_start)
+            if results else 0.0,
+            "last_result_after_s": search_end - t_start,
+            **latency_summary_ms(lat, round_to=6),
+            "queue_ms_p50_p99": [qd[50.0] * 1e3, qd[99.0] * 1e3],
+            "service_ms_p50_p99": [sv[50.0] * 1e3, sv[99.0] * 1e3],
+            "submit_late_ms_p50_p99": [late[50.0] * 1e3, late[99.0] * 1e3],
+            "tiles": len(sizes),
+            "tile_rows_median": float(np.median(sizes)) if sizes else 0.0,
+            "tile_rows_max": max(sizes, default=0),
+            "flushes": st1["flushes"] - st0["flushes"],
+            "mutation_batches": len(reps),
+            "mutation_rows_per_s": sum(r.report.requested for _, r in reps)
+            / (mut_end - t_start) if reps else 0.0,
+            "mutations_ok": all(r.ok for _, r in reps)}
+
+
+def phase_serve_load(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """Open-loop single-query searches at LOAD_RATES, each rate for
+    LOAD_HALF_S idle and LOAD_HALF_S with the ``ingest`` tenant streaming
+    LOAD_BATCH-row add and remove batches at LOAD_ROWS_PER_S rows a
+    second each way (the live set stays put), then one profiled active
+    second; the middle rate once more with the telemetry off. A reading:
+    the reference's bound p99(active) <= 5 x p99(idle) is reported, not
+    enforced."""
+    import threading
+    s = main["serve"]
+    index, tel, launches = s["index"], s["tel"], s["launches"]
+    wl = main["wl"]
+    rng = np.random.default_rng(wl["seed"] + 31)
+    qh = host(main["queries"])
+    n_b = int((LOAD_HALF_S + LOAD_PROFILE_S) * LOAD_ROWS_PER_S / LOAD_BATCH)
+    pool = host(wl["base"][torch.from_numpy(
+        rng.choice(N_BASE, n_b * LOAD_BATCH)).cuda()]) + rng.normal(
+        scale=0.5, size=(n_b * LOAD_BATCH, DIM)).astype(np.float32)
+    pool_attrs = np.stack([rng.integers(0, N_TENANTS, len(pool)),
+                           rng.integers(0, N_TS, len(pool))],
+                          1).astype(np.int32)
+    live = host(torch.nonzero(index.state.att_slab >= 0).reshape(-1))
+    live = rng.permutation(live).astype(np.int32)
+    victims = iter(live[:len(live) // LOAD_BATCH * LOAD_BATCH].reshape(
+        -1, LOAD_BATCH))
+    next_id = [N_BASE + PREFIX_BATCHES * PREFIX_ROWS]
+    lock = threading.Lock()
+
+    def add(j):
+        with lock:
+            ids = np.arange(next_id[0], next_id[0] + LOAD_BATCH,
+                            dtype=np.int32)
+            next_id[0] += LOAD_BATCH
+        sl = slice((j % n_b) * LOAD_BATCH, (j % n_b + 1) * LOAD_BATCH)
+        return pool[sl], ids, pool_attrs[sl]
+
+    def remove(j):
+        with lock:
+            return next(victims)
+
+    ingest = (add, remove, LOAD_BATCH / LOAD_ROWS_PER_S)
+    from repro_torch.serve.quota import TenantQuota
+    wide = TenantQuota(max_inflight_searches=1 << 20)
+    eng = serve_engine(index, quotas={"app": wide}, max_queue=1 << 20)
+    runs = []
+    n_live0 = index.n_live
+    idle_share(torch, 0.01)             # the profiler's first start is slow
+    try:
+        with launches.of():
+            eng.session("app").search(qh[:1]).result(120)   # warm
+            for rate, enabled in [(r, True) for r in LOAD_RATES] + [
+                    (LOAD_RATES[len(LOAD_RATES) // 2], False)]:
+                tel.enabled = enabled
+                idle = open_loop(eng, rate, LOAD_HALF_S, qh)
+                active = open_loop(eng, rate, LOAD_HALF_S, qh, ingest)
+                prof = {}
+                if enabled:
+                    th = threading.Thread(target=lambda: prof.update(
+                        open_loop(eng, rate, LOAD_PROFILE_S, qh, ingest)))
+                    th.start()
+                    time.sleep(0.05)
+                    share = idle_share(torch, LOAD_PROFILE_S - 0.1)
+                    th.join()
+                    prof = {"idle_share": share["idle_share"],
+                            "busy_ms": share["busy_ms"],
+                            "wall_ms": share["wall_ms"],
+                            "device_events": share["device_events"],
+                            "p99_ms": prof["p99_ms"]}
+                runs.append({"rate": rate, "telemetry": enabled,
+                             "idle": idle, "active": active,
+                             "profiled_active_second": prof or None,
+                             "p99_active_le_5x_idle":
+                                 active["p99_ms"] <= 5 * idle["p99_ms"]})
+        st = eng.stats()
+    finally:
+        tel.enabled = True
+        eng.close()
+    check(all(r["active"]["mutations_ok"] for r in runs),
+          "serve.load: a mutation batch failed")
+    check(index.n_live == n_live0,
+          f"serve.load: the live set moved {n_live0} -> {index.n_live}")
+    check(st["prefetch_errors"] == 0, "serve.load: prefetch errors")
+    mid = [r for r in runs if r["rate"] == LOAD_RATES[len(LOAD_RATES) // 2]]
+    overhead = {half: {f"{p}_ms": [m[half][f"{p}_ms"] for m in mid]
+                       for p in ("p50", "p99")} for half in ("idle", "active")}
+    return [{"phase": "serve.load", "rates": list(LOAD_RATES),
+             "half_s": LOAD_HALF_S, "ingest_rows_per_s_each_way":
+             LOAD_ROWS_PER_S, "ingest_batch": LOAD_BATCH,
+             "n_live": index.n_live, "runs": runs,
+             "telemetry_on_off_at_middle_rate": overhead,
+             "rejections": st["rejections"]}], []
+
+
+def copy_overlaps_scan(torch, fn) -> dict:
+    """``fn()`` under ``torch.profiler``: the host-to-device copies, the
+    scan kernels (kernel 1's and 2's), and the device time where a copy
+    and a scan ran at once."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    copies = [(e.time_range.start, e.time_range.end) for e in dev
+              if "HtoD" in e.name or "Memcpy H" in e.name]
+    scans = [(e.time_range.start, e.time_range.end) for e in dev
+             if "scan_kernel" in e.name or "fused_search_kernel" in e.name
+             or "merge_kernel" in e.name]
+    both = sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in copies for c, d in scans)
+    return out, {"copies": len(copies),
+                 "copy_ms": sum(b - a for a, b in copies) / 1e3,
+                 "scan_kernels": len(scans),
+                 "scan_ms": sum(b - a for a, b in scans) / 1e3,
+                 "overlap_ms": both / 1e3, "overlapped": both > 0}
+
+
+def tiered_requests(qh, cycle: int) -> list:
+    """Eight tiles' worth of requests, one tile per (k, filter) group: 16
+    requests of four queries each, a different 64 queries per group."""
+    import sivf_torch
+    preds = [None, sivf_torch.In("tenant", tuple(range(10))), None,
+             sivf_torch.Range("ts", 0, 500), None, sivf_torch.Eq("tenant", 7),
+             None, sivf_torch.In("tenant", tuple(range(10)))]
+    ks = (10, 10, 5, 5, 20, 20, 1, 1)
+    out = []
+    for g, (k, pred) in enumerate(zip(ks, preds)):
+        q0 = (64 * (g + 8 * cycle)) % len(qh)
+        for i in range(16):
+            out.append((qh[q0 + 4 * i:q0 + 4 * (i + 1)], k, pred))
+    return out
+
+
+def phase_serve_tiered(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The raw checkpoint loaded tiered with SERVE_DEVICE_SLABS frames
+    (about 1.5 tiles' slabs) and all-resident, an engine over each; the
+    same paused cycles of eight tiles, an overwrite and a remove through
+    both: every result ``==``, evictions between tiles. In the first
+    cycle each all-resident tile is also held ``==`` the plain version's
+    search of its queries (kernels 1 and 1f at k 1, 5, 10 and 20 under
+    In / Range / Eq)."""
+    from repro_torch.core.filters import compile_filter
+    s = main["serve"]
+    tel, launches = s["tel"], s["launches"]
+    wl = main["wl"]
+    qh = host(main["queries"])
+    tindex = load_served(torch, main["ckpt"], tel,
+                         device_slabs=SERVE_DEVICE_SLABS)
+    findex = load_served(torch, main["ckpt"])
+    rt = tindex._tiered
+    engines = (serve_engine(findex), serve_engine(tindex))
+    rng = np.random.default_rng(wl["seed"] + 37)
+    live = host(torch.nonzero(findex.state.att_slab >= 0).reshape(-1))
+    pick = rng.choice(live, 2 * 4096, replace=False).astype(np.int32)
+    ow_ids, rm_ids = pick[:4096], pick[4096:]
+    ow_vecs = host(wl["cur"][torch.from_numpy(ow_ids).cuda().long()]) + 0.02
+    ow_attrs = wl["attrs_h"][ow_ids]
+    cycles, plain = [], {"tiles": 0, "max_abs_err": 0.0}
+    try:
+        for c in range(SERVE_TILED_CYCLES):
+            reqs = tiered_requests(qh, c)
+            got = []
+            for eng in engines:
+                tiered = eng.index is tindex
+                ev0, up0, b0 = (rt.evictions.total, rt.h2d_copies,
+                                rt.h2d_bytes)
+                eng.pause()
+                futs = [eng.session("app").search(q, k=k, filter=pred)
+                        for q, k, pred in reqs]
+                muts = []
+                if c == 1:              # an overwrite and a remove
+                    w = eng.session("ingest")
+                    muts = [w.add(ow_vecs, ow_ids, attrs=ow_attrs),
+                            w.remove(rm_ids)]
+
+                def run():
+                    eng.resume()
+                    return ([f.result(120) for f in futs],
+                            [f.result(120) for f in muts])
+
+                t0 = time.perf_counter()
+                if tiered:
+                    with launches.of():
+                        if c == 2:
+                            (res, reps), overlap = copy_overlaps_scan(
+                                torch, run)
+                        else:
+                            res, reps = run()
+                    cyc = {"cycle": c,
+                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "evictions": rt.evictions.total - ev0,
+                           "uploads": rt.h2d_copies - up0,
+                           "upload_bytes": rt.h2d_bytes - b0}
+                    if c == 2:
+                        cyc["copy_vs_scan"] = overlap
+                else:
+                    res, reps = run()
+                    cyc_full_ms = (time.perf_counter() - t0) * 1e3
+                got.append((res, reps))
+            (fres, freps), (tres, treps) = got
+            for a, b in zip(fres, tres):
+                check(np.array_equal(a.labels, b.labels)
+                      and np.array_equal(a.distances.view(np.int32),
+                                         b.distances.view(np.int32))
+                      and (a.epoch, a.coalesced, a.padded_to)
+                      == (b.epoch, b.coalesced, b.padded_to),
+                      f"serve.tiered cycle {c}: results differ")
+            for a, b in zip(freps, treps):
+                check(a.ok and b.ok and dataclasses.astuple(a.report)
+                      == dataclasses.astuple(b.report),
+                      f"serve.tiered cycle {c}: mutation reports differ")
+            if c == 0:                  # each tile against the plain version
+                for g in range(0, len(reqs), 16):
+                    _, k, pred = reqs[g]
+                    cf = None if pred is None else compile_filter(pred, ATTRS)
+                    tile = fres[g:g + 16]
+                    dp, lp = plain_search(torch, findex, np.concatenate(
+                        [q for q, _, _ in reqs[g:g + 16]]), k, cf)
+                    plain["max_abs_err"] = max(plain["max_abs_err"],
+                                               check_equal(
+                        f"serve.tiered tile k={k} filter={pred}: the "
+                        f"served results vs the plain version",
+                        torch.from_numpy(np.concatenate(
+                            [r.distances for r in tile])),
+                        torch.from_numpy(np.concatenate(
+                            [r.labels for r in tile])), dp, lp))
+                    plain["tiles"] += 1
+            check(cyc["evictions"] > 0,
+                  f"serve.tiered cycle {c}: no eviction between tiles")
+            cyc["all_resident_ms"] = cyc_full_ms
+            cycles.append(cyc)
+        st = engines[1].stats()
+    finally:
+        for eng in engines:
+            eng.close()
+    check(st["prefetch_errors"] == 0,
+          f"serve.tiered: {st['prefetch_errors']} swallowed prefetch errors")
+    s["tindex"] = tindex
+    del findex
+    return [{"phase": "serve.tiered", "device_slabs": SERVE_DEVICE_SLABS,
+             "tiles_per_cycle": 8, "rows_per_tile": 64, "nprobe": NPROBE,
+             "cycles": cycles, "results_equal_all_resident": True,
+             "cycle0_tiles_equal_plain": plain["tiles"],
+             "max_abs_err": plain["max_abs_err"],
+             "prefetch_errors": st["prefetch_errors"],
+             "cache": {k: tindex.stats()[k] for k in (
+                 "cache_hits", "cache_misses", "cache_uploads",
+                 "cache_evictions", "hit_rate")}}], []
+
+
+def phase_serve_telemetry(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The serve phases' registry: stage percentiles, the Prometheus text
+    held against the snapshot series by series, the cache-event counters
+    against the tiered index's stats(); then the serve launches of kernel
+    1 by route."""
+    from repro_torch.obs import parse_prometheus
+    s = main.pop("serve")
+    tel, tindex = s["tel"], s["tindex"]
+    snap = tel.snapshot()
+    text = tel.render_prometheus()
+    series = parse_prometheus(text)
+    stages = {x["labels"]["stage"]: x for x in
+              snap["metrics"]["sivf_stage_seconds"]["series"]}
+    missing = [n for n in SERVE_STAGES if n not in stages]
+    check(not missing, f"serve.telemetry: no spans of {missing}")
+    n_series = 0
+    for name, fam in snap["metrics"].items():
+        for x in fam["series"]:
+            lab = ",".join(f'{k}="{v}"' for k, v in x["labels"].items())
+            lab = "{" + lab + "}" if lab else ""
+            if fam["kind"] == "histogram":
+                want = {f"{name}_count{lab}": x["count"],
+                        f"{name}_sum{lab}": x["sum"]}
+            elif fam["kind"] == "counter":
+                want = {f"{name}{lab}": x["total"],
+                        f"{name}_window{lab}": x["window"]}
+            else:
+                want = {f"{name}{lab}": x["value"]}
+            for key, v in want.items():
+                check(key in series and series[key] == v,
+                      f"serve.telemetry: {key} {series.get(key)} != {v}")
+                n_series += 1
+    ev = {x["labels"]["event"]: x["total"] for x in
+          snap["metrics"]["sivf_tiered_cache_events_total"]["series"]}
+    st = tindex.stats()
+    for event, key in (("hit", "cache_hits"), ("miss", "cache_misses"),
+                       ("upload", "cache_uploads"),
+                       ("eviction", "cache_evictions")):
+        check(ev.get(event) == st[key],
+              f"serve.telemetry: {event} counter {ev.get(event)} != "
+              f"stats {st[key]}")
+    n = s["launches"].n
+    n1, n1f = n["sivf_fused_search"], n["sivf_fused_search[filtered]"]
+    check(n1 > 0 and n1f > 0 and n["sivf_fused_search.grouped"] == n1 + n1f
+          and n["sivf_fused_search.per_query"] == 0
+          and n["sivf_pq_fused_search"] + n["sivf_pq_fused_search[filtered]"]
+          == 0, f"serve launches by route {n}: kernel 1 takes grouped")
+    SERVE_LAUNCHES["sivf_fused_search"] = {"grouped": n1, "per_query": 0}
+    SERVE_LAUNCHES["sivf_fused_search[filtered]"] = {"grouped": n1f,
+                                                     "per_query": 0}
+    ms = {name: {"count": stages[name]["count"],
+                 "p50_ms_est": stages[name]["p50_est"] * 1e3,
+                 "p99_ms_est": stages[name]["p99_est"] * 1e3,
+                 "mean_ms": stages[name]["sum"] / stages[name]["count"] * 1e3}
+          for name in SERVE_STAGES}
+    return [{"phase": "serve.telemetry", "stages": ms,
+             "prometheus_series_equal_snapshot": n_series,
+             "cache_events": ev, "cache_events_equal_stats": True,
+             "slow_queries": len(snap["slow_queries"]),
+             "serve_launches": n, "counts_since_zero": read_counts()}], []
+
+
+def phase_pq_serve(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The PQ checkpoint loaded for the engine: a short coalescing burst
+    whose tiles take kernel 2 (unfiltered and filtered) on ``compacted``."""
+    zero_counts()
+    index = load_served(torch, main["ckpt"])
+    launches = Launches(serve_counts)
+    line = coalesce_check(torch, index, main["queries"],
+                          main["wl"]["attrs_h"], "pq", launches)
+    n = launches.n
+    n2, n2f = n["sivf_pq_fused_search"], n["sivf_pq_fused_search[filtered]"]
+    check(n2 > 0 and n2f > 0 and n["sivf_pq_fused_search.compacted"]
+          == n2 + n2f and n["sivf_pq_fused_search.per_query"] == 0
+          and n["sivf_fused_search"] + n["sivf_fused_search[filtered]"] == 0,
+          f"pq serve launches by route {n}: kernel 2 takes compacted")
+    SERVE_LAUNCHES["sivf_pq_fused_search"] = {"compacted": n2,
+                                              "per_query": 0}
+    SERVE_LAUNCHES["sivf_pq_fused_search[filtered]"] = {"compacted": n2f,
+                                                        "per_query": 0}
+    line["launches"] = n
+    return [line], []
 
 
 RECLAIM_PLANES = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
@@ -3568,10 +4293,16 @@ def main(argv=None) -> int:
         paths = (("main_path", phase_main,
                   (("unfused", phase_unfused), ("full_size", phase_full_size),
                    ("persist", phase_persist), ("tiered", phase_tiered),
-                   ("maintain", phase_maintain))),
+                   ("maintain", phase_maintain),
+                   ("serve.coalesce", phase_serve_coalesce),
+                   ("serve.prefix", phase_serve_prefix),
+                   ("serve.load", phase_serve_load),
+                   ("serve.tiered", phase_serve_tiered),
+                   ("serve.telemetry", phase_serve_telemetry))),
                  ("pq_main_path", phase_pq_main,
                   (("pq_full_size", phase_pq_full_size),
-                   ("pq_lifecycle", phase_pq_lifecycle))))
+                   ("pq_lifecycle", phase_pq_lifecycle),
+                   ("pq.serve.coalesce", phase_pq_serve))))
         for name, drive_fn, then in paths:
             out = {"queries": wl["queries"], "wl": wl}
             lines = run(name, lambda: drive_fn(torch, wl, out))
@@ -3583,6 +4314,8 @@ def main(argv=None) -> int:
                     for ln in got[0]:
                         emit(ln)
                     rows.update({r["name"]: r for r in got[1]})
+            if "ckpt" in out:           # the path's checkpoint under build/
+                shutil.rmtree(out["ckpt"], ignore_errors=True)
             out.clear()                 # free the path's index
             torch.cuda.empty_cache()
     got = run("lm", lambda: phase_lm(torch, args.seed, hbm))
@@ -3596,6 +4329,9 @@ def main(argv=None) -> int:
             for ln in got[0]:
                 emit(ln)
             rows.update({r["name"]: r for r in got[1]})
+    for name, by_route in SERVE_LAUNCHES.items():
+        if name in rows:
+            rows[name]["serve_launches"] = by_route
     if rows:
         emit({"kernels": [rows[n] for n in KERNEL_ORDER if n in rows]})
     print(smi(), flush=True)

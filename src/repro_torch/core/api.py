@@ -35,11 +35,18 @@ coming batch, and results are ``==`` the all-resident pool's.
 checkpoint format 3 (``checkpoint/manager.py``), and :meth:`Index.maintain`
 runs split / merge / recluster ops (``core/maintenance.py``).
 
+Every handle records into a ``repro_torch.obs.Telemetry`` (the process
+default, disabled until ``sivf_torch.telemetry.enable()``, unless given
+``telemetry=``): the ``mutation.dispatch``, ``mutation.flush``,
+``maintenance.op`` and ``index.search`` spans, mutation and maintenance
+row counters, and the launch signatures :meth:`Index.compile_stats`
+counts.
+
 What the reference's handle does and this port does not yet: mesh
-backends, resharding and telemetry raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them. The reference's ``impl`` /
-``block_q`` (TPU kernel and tiling choices) have no counterpart: the
-tensor's device picks the scan path.
+backends and resharding raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them. The reference's ``impl`` / ``block_q``
+(TPU kernel and tiling choices) have no counterpart: the tensor's device
+picks the scan path.
 """
 from __future__ import annotations
 
@@ -362,6 +369,8 @@ class Index:
     pq_codebooks: pre-trained ``[m, ksub, dim//m]`` PQ codebooks (only with
                 ``cfg.pq``), for instance the reference's, carried across;
                 otherwise call :meth:`train` before the first ``add``.
+    telemetry:  a ``repro_torch.obs.Telemetry`` to record spans and
+                counters into; the process default when omitted.
 
     Mutations update the state's planes in place (the reference donated
     them to ``jit``); :attr:`state` always names the current planes. With
@@ -376,7 +385,7 @@ class Index:
     def __init__(self, cfg: SIVFConfig, centroids, backend="single", *,
                  device="cuda", use_tables: bool | None = None,
                  strict: bool = False, min_bucket: int = 64,
-                 deferred: bool = False, pq_codebooks=None,
+                 deferred: bool = False, pq_codebooks=None, telemetry=None,
                  _state=None, _pq_trained: bool | None = None):
         if not (isinstance(backend, str) and backend == "single"):
             raise _not_ported(f"backend={backend!r}", ROADMAP_DIST)
@@ -385,6 +394,10 @@ class Index:
         if pq_codebooks is not None and cfg.pq is None:
             raise ValueError("pq_codebooks given but cfg.pq is None")
         self.device = resolve_device(device)
+        if telemetry is None:
+            from repro_torch import obs
+            telemetry = obs.default()
+        self._telemetry = telemetry
         self.cfg = cfg
         self.strict = bool(strict)
         self.min_bucket = int(min_bucket)
@@ -409,11 +422,35 @@ class Index:
             _state = init_state(cfg, centroids, pq_codebooks,
                                 device=self.device)
         self._state = _state
-        self._tiered = trt.TieredRuntime(cfg, self.device, use_tables, store) \
+        self._tiered = trt.TieredRuntime(
+            cfg, self.device, use_tables, store, telemetry=telemetry) \
             if cfg.tiered else None
         if _pq_trained is None:
             _pq_trained = cfg.pq is None or pq_codebooks is not None
         self._pq_trained = bool(_pq_trained)
+        # launch signatures per op: the keys the reference's jit caches
+        # would hold (see compile_stats); _note_compiles() turns their
+        # growth into counter events
+        self._sigs: dict[str, set] = {"add": set(), "remove": set(),
+                                      "search": set()}
+        t = telemetry
+        self._m_compiles = t.counter(
+            "sivf_jit_compile_events_total",
+            "new launch signatures (the reference's jit executables) "
+            "dispatched since handle construction")
+        self._m_executables = t.gauge(
+            "sivf_jit_executables",
+            "distinct launch signatures this handle has dispatched")
+        self._m_mutations = t.counter(
+            "sivf_index_mutation_rows_total",
+            "mutation rows dispatched through this handle", ("op",))
+        self._m_maint = t.counter(
+            "sivf_maintenance_ops_total",
+            "maintenance ops dispatched", ("kind", "outcome"))
+        self._m_maint_rows = t.counter(
+            "sivf_maintenance_rows_total",
+            "live rows moved by committed maintenance ops")
+        self._compiles_seen = 0
 
     # -- introspection ------------------------------------------------------
 
@@ -458,6 +495,7 @@ class Index:
         s = ix.stats(self.cfg, self._state)
         s["backend"] = "single"
         s["n_shards"] = 1
+        s["compiles"] = self.compile_stats()
         if self._tiered is not None:
             s.update(self._tiered.stats())
         else:
@@ -467,6 +505,51 @@ class Index:
             s["hit_rate"] = 1.0
             s["hit_rate_kind"] = "cumulative"
         return s
+
+    def compile_stats(self) -> dict:
+        """Distinct launch signatures this handle has dispatched, per op.
+
+        The port compiles no per-shape executable (its kernels build once
+        a process), so this counts what the reference's jit caches would
+        hold: ``add`` / ``remove`` by padded bucket, ``search`` by
+        (padded bucket, k, nprobe, filter structure), and on a tiered
+        handle ``tiered_plan`` by (bucket, nprobe) and ``tiered_scan`` by
+        (bucket, table width, k, filter structure), its searches leaving
+        ``search`` at 0 as the reference's do. The counts come from the
+        shapes actually launched. Unlike the reference's, they are per
+        handle: two handles of an equal config do not share them.
+        """
+        out = {op: len(sigs) for op, sigs in self._sigs.items()}
+        if self._tiered is not None:
+            out.update(self._tiered.compile_stats())
+        return out
+
+    def _total_compiles(self) -> int:
+        return sum(self.compile_stats().values())
+
+    def _note_compiles(self) -> None:
+        """Fold launch-signature growth into the telemetry registry
+        (``sivf_jit_compile_events_total`` counts *new* signatures since
+        construction)."""
+        if not self._telemetry.enabled:
+            return
+        now = self._total_compiles()
+        if now > self._compiles_seen:
+            self._m_compiles.inc(now - self._compiles_seen)
+        self._compiles_seen = max(self._compiles_seen, now)
+        self._m_executables.set(now)
+
+    def compile_events(self) -> int:
+        """New launch signatures since this handle was built (the value
+        ``sivf_jit_compile_events_total`` accumulates)."""
+        return max(self._total_compiles(), self._compiles_seen)
+
+    def telemetry(self) -> dict:
+        """JSON-able snapshot of this handle's telemetry (metrics +
+        slow-query log). The handle records into the process default
+        unless constructed with an explicit ``telemetry=``."""
+        self._note_compiles()
+        return self._telemetry.snapshot()
 
     # -- batch bucketing ----------------------------------------------------
 
@@ -608,20 +691,27 @@ class Index:
             raise ValueError(
                 "attrs= given but SIVFConfig(attributes=...) is empty")
         bucket = self._bucket(ids_a.shape[0])
-        pv = self._pad_rows(vecs, bucket)
-        pa = self._pad_attrs(attrs, bucket) if self.cfg.n_attrs else None
-        if self._tiered is None:
-            self._state, aux = self._ops.insert(
-                self._state, pv, self._pad_ids(ids_a, bucket), pa)
-        else:
-            self._state, aux, plan = self._ops.insert(
-                self._state, pv, self._pad_ids(ids_a, bucket), pa,
-                want_plan=True)
-            # the commit plan waits for the host-store replay, with
-            # snapshots of the rows (the caller may reuse its buffers)
-            self._tiered.queue_plan(
-                plan, pv.clone() if pv is vecs else pv,
-                None if pa is None else (pa.clone() if pa is attrs else pa))
+        self._sigs["add"].add(bucket)
+        with self._telemetry.span("mutation.dispatch", root="auto",
+                                  op="add", epoch=self._epoch + 1):
+            pv = self._pad_rows(vecs, bucket)
+            pa = self._pad_attrs(attrs, bucket) if self.cfg.n_attrs \
+                else None
+            if self._tiered is None:
+                self._state, aux = self._ops.insert(
+                    self._state, pv, self._pad_ids(ids_a, bucket), pa)
+            else:
+                self._state, aux, plan = self._ops.insert(
+                    self._state, pv, self._pad_ids(ids_a, bucket), pa,
+                    want_plan=True)
+                # the commit plan waits for the host-store replay, with
+                # snapshots of the rows (the caller may reuse its buffers)
+                self._tiered.queue_plan(
+                    plan, pv.clone() if pv is vecs else pv,
+                    None if pa is None
+                    else (pa.clone() if pa is attrs else pa))
+        if self._telemetry.enabled:
+            self._m_mutations.inc(int(ids_a.shape[0]), op="add")
         return self._emit("add", aux, bucket, strict)
 
     def remove(self, ids, *, strict: bool | None = None
@@ -629,8 +719,13 @@ class Index:
         """Evict a batch of ids; absent ids count as ``rejected``."""
         ids_a = self._as_batch(ids, np.int32, flat=True)
         bucket = self._bucket(ids_a.shape[0])
-        self._state, aux = self._ops.delete(self._state,
-                                            self._pad_ids(ids_a, bucket))
+        self._sigs["remove"].add(bucket)
+        with self._telemetry.span("mutation.dispatch", root="auto",
+                                  op="remove", epoch=self._epoch + 1):
+            self._state, aux = self._ops.delete(
+                self._state, self._pad_ids(ids_a, bucket))
+        if self._telemetry.enabled:
+            self._m_mutations.inc(int(ids_a.shape[0]), op="remove")
         return self._emit("remove", aux, bucket, strict)
 
     def _emit(self, op: str, aux: dict, bucket: int, strict: bool | None):
@@ -674,28 +769,32 @@ class Index:
         after the entire queue has resolved. ``[]`` when nothing is pending.
         """
         pending, self._pending = self._pending, []
-        if self._tiered is not None:   # the host store catches up where
-            self._tiered.drain_plans()  # the reports resolve
-        reports: list[MutationReport] = []
-        first_err: MutationRejected | None = None
-        k = 0
-        try:
-            host_auxes = _resolve_aux([a for _, _, a, _, _ in pending])
-            for k, (fut, op, _, bucket, strict) in enumerate(pending):
-                strict = self.strict if strict is None else strict
-                try:
-                    rep = self._finalize(op, host_auxes[k], bucket, strict)
-                except MutationRejected as e:
-                    rep = e.report
-                    if first_err is None:
-                        first_err = e
-                fut._resolved = rep
-                reports.append(rep)
-        except BaseException:
-            # device failure or interrupt mid-queue: re-queue the
-            # unresolved tail so no future is orphaned
-            self._pending = pending[k:] + self._pending
-            raise
+        with self._telemetry.span("mutation.flush", root="auto",
+                                  batches=len(pending), epoch=self._epoch):
+            if self._tiered is not None:  # the host store catches up
+                self._tiered.drain_plans()  # where the reports resolve
+            reports: list[MutationReport] = []
+            first_err: MutationRejected | None = None
+            k = 0
+            try:
+                host_auxes = _resolve_aux([a for _, _, a, _, _ in pending])
+                for k, (fut, op, _, bucket, strict) in enumerate(pending):
+                    strict = self.strict if strict is None else strict
+                    try:
+                        rep = self._finalize(op, host_auxes[k], bucket,
+                                             strict)
+                    except MutationRejected as e:
+                        rep = e.report
+                        if first_err is None:
+                            first_err = e
+                    fut._resolved = rep
+                    reports.append(rep)
+            except BaseException:
+                # device failure or interrupt mid-queue: re-queue the
+                # unresolved tail so no future is orphaned
+                self._pending = pending[k:] + self._pending
+                raise
+        self._note_compiles()
         if first_err is not None:
             raise first_err
         return reports
@@ -746,13 +845,20 @@ class Index:
         q = queries.shape[0]
         bucket = self._bucket(q)
         padded = self._pad_rows(queries, bucket)
-        if self._tiered is not None:
-            d, lab = self._tiered.search(
-                self._state, padded, int(k), nprobe, fstruct, fconsts,
-                epoch=self._epoch, ticket=_prefetched)
-        else:
-            d, lab = self._ops.search(self._state, padded, int(k), nprobe,
-                                      fstruct, fconsts)
+        tel = self._telemetry
+        # the filter is formatted only for a span that records
+        with tel.span("index.search", root="auto", epoch=self._epoch,
+                      filter=None if fstruct is None or not tel.enabled
+                      else str(fstruct)):
+            if self._tiered is not None:
+                d, lab = self._tiered.search(
+                    self._state, padded, int(k), nprobe, fstruct, fconsts,
+                    epoch=self._epoch, ticket=_prefetched)
+            else:
+                self._sigs["search"].add((bucket, int(k), nprobe, fstruct))
+                d, lab = self._ops.search(self._state, padded, int(k),
+                                          nprobe, fstruct, fconsts)
+        self._note_compiles()
         return SearchResult(distances=d[:q], labels=lab[:q], k=int(k),
                             nprobe=nprobe, padded_to=bucket)
 
@@ -795,9 +901,9 @@ class Index:
         Returns the per-op ``MaintenanceReport`` list. In strict mode an
         aborted op raises :class:`MaintenanceAborted` after every op has
         resolved. Each op's host milliseconds (``gather``, ``plan``,
-        ``commit``) are left in :attr:`last_maintain_ms`. The reference's
-        telemetry spans and counters are not ported (ROADMAP.md queue 1
-        item 11).
+        ``commit``) are left in :attr:`last_maintain_ms`; each op is a
+        ``maintenance.op`` span, and ``sivf_maintenance_ops_total`` /
+        ``sivf_maintenance_rows_total`` count the ops and moved rows.
         """
         from repro_torch.core import maintenance as mt
         self._require_trained()
@@ -814,42 +920,53 @@ class Index:
         self.last_maintain_ms = []
         first_abort = None
         for op in ops:
-            t0 = time.perf_counter()
-            views = mt.shard_views(self.cfg, self._state, stores)
-            gathered = mt.gather_live(self.cfg, self._state, views, op.lists)
-            t1 = time.perf_counter()
-            plan = mt.plan_op(self.cfg, op, gathered,
-                              self._state.centroids.cpu().numpy())
-            t2 = time.perf_counter()
-            times = {"gather": (t1 - t0) * 1e3, "plan": (t2 - t1) * 1e3,
-                     "commit": 0.0}
-            self.last_maintain_ms.append(times)
-            if plan is None:                # nothing to move: host no-op
-                reports.append(mt.MaintenanceReport(
-                    op.kind, op.lists, len(gathered["ids"]), True, 0,
-                    self.n_live))
-                continue
-            new_cents, lists = plan
-            batch = mt.pad_batch(self.cfg, gathered, lists,
-                                 mt.maint_batch_size(self.cfg))
-            out = mt._commit_op(self.cfg, self._state, new_cents, batch,
-                                want_plan)
-            self._state, aux = out[0], mt.read_aux(out[1])
-            committed = bool(aux["committed"])
-            if want_plan and committed:
-                self._tiered.queue_plan(
-                    out[2], batch["vecs"],
-                    batch["attrs"] if self.cfg.n_attrs else None)
-                self._tiered.drain_plans()
-            times["commit"] = (time.perf_counter() - t2) * 1e3
-            rep = mt.MaintenanceReport(op.kind, op.lists, batch["rows"],
-                                       committed, int(aux["errors"]),
-                                       int(aux["n_live"]))
+            with self._telemetry.span("maintenance.op", root="auto",
+                                      kind=op.kind, lists=list(op.lists),
+                                      epoch=self._epoch + 1):
+                t0 = time.perf_counter()
+                views = mt.shard_views(self.cfg, self._state, stores)
+                gathered = mt.gather_live(self.cfg, self._state, views,
+                                          op.lists)
+                t1 = time.perf_counter()
+                plan = mt.plan_op(self.cfg, op, gathered,
+                                  self._state.centroids.cpu().numpy())
+                t2 = time.perf_counter()
+                times = {"gather": (t1 - t0) * 1e3,
+                         "plan": (t2 - t1) * 1e3, "commit": 0.0}
+                self.last_maintain_ms.append(times)
+                if plan is None:            # nothing to move: host no-op
+                    reports.append(mt.MaintenanceReport(
+                        op.kind, op.lists, len(gathered["ids"]), True, 0,
+                        self.n_live))
+                    continue
+                new_cents, lists = plan
+                batch = mt.pad_batch(self.cfg, gathered, lists,
+                                     mt.maint_batch_size(self.cfg))
+                out = mt._commit_op(self.cfg, self._state, new_cents, batch,
+                                    want_plan)
+                self._state, aux = out[0], mt.read_aux(out[1])
+                committed = bool(aux["committed"])
+                if want_plan and committed:
+                    self._tiered.queue_plan(
+                        out[2], batch["vecs"],
+                        batch["attrs"] if self.cfg.n_attrs else None)
+                    self._tiered.drain_plans()
+                times["commit"] = (time.perf_counter() - t2) * 1e3
+                rep = mt.MaintenanceReport(op.kind, op.lists, batch["rows"],
+                                           committed, int(aux["errors"]),
+                                           int(aux["n_live"]))
             if committed:
                 self._epoch += 1            # a new committed prefix entry
+                if self._telemetry.enabled:
+                    self._m_maint_rows.inc(rep.rows)
             elif first_abort is None:
                 first_abort = rep
+            if self._telemetry.enabled:
+                self._m_maint.inc(1, kind=op.kind,
+                                  outcome="committed" if committed
+                                  else "aborted")
             reports.append(rep)
+        self._note_compiles()
         if strict and first_abort is not None:
             raise MaintenanceAborted(first_abort)
         return reports

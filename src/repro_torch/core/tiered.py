@@ -45,6 +45,13 @@ prefetch / flush / save / maintain), and each written slab turns dirty
 so a resident frame re-uploads before the next scan reads it. **Deletes**
 touch metadata only and need no host action.
 
+Each stage is a span (``plan``, ``prefetch``, ``scan``) of the handle's
+``repro_torch.obs.Telemetry``; ``sivf_tiered_cache_events_total{event}``
+counts the prefetch's hits, misses, evictions, uploads, dirty refreshes
+and deduped references (the same counts :meth:`TieredRuntime.stats`
+reads), and ``sivf_transfer_bytes_total{direction,stage}`` the bytes of
+its explicit copies.
+
 Residency is runtime-only state: checkpoints store the assembled
 full-pool planes (:func:`assemble_full`), so a tiered save writes the
 same arrays as an untiered one. The mesh backend's per-shard caches are
@@ -241,14 +248,15 @@ class TieredRuntime:
     runtime-only (never checkpointed). ``h2d_copies`` counts the packed
     host-to-device copies (one per prefetch with misses or dirty slabs),
     ``d2h_reads`` the device reads (one per prefetch, one per drain of
-    queued plans).
+    queued plans). ``compile_stats`` counts the plan and scan launch
+    signatures, as ``Index.compile_stats`` does the untiered search's.
     """
 
     _COUNTERS = ("hits", "misses", "refs", "unique_refs", "uploads",
                  "evictions")
 
     def __init__(self, cfg: SIVFConfig, device, use_tables: bool | None = None,
-                 store: HostStore | None = None):
+                 store: HostStore | None = None, telemetry=None):
         if not cfg.tiered:
             raise ValueError("TieredRuntime needs SIVFConfig(device_slabs=)")
         self.cfg = cfg
@@ -273,6 +281,20 @@ class TieredRuntime:
         self.last_upload: dict = {}
         self._staging: torch.Tensor | None = None   # pinned, grown on demand
         self._staged = None      # CUDA event: the staging buffer's last copy
+        self._plan_sigs: set = set()     # (bucket, nprobe)
+        self._scan_sigs: set = set()     # (bucket, table width, k, fstruct)
+        if telemetry is None:
+            from repro_torch import obs
+            telemetry = obs.default()
+        self.tel = telemetry
+        self._m_cache = telemetry.counter(
+            "sivf_tiered_cache_events_total",
+            "tiered-cache events: hit/miss/eviction/upload/dirty_refresh/"
+            "dedup_saved (probed-slab granularity)", ("event",))
+        self._m_bytes = telemetry.counter(
+            "sivf_transfer_bytes_total",
+            "explicit host<->device transfer bytes by direction and stage",
+            ("direction", "stage"))
         c = cfg.capacity
         # a slab's bytes in each payload plane, in staging order: the
         # 4-byte planes first, so that every block starts 4-byte aligned
@@ -349,10 +371,12 @@ class TieredRuntime:
         """Stage 1: probe lists -> pool slab-id table ``[Q, T]``."""
         cfg = self.cfg
         ut = cfg.track_tables if self.use_tables is None else self.use_tables
-        lists = quantizer.probe(state.centroids, queries.to(cfg.dtype),
-                                nprobe, cfg.metric)
-        return (ix.gather_tables if ut else ix.walk_chains)(cfg, state,
-                                                            lists)
+        self._plan_sigs.add((int(queries.shape[0]), nprobe))
+        with self.tel.span("plan"):
+            lists = quantizer.probe(state.centroids, queries.to(cfg.dtype),
+                                    nprobe, cfg.metric)
+            return (ix.gather_tables if ut else ix.walk_chains)(cfg, state,
+                                                                lists)
 
     def prefetch(self, table: torch.Tensor, nprobe: int, epoch: int
                  ) -> PrefetchTicket:
@@ -362,24 +386,36 @@ class TieredRuntime:
         evict and, only when slabs are missing or dirty, one packed
         host-to-device copy. A warm cache copies nothing to the device.
         """
-        self.drain_plans()
-        ns = self.cfg.n_slabs
-        flat = table.reshape(-1)
-        idx = torch.where(flat >= 0, flat, ns).long()
-        counts = torch.zeros((ns + 1,), dtype=torch.int32,
-                             device=table.device)
-        counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-        counts = counts[:ns].cpu().numpy()
-        self.d2h_reads += 1
-        stats = {"refs": 0, "unique": 0, "hits": 0, "misses": 0,
-                 "dirty_refresh": 0, "uploaded": 0, "evicted": 0}
-        frames, slabs = self._prefetch_slabs(counts, stats)
-        stats["dedup_saved"] = stats["refs"] - stats["unique"]
-        self.last_prefetch = stats
-        self.seq += 1
-        if frames:
-            self._upload(np.asarray(frames, np.int32),
-                         np.asarray(slabs, np.int32))
+        with self.tel.span("prefetch"):
+            self.drain_plans()
+            ns = self.cfg.n_slabs
+            flat = table.reshape(-1)
+            idx = torch.where(flat >= 0, flat, ns).long()
+            counts = torch.zeros((ns + 1,), dtype=torch.int32,
+                                 device=table.device)
+            counts.scatter_add_(0, idx,
+                                torch.ones_like(idx, dtype=torch.int32))
+            counts = counts[:ns].cpu().numpy()
+            self.d2h_reads += 1
+            stats = {"refs": 0, "unique": 0, "hits": 0, "misses": 0,
+                     "dirty_refresh": 0, "uploaded": 0, "evicted": 0}
+            frames, slabs = self._prefetch_slabs(counts, stats)
+            stats["dedup_saved"] = stats["refs"] - stats["unique"]
+            self.last_prefetch = stats
+            self.seq += 1
+            if frames:
+                self._upload(np.asarray(frames, np.int32),
+                             np.asarray(slabs, np.int32))
+            if self.tel.enabled:
+                m = self._m_cache
+                m.inc(stats["hits"], event="hit")
+                m.inc(stats["misses"], event="miss")
+                m.inc(stats["evicted"], event="eviction")
+                m.inc(stats["uploaded"], event="upload")
+                m.inc(stats["dirty_refresh"], event="dirty_refresh")
+                m.inc(stats["dedup_saved"], event="dedup_saved")
+                self._m_bytes.inc(counts.nbytes, direction="d2h",
+                                  stage="prefetch")
         return PrefetchTicket(table=table, nprobe=nprobe,
                               padded_q=int(table.shape[0]), seq=self.seq,
                               epoch=epoch)
@@ -458,6 +494,12 @@ class TieredRuntime:
         each plane's block goes into its frames by one ``index_copy_``,
         and the residency map follows. ``last_upload`` keeps the slab and
         byte counts and the host milliseconds of the gather.
+
+        The copy, the frame writes and the map writes share the current
+        stream, so they are ordered after every scan launched before
+        them and no frame a launched scan reads is overwritten. The host
+        gather overlaps such a scan; the copy cannot, as the prefetch's
+        read of the reference counts waits behind that scan first.
         """
         t0 = time.perf_counter()
         u = len(frames)
@@ -482,6 +524,9 @@ class TieredRuntime:
         if self.pin:
             self._staged = torch.cuda.Event()
             self._staged.record()
+        if self.tel.enabled:
+            self._m_bytes.inc(int(buf.numel()), direction="h2d",
+                              stage="prefetch")
         self.h2d_copies += 1
         self.h2d_bytes += int(buf.numel())
         self.last_upload = {"slabs": u, "bytes": int(buf.numel()),
@@ -514,10 +559,14 @@ class TieredRuntime:
              table: torch.Tensor, k: int, fstruct, fconsts
              ) -> tuple[torch.Tensor, torch.Tensor]:
         """Stage 3: frame-translated scan -> top-k through kernels 1/2."""
-        ftable = translate_table(table, self.cache.frame_of)
-        view = cache_view(self.cfg, state, self.cache)
-        return ix._scan_dispatch(self.cfg, view, queries.to(self.cfg.dtype),
-                                 ftable, k, fstruct, fconsts)
+        self._scan_sigs.add((int(queries.shape[0]), int(table.shape[1]), k,
+                             fstruct))
+        with self.tel.span("scan"):
+            ftable = translate_table(table, self.cache.frame_of)
+            view = cache_view(self.cfg, state, self.cache)
+            return ix._scan_dispatch(self.cfg, view,
+                                     queries.to(self.cfg.dtype), ftable, k,
+                                     fstruct, fconsts)
 
     def search(self, state: SlabPoolState, queries: torch.Tensor, k: int,
                nprobe: int, fstruct=None, fconsts=None, epoch: int = 0,
@@ -534,6 +583,11 @@ class TieredRuntime:
         return self.scan(state, queries, ticket.table, k, fstruct, fconsts)
 
     # -- introspection ------------------------------------------------------
+
+    def compile_stats(self) -> dict:
+        """Distinct plan and scan launch signatures dispatched."""
+        return {"tiered_plan": len(self._plan_sigs),
+                "tiered_scan": len(self._scan_sigs)}
 
     def roll_window(self) -> None:
         """Start a new stats window (cumulative totals are untouched)."""

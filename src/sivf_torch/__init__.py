@@ -19,11 +19,20 @@
     index = sivf_torch.Index.load(path, device_slabs=8192)   # tiered
     index.maintain([sivf_torch.split(3, 9), sivf_torch.recluster(5)])
 
-Everything re-exported here lives in ``repro_torch.core``. It is the port
-of the single-backend path of ``sivf`` (raw fp32 or PQ payloads, with or
-without filter attributes, all-resident or tiered, with persistence and
-maintenance); what is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item.
+    index = sivf_torch.Index(cfg, centroids, deferred=True)
+    with sivf_torch.ServeEngine(index, default_nprobe=32) as eng:
+        eng.session("ingest").add(vecs, ids, attrs=attrs)
+        res = eng.session("app").search(qs, k=10).result()
+
+    sivf_torch.telemetry.enable()
+    text = sivf_torch.telemetry.render_prometheus()
+
+Everything re-exported here lives in ``repro_torch.core`` and
+``repro_torch.serve``. It is the port of the single-backend path of
+``sivf`` (raw fp32 or PQ payloads, with or without filter attributes,
+all-resident or tiered, with persistence, maintenance, the streaming serve
+engine and its telemetry); what is not ported yet raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
@@ -57,12 +66,28 @@ from repro_torch.core.state import (  # noqa: F401
     init_state,
     memory_report,
 )
+from repro_torch.serve.quota import (  # noqa: F401
+    Backpressure,
+    BackpressureKind,
+    TenantQuota,
+)
+from repro_torch.serve.session import (  # noqa: F401
+    ClientSession,
+    ServeMaintenanceResult,
+    ServeMutationResult,
+    ServeSearchResult,
+)
+from repro_torch.serve.sivf_engine import ServeEngine  # noqa: F401
+
+from sivf_torch import telemetry  # noqa: F401  (after repro_torch: no cycle)
 
 __all__ = [
-    "And", "CompiledFilter", "Eq", "ErrorCode", "In", "Index",
-    "IndexProtocol", "MaintOp", "MaintenanceAborted", "MaintenanceReport",
+    "And", "Backpressure", "BackpressureKind", "ClientSession",
+    "CompiledFilter", "Eq", "ErrorCode", "In", "Index", "IndexProtocol",
+    "MaintOp", "MaintenanceAborted", "MaintenanceReport",
     "MutationRejected", "MutationReport", "PendingReport", "PQConfig",
-    "Range", "SearchResult", "SIVFConfig", "compile_filter", "init_state",
-    "memory_report", "merge", "recluster", "split", "train_kmeans",
-    "train_pq",
+    "Range", "SearchResult", "ServeEngine", "ServeMaintenanceResult",
+    "ServeMutationResult", "ServeSearchResult", "SIVFConfig", "TenantQuota",
+    "compile_filter", "init_state", "memory_report", "merge", "recluster",
+    "split", "telemetry", "train_kmeans", "train_pq",
 ]

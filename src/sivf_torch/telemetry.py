@@ -1,0 +1,54 @@
+"""sivf_torch.telemetry — public facade over the port's process-default
+Telemetry (counterpart of ``sivf.telemetry``).
+
+Quickstart::
+
+    import sivf_torch.telemetry as telemetry
+
+    telemetry.enable(slow_threshold_s=0.025)
+    ...serve traffic...
+    snap = telemetry.snapshot()          # JSON-able dict
+    text = telemetry.render_prometheus() # text exposition for a scrape
+
+Handles constructed with an explicit ``telemetry=`` record into their
+own instance instead; ``engine.telemetry()`` / ``index.telemetry()``
+snapshot whichever instance the handle uses.
+"""
+from __future__ import annotations
+
+from repro_torch import obs as _obs
+from repro_torch.obs import Telemetry, disable, enable
+
+__all__ = ["Telemetry", "enable", "disable", "get", "snapshot",
+           "snapshot_json", "render_prometheus", "slow_queries",
+           "roll_window"]
+
+
+def get() -> Telemetry:
+    """The process-default :class:`Telemetry` instance."""
+    return _obs.default()
+
+
+def snapshot() -> dict:
+    """JSON-able snapshot (metrics + slow-query log) of the default
+    Telemetry."""
+    return _obs.default().snapshot()
+
+
+def snapshot_json(indent: int | None = None) -> str:
+    return _obs.snapshot_json(_obs.default(), indent=indent)
+
+
+def render_prometheus() -> str:
+    """Prometheus text exposition of the default Telemetry."""
+    return _obs.default().render_prometheus()
+
+
+def slow_queries() -> list[dict]:
+    """Current slow-query log entries, slowest first."""
+    return _obs.default().slow_queries()
+
+
+def roll_window() -> None:
+    """Start a new window for every counter's windowed reads."""
+    return _obs.default().roll_window()

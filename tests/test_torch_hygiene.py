@@ -63,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.wkv6.ops; "
             "import repro_torch.kernels.mamba_scan.ops; "
             "import repro_torch.models.rwkv, repro_torch.models.mamba; "
+            "import repro_torch.obs, repro_torch.serve.sivf_engine; "
+            "import sivf_torch.telemetry; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -160,6 +162,39 @@ def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
         getattr(ops, name)(*(a.to("meta") for a in args))
 
 
+def test_serve_engine_never_falls_back_off_the_cpu(monkeypatch):
+    """A ``ServeEngine`` over an index that does not lie on the CPU (here
+    on the ``meta`` device) sends its tiles to kernel 1's wrapper and
+    never to the plain version: the wrapper's error reaches the request's
+    future."""
+    from repro_torch.kernels.sivf_scan import fused
+    from repro_torch.kernels.sivf_scan import ops as sops
+
+    class Launched(Exception):
+        pass
+
+    def launch(*args, **kwargs):
+        raise Launched("sivf_fused_search")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(fused, "sivf_fused_search_cuda", launch)
+    monkeypatch.setattr(sops, "sivf_fused_search_ref", plain)
+    cfg = sivf_torch.SIVFConfig(dim=16, n_lists=4, n_slabs=64, capacity=32,
+                                n_max=1024)
+    index = sivf_torch.Index(cfg, np.zeros((4, 16), np.float32),
+                             device="meta", deferred=True)
+    with sivf_torch.ServeEngine(index, default_k=5, default_nprobe=2) as eng:
+        fut = eng.session().search(np.zeros((3, 16), np.float32))
+        with pytest.raises(Launched):
+            fut.result(30)
+    monkeypatch.undo()
+    with sivf_torch.ServeEngine(index, default_k=5, default_nprobe=2) as eng:
+        with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
+            eng.session().search(np.zeros((3, 16), np.float32)).result(30)
+
+
 def recurrence_args(name):
     if name == "wkv6":
         return (torch.empty(2, 3, 4, 16), torch.empty(2, 3, 4, 16),
@@ -254,8 +289,9 @@ def test_kernel_build_is_content_addressed():
 
 
 def test_slice_modules_import_nothing_of_the_jax_package():
-    """The PQ, filter and unfused-scan modules are among the files checked
-    above, and each imports nothing of JAX or of the JAX package."""
+    """The PQ, filter, unfused-scan, telemetry and serve-engine modules are
+    among the files checked above, and each imports nothing of JAX or of
+    the JAX package."""
     port = REPO / "src" / "repro_torch"
     new = [port / "core" / "filters.py", port / "core" / "pq.py",
            port / "kernels" / "sivf_scan" / "pq_fused.py",
@@ -263,7 +299,12 @@ def test_slice_modules_import_nothing_of_the_jax_package():
            port / "kernels" / "sivf_scan" / "sivf_scan.py",
            port / "kernels" / "sivf_scan" / "ref.py"] + [
         port / "kernels" / "topk" / f"{name}.py"
-        for name in ("__init__", "ref", "topk", "ops")]
+        for name in ("__init__", "ref", "topk", "ops")] + [
+        port / "obs" / f"{name}.py"
+        for name in ("__init__", "metrics", "trace", "export")] + [
+        port / "serve" / f"{name}.py"
+        for name in ("quota", "session", "sivf_engine")] + [
+        REPO / "src" / "sivf_torch" / "telemetry.py"]
     for path in new:
         assert path in PORT_FILES
         assert not imported_roots(path) & FORBIDDEN, path
