@@ -54,6 +54,31 @@ and the searches ``==``. The PQ path's ``pq_lifecycle`` saves and loads
 its index the same way and runs one tiered batch on kernel 2's
 ``compacted`` route.
 
+On the raw path's index, before its lifecycle, the sharded index runs on
+``sivf_torch.ShardMesh.virtual(4, "cuda")``: four virtual shards on the
+one card, each with the raw path's whole pool (``core/distributed.py``).
+``mesh.main`` replays the path's traffic through
+``Index(backend=mesh)`` and holds its live-row table ``==`` the single
+index's, its searches ``==`` the single path's (distances bit for bit,
+labels but inside groups of equal distances), its unfiltered and 10 %
+filtered searches ``==`` the plain mesh version on the same card planes
+(each shard's plain search, then ``topk_ref``), its recall@10 equal, its
+launches (kernel 1 once a shard a batch, kernel 4 once a batch as the
+cross-shard merge) and the host syncs of an add against the single
+index's. ``mesh.lifecycle`` saves the 4-shard handle, loads it onto 4
+shards (planes ``==``), reshards the live handle 4 -> 2 -> 3 -> 1
+(tables and searches ``==``) with the checkpoint loaded onto 2 and onto
+``"single"`` beside those steps (planes ``==`` the reshard's), runs a
+split and a merge beside the single twin (tables and every shard's
+centroids ``==``) and forces an abort on one shard of a small config
+(every shard reverted, ``shard_errors`` naming it); ``mesh.tiered``
+loads the checkpoint tiered (8,192 frames a shard) and holds Q = 64
+batches, cold then warm, ``==`` the all-resident 4-shard handle;
+``mesh.serve`` coalesces searches over the loaded 4-shard handle (tiles
+``==`` direct searches ``==`` the plain mesh version). The PQ path's ``mesh.pq``
+trains on four virtual shards (codebooks ``==`` the single index's) and
+holds table and searches to the single path's the same way.
+
 Then ``sivf_torch.ServeEngine`` serves the raw checkpoint (one scheduler
 thread in front of a ``deferred=True`` index): ``serve.coalesce`` holds
 every result of searches queued while the engine is paused, then
@@ -107,11 +132,14 @@ Output: one JSON object per line, in this order: the card and toolchain,
 the kernel build, the kernel-vs-plain checks, the workload, the k-means
 repeat, each path's
 phases and full-size kernel checks and timings (the unfused path's after
-the raw path's phases), the raw path's ``raw.persist``,
+the raw path's phases), the mesh's ``mesh.*`` traffic lines, ``mesh.main``,
+``mesh.lifecycle``, ``mesh.tiered`` and ``mesh.serve``, the raw path's
+``raw.persist``,
 ``tiered.search``, ``tiered.churn``, ``tiered.full_probe``,
 ``tiered.launches``, ``maintain``, ``serve.coalesce``, ``serve.prefix``,
 ``serve.load``, ``serve.tiered`` and ``serve.telemetry`` lines, the PQ
-path's ``pq.persist``, ``pq.tiered`` and ``serve.coalesce``, the ``lm``, ``lm.kernels_full_width`` and
+path's ``mesh.pq.*`` lines and ``mesh.pq``, ``pq.persist``, ``pq.tiered`` and
+``serve.coalesce``, the ``lm``, ``lm.kernels_full_width`` and
 ``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
 ``rwkv.wkv6_float64`` before ``rwkv.vs_ref``), the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
@@ -744,6 +772,23 @@ def topk_edge_rows(rng, n):
     return d, rng.integers(0, 1 << 30, (5, n)).astype(np.int32)
 
 
+def merge_rows(rng, q: int, shards: int, k: int):
+    """A mesh search's merge operand ``[q, shards * k]``: each shard's
+    sorted ``[q, k]`` partial, concatenated in shard order, with short
+    partials padded by ``+inf`` / -1, ``-0.0`` and ``+0.0`` on different
+    shards and distances tied across shards."""
+    d = np.sort(rng.choice(np.array([-0.0, 0.0, 0.5, 1.0, 2.0], np.float32),
+                           (q, shards, k)), axis=2)
+    d[:, :, k // 2:] += rng.normal(size=(q, shards, k - k // 2)).astype(
+        np.float32) ** 2
+    d = np.sort(d, axis=2)
+    short = rng.random((q, shards, k)) < 0.25
+    d = np.where(np.cumsum(short, axis=2) > 0, np.inf, d).astype(np.float32)
+    lab = rng.integers(0, 1 << 30, (q, shards, k)).astype(np.int32)
+    lab[np.isinf(d)] = -1
+    return d.reshape(q, shards * k), lab.reshape(q, shards * k)
+
+
 def topk_variants(topk, k: int) -> list[str]:
     """Every route of the top-k kernel that takes this ``k``: ``block``
     always, ``warp`` for ``k <= 32``."""
@@ -755,8 +800,9 @@ def topk_edge_checks(torch, rng) -> tuple[list, float]:
     bits and labels): k=1 and k=L, L=1, L not a multiple of the block
     (256) nor of 4 (rows that start off a 16-byte boundary), the edge rows,
     rows whose k smallest all lie in one thread's slice (columns 0 mod 256:
-    refills on the block route), ties everywhere, and a wide row at the
-    search's k."""
+    refills on the block route), ties everywhere, a wide row at the
+    search's k, and a mesh search's merge operands (``[Q, S*k]`` at S = 3,
+    k = 10: 30 columns; S = 4, k = 1: 4 columns; S = 4, k = 10)."""
     from repro_torch.kernels.topk import topk
     from repro_torch.kernels.topk.ref import topk_ref
     strided = topk_rows(rng, 4, 20000, inf_frac=0.0)
@@ -772,7 +818,10 @@ def topk_edge_checks(torch, rng) -> tuple[list, float]:
             "one_slice/L=20000": (strided, (10, 60, 100)),
             "all_equal/L=3001": (ties, (10, 32, 50, 3001)),
             "edge/L=40": (topk_edge_rows(rng, 40), (1, 10, 32, 40)),
-            "edge/L=700": (topk_edge_rows(rng, 700), (10, 32, 300))}
+            "edge/L=700": (topk_edge_rows(rng, 700), (10, 32, 300)),
+            "mesh_merge/L=30": (merge_rows(rng, 1024, 3, 10), (10,)),
+            "mesh_merge/L=4": (merge_rows(rng, 1024, 4, 1), (1,)),
+            "mesh_merge/L=40": (merge_rows(rng, 1024, 4, 10), (10,))}
     cases, max_err = [], 0.0
     for name, ((d, lab), ks) in sets.items():
         d, lab = torch.from_numpy(d).cuda(), torch.from_numpy(lab).cuda()
@@ -1830,8 +1879,13 @@ def same_result(what: str, a, b) -> None:
 
 def plane_digests(index) -> dict:
     """SHA-256 (16 hex digits) of each plane as a checkpoint stores it."""
+    return state_digests(index.state)
+
+
+def state_digests(st) -> dict:
+    """:func:`plane_digests` of one ``SlabPoolState``."""
     from repro_torch import interop
-    planes = interop.state_to_numpy(index.state)
+    planes = interop.state_to_numpy(st)
     return {name: hashlib.sha256(np.ascontiguousarray(a).reshape(-1).view(
         np.uint8)).hexdigest()[:16] for name, a in planes.items()}
 
@@ -2224,7 +2278,8 @@ def phase_pq_lifecycle(torch, hbm: float, main: dict) -> tuple[list, list]:
 # ---------------------------------------------------------------------------
 
 SERVE_TENANT = "t7"                     # its mandatory filter: tenant == 7
-SERVE_COALESCE = {"raw": (64, 16, 4), "pq": (32, 16, 2)}   # app, t7, Q=16
+SERVE_COALESCE = {"raw": (64, 16, 4), "pq": (32, 16, 2),    # app, t7, Q=16
+                  "mesh": (64, 16, 4)}
 PREFIX_BATCHES, PREFIX_ROWS = 32, 4096
 LOAD_RATES = (1000, 4000, 16000)        # open-loop searches a second
 LOAD_HALF_S = 2.0                       # each rate: idle, then active
@@ -2280,14 +2335,29 @@ def plain_search(torch, index, qs: np.ndarray, k: int, cf=None):
     """``Index.search`` of ``qs`` by its own steps on the card index's
     planes (the bucket's zero rows, the probe, the slab tables, the PQ
     path's ADC table), with the scan taken by kernel 1's or 2's plain
-    version in place of the kernel: (distances, labels) of ``qs``'s rows."""
+    version in place of the kernel: (distances, labels) of ``qs``'s rows.
+    On a mesh each shard is searched so and the partials, in shard order,
+    merged by kernel 4's plain version (``topk_ref``)."""
+    from repro_torch.kernels.topk.ref import topk_ref
+    q = index._pad_rows(qs, index._bucket(len(qs))).to(index.cfg.dtype)
+    if index.backend != "mesh":
+        d, lab = plain_shard_search(torch, index, index.state, q, k, cf)
+    else:
+        parts = [plain_shard_search(torch, index, st, q, k, cf)
+                 for st in index.state.shards]
+        d, lab = topk_ref(torch.cat([p[0] for p in parts], 1),
+                          torch.cat([p[1] for p in parts], 1), k)
+    return d[:len(qs)], lab[:len(qs)]
+
+
+def plain_shard_search(torch, index, st, q, k: int, cf=None):
+    """:func:`plain_search`'s steps on one pool ``st`` (padded ``q``)."""
     from repro_torch.core import index as ix
     from repro_torch.core import pq, quantizer
     from repro_torch.kernels.sivf_scan.ref import (
         sivf_fused_search_ref, sivf_pq_fused_search_ref,
     )
-    cfg, st = index.cfg, index.state
-    q = index._pad_rows(qs, index._bucket(len(qs))).to(cfg.dtype)
+    cfg = index.cfg
     lists = quantizer.probe(st.centroids, q, NPROBE, cfg.metric)
     ut = cfg.track_tables if index._use_tables is None \
         else index._use_tables
@@ -2303,7 +2373,7 @@ def plain_search(torch, index, qs: np.ndarray, k: int, cf=None):
         d, lab = sivf_fused_search_ref(q.to(torch.float32), table, st.data,
                                        st.ids, st.norms, st.bitmap, k,
                                        cfg.metric, **filt)
-    return d[:len(qs)], lab[:len(qs)]
+    return d, lab
 
 
 def coalesce_check(torch, index, queries, attrs_h, path: str,
@@ -2932,6 +3002,423 @@ def phase_pq_serve(torch, hbm: float, main: dict) -> tuple[list, list]:
                                                         "per_query": 0}
     line["launches"] = n
     return [line], []
+
+
+# ---------------------------------------------------------------------------
+# The sharded index (core/distributed.py) on virtual shards of one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4                  # sivf_torch.ShardMesh.virtual(4, "cuda")
+MESH_CHAIN = (2, 3, 1)           # Index.reshard steps after the save
+MESH_LAUNCHES: dict = {}         # kernels 1 / 1f / 2 / 2f / 4: mesh paths
+SYNC_ROWS = 64                   # rows re-added when host syncs are counted
+
+
+def vmesh(n: int):
+    """``n`` virtual shards on the card (``"single"`` for one)."""
+    import sivf_torch
+    return sivf_torch.ShardMesh.virtual(n, "cuda") if n > 1 else "single"
+
+
+def mesh_digests(index) -> list:
+    """:func:`state_digests` of each shard of ``index`` (one entry for a
+    single index)."""
+    shards = index.state.shards if index.backend == "mesh" \
+        else [index.state]
+    return [state_digests(sh) for sh in shards]
+
+
+def tie_equal(what: str, a, b) -> dict:
+    """Two searches of one live set on different layouts (shard counts):
+    distances ``==`` bit for bit; labels ``==`` except inside groups of
+    equal distances, which hold the same labels (a group that reaches the
+    k-th position may hold other tied candidates). Returns the rows whose
+    labels differ and the rows whose k-th distance ties the one before."""
+    dk, lk = host(a.distances), host(a.labels)
+    dp, lp = host(b.distances), host(b.labels)
+    check(dk.shape == dp.shape and np.array_equal(dk.view(np.int32),
+                                                  dp.view(np.int32)),
+          f"{what}: distances differ")
+    rows = np.nonzero((lk != lp).any(axis=1))[0]
+    for r in rows:
+        row = dp[r]
+        starts = np.concatenate([[0], np.nonzero(row[1:] != row[:-1])[0]
+                                 + 1])
+        ends = np.concatenate([starts[1:], [len(row)]])
+        for s, e in zip(starts, ends):
+            if (lk[r, s:e] == lp[r, s:e]).all():
+                continue
+            tail = e == len(row)
+            check(e - s > 1 and (tail or sorted(lk[r, s:e])
+                                 == sorted(lp[r, s:e])),
+                  f"{what}: row {r} labels differ outside a tie group")
+    return {"rows_labels_differ": int(rows.size),
+            "rows_kth_distance_tied": int((dp[:, -1] == dp[:, -2]).sum())}
+
+
+def count_host_syncs(torch, call) -> dict:
+    """Synchronising CUDA calls ``call()`` makes (torch's sync debug mode
+    ``"warn"`` warns once at each): their count and their call sites
+    (``file:line``, with the count at each)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+    return {"count": sum(sites.values()), "sites": dict(sites)}
+
+
+def mesh_launch_checks(path: str, n_kernel: dict, kernel: str,
+                       route: str) -> dict:
+    """A mesh path's launches: its scan kernel once a shard a batch (all on
+    ``route``), kernel 4 (``topk``, route ``warp``) once a batch as the
+    cross-shard merge. Records them for the ``kernels`` line."""
+    from repro_torch.kernels.topk import topk
+    launches = read_counts()
+    n_f = len(filters_of())
+    n_b = N_SEARCH + n_f
+    want = {kernel: MESH_SHARDS * N_SEARCH,
+            f"{kernel}[filtered]": MESH_SHARDS * n_f, "topk": n_b}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{path}: launches {got}, want {want}")
+    check(n_kernel.get(route) == MESH_SHARDS * n_b
+          and sum(n_kernel.values()) == MESH_SHARDS * n_b,
+          f"{path}: {kernel} launches by route {n_kernel}")
+    merge = {"warp": topk.launches_warp, "block": topk.launches_block}
+    check(merge == {"warp": n_b, "block": 0},
+          f"{path}: merge launches by route {merge}")
+    check(launches["reclaim"] > 0, f"{path}: reclaim never launched")
+    other = {"sivf_fused_search": "sivf_pq_fused_search",
+             "sivf_pq_fused_search": "sivf_fused_search"}[kernel]
+    check(launches[other] + launches[f"{other}[filtered]"] == 0,
+          f"{path}: {other} ran")
+    for name, n in ((kernel, MESH_SHARDS * N_SEARCH),
+                    (f"{kernel}[filtered]", MESH_SHARDS * n_f)):
+        MESH_LAUNCHES[name] = {route: n}
+    prev = MESH_LAUNCHES.get("topk", {"warp": 0, "block": 0})
+    MESH_LAUNCHES["topk"] = {r: prev[r] + merge[r] for r in merge}
+    return {"launches": launches, "scan_by_route": n_kernel,
+            "merge_by_route": merge,
+            "per_batch": {kernel: MESH_SHARDS, "topk": 1}}
+
+
+def mesh_vs_single(mesh_out: dict, single_out: dict, path: str) -> dict:
+    """The mesh path's last unfiltered search and its filtered ones
+    against the single path's (:func:`tie_equal`)."""
+    out = {"unfiltered": tie_equal(f"{path} vs single", mesh_out["result"],
+                                   single_out["result"])}
+    for name in filters_of():
+        out[name] = tie_equal(f"{path}/{name} vs single",
+                              mesh_out["filtered"][name],
+                              single_out["filtered"][name])
+    return out
+
+
+def tables_equal(what: str, a: dict, b: dict) -> None:
+    bad = [k for k in a if a[k].shape != b[k].shape
+           or not np.array_equal(a[k], b[k])]
+    check(not bad, f"{what}: live-row tables differ in {bad}")
+
+
+def phase_mesh_main(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The raw path's traffic through ``Index(backend=ShardMesh.virtual(4,
+    "cuda"))`` (four virtual shards on the one card): the live-row table
+    ``==`` the single index's; searches ``==`` the single path's
+    (distances bit for bit, labels but inside ties) and, unfiltered and at
+    10 %, ``==`` the plain mesh version on the same card planes (per-shard
+    plain search, then ``topk_ref``); recall@10 equal to the single
+    path's; launches per batch with their routes; host syncs of an add,
+    a remove and a search against the single index's."""
+    import sivf_torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.filters import compile_filter
+    from repro_torch.kernels.sivf_scan import fused
+    wl, single, cfg = main["wl"], main["index"], main["cfg"]
+    index = sivf_torch.Index(cfg, wl["cents"], backend=vmesh(MESH_SHARDS))
+    out = {}
+    zero_counts()                                # counts of this path
+    lines = drive(torch, index, wl, "mesh", out)
+    launch = mesh_launch_checks("mesh", {
+        "grouped": fused.launches_grouped,
+        "per_query": fused.launches_per_query}, "sivf_fused_search",
+        "grouped")
+    t0 = time.perf_counter()
+    table = dist.flatten_live_rows(cfg, index.state)
+    flatten_ms = (time.perf_counter() - t0) * 1e3
+    tables_equal("mesh vs single", table,
+                 dist.flatten_live_rows(cfg, single.state))
+    vs_single = mesh_vs_single(out, main, "mesh")
+    qh = host(wl["queries"])
+    cf = compile_filter(filters_of()[REPRESENTATIVE], ATTRS)
+    plain_err = 0.0
+    for name, f in (("unfiltered", None), (REPRESENTATIVE, cf)):
+        res = out["result"] if f is None else out["filtered"][name]
+        plain_err = max(plain_err, check_equal(
+            f"mesh {name} vs the plain mesh version", res.distances,
+            res.labels, *plain_search(torch, index, qh, K, f)))
+    rec = {name: recall(torch, r.labels, wl["oracle"]["unfiltered"])
+           for name, r in (("mesh", out["result"]),
+                           ("single", main["result"]))}
+    check(rec["mesh"] == rec["single"], f"mesh recall {rec}")
+    # host syncs: the same calls on both handles (a re-add of live rows
+    # with their current vectors and attributes changes no live row)
+    live = torch.nonzero(~wl["removed"]).reshape(-1)[:SYNC_ROWS]
+    vec, at = wl["cur"][live], wl["attrs"][live]
+    live = live.to(torch.int32)
+    absent = torch.arange(N_BASE, N_BASE + SYNC_ROWS, dtype=torch.int32,
+                          device="cuda")
+    syncs = {}
+    for name, ix_ in (("single", single), ("mesh", index)):
+        syncs[name] = {
+            "add": count_host_syncs(torch, lambda: ix_.add(vec, live,
+                                                           attrs=at)),
+            "remove_absent": count_host_syncs(torch,
+                                              lambda: ix_.remove(absent)),
+            "search": count_host_syncs(torch, lambda: ix_.search(
+                wl["queries"], K, NPROBE))}
+    for op in ("add", "remove_absent"):
+        check(syncs["mesh"][op]["count"] == syncs["single"][op]["count"],
+              f"a mesh {op} syncs more often than a single one: {syncs}")
+    tables_equal("mesh vs single after the counted calls", table,
+                 dist.flatten_live_rows(cfg, index.state))
+    by = {ln["phase"]: ln for ln in lines}
+    main["mesh"] = index
+    lines.append({
+        "phase": "mesh.main", "shards": MESH_SHARDS,
+        "virtual_shards_on_one_card": True,
+        "per_shard_live": index.stats()["per_shard_live"],
+        "table_rows": int(table["ids"].size), "table_equal_single": True,
+        "flatten_ms": flatten_ms,
+        "ingest_rows_per_s": by["mesh.ingest"]["rows_per_s"],
+        "remove_ms_per_bucket": by["mesh.remove"]["ms"]
+        / len(by["mesh.remove"]["buckets"]),
+        "search_ms_median": by["mesh.search"]["ms_median"],
+        "vs_single": vs_single, "plain_mesh_version_equal": True,
+        "plain_queries": N_QUERIES, "max_abs_err": plain_err,
+        "recall_at_10": rec, "host_syncs": syncs, **launch})
+    return lines, []
+
+
+def phase_mesh_lifecycle(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The 4-shard handle saved, loaded onto 4 shards (planes ``==``), the
+    live handle resharded 4 -> 2 -> 3 -> 1 (tables and searches ``==``)
+    with the checkpoint loaded onto 2 and onto ``"single"`` beside the
+    live steps (planes ``==``); back on 4 shards, a split and a merge
+    beside the single twin (tables and every shard's centroids ``==``);
+    a forced abort on one shard of a small config."""
+    import sivf_torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import maintenance as mt
+    index, cfg, queries = main["mesh"], main["cfg"], main["queries"]
+    want = index.search(queries, K, NPROBE)
+    table = dist.flatten_live_rows(cfg, index.state)
+    digests = mesh_digests(index)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="ckpt_mesh_", dir=ROOT / "build"))
+    main["mesh_ckpt"] = ckpt
+    _, save_ms = timed(lambda: index.save(ckpt))
+    served, load4_ms = timed(lambda: sivf_torch.Index.load(
+        ckpt, backend=vmesh(MESH_SHARDS), deferred=True, strict=False))
+    check(mesh_digests(served) == digests, "mesh load onto 4: planes differ")
+    same_result("mesh load onto 4", served.search(queries, K, NPROBE), want)
+    main["mesh_served"] = served
+    steps, twin = [], None
+    for n in MESH_CHAIN:
+        _, ms = timed(lambda: index.reshard(vmesh(n)))
+        check(index.n_shards == n, f"reshard to {n}")
+        tables_equal(f"reshard to {n}", dist.flatten_live_rows(
+            cfg, index.state), table)
+        res = index.search(queries, K, NPROBE)
+        step = {"shards": n, "reshard_ms": ms,
+                **tie_equal(f"reshard to {n}", res, want)}
+        if n in (2, 1):
+            loaded, lms = timed(lambda: sivf_torch.Index.load(
+                ckpt, backend=vmesh(n), device="cuda"))
+            check(mesh_digests(loaded) == mesh_digests(index),
+                  f"checkpoint onto {n}: planes differ from the reshard's")
+            same_result(f"checkpoint onto {n}", loaded.search(
+                queries, K, NPROBE), res)
+            step.update(load_ms=lms, load_planes_equal_reshard=True)
+            if n == 1:
+                twin = loaded
+            del loaded
+        steps.append(step)
+    _, back_ms = timed(lambda: index.reshard(vmesh(MESH_SHARDS)))
+    # a split and a merge on the mesh and on the single twin
+    occ = np.asarray(index.stats()["list_occupancy"])
+    order = np.argsort(occ, kind="stable")
+    hot, cold = int(order[-1]), int(order[0])
+    small = [int(i) for i in order if occ[i] > 0 and i not in (hot, cold)]
+    ops = [sivf_torch.split(hot, cold), sivf_torch.merge(*small[:2])]
+    maint = []
+    for op in ops:
+        (rm,), ms = timed(lambda: index.maintain([op], strict=True))
+        (rs,) = twin.maintain([op], strict=True)
+        check(dataclasses.astuple(rm) == dataclasses.astuple(rs),
+              f"mesh {op.kind}: reports differ {rm} {rs}")
+        tables_equal(f"mesh {op.kind} vs single", dist.flatten_live_rows(
+            cfg, index.state), dist.flatten_live_rows(cfg, twin.state))
+        for s in range(MESH_SHARDS):
+            check(torch.equal(index.state[s].centroids,
+                              twin.state.centroids),
+                  f"mesh {op.kind}: shard {s}'s centroids differ")
+        maint.append({"op": op.kind, "lists": list(op.lists),
+                      "rows": rm.rows, "ms": ms,
+                      "gather_plan_commit_ms": index.last_maintain_ms})
+    del twin
+    return [{"phase": "mesh.lifecycle", "shards": MESH_SHARDS,
+             "virtual_shards_on_one_card": True,
+             "bytes_on_disk": dir_bytes(ckpt), "save_ms": save_ms,
+             "load_onto_4_ms": load4_ms, "load_planes_equal": True,
+             "chain": steps, "reshard_back_to_4_ms": back_ms,
+             "maintenance": maint, "centroids_equal_every_shard": True,
+             "abort": mesh_abort_check(torch)}], []
+
+
+def mesh_abort_check(torch) -> dict:
+    """A small config on 2 virtual shards where shard 0 holds most of two
+    lists: ``merge`` overflows its chain bound only. No shard commits,
+    every shard's planes stay as they were, ``shard_errors`` names shard
+    0, and ``Index.maintain`` reports the abort."""
+    import sivf_torch
+    from repro_torch.core import maintenance as mt
+    cfg = sivf_torch.SIVFConfig(dim=16, n_lists=4, n_slabs=12, capacity=32,
+                                n_max=2048, max_chain=2)
+    rng = np.random.default_rng(7)
+    cents = (rng.normal(size=(4, 16)) * 4).astype(np.float32)
+    index = sivf_torch.Index(cfg, cents, backend=vmesh(2), min_bucket=64)
+    lists = np.repeat([0, 1, 2, 3], [50, 50, 10, 10])
+    ids = np.where(lists < 2, 2 * np.arange(120), 2 * np.arange(120) + 1)
+    vecs = (cents[lists] + 0.1 * rng.normal(size=(120, 16))).astype(
+        np.float32)
+    check(index.add(vecs, ids).ok, "abort config: add")
+    before = mesh_digests(index)
+    gathered = mt.gather_live(cfg, index.state, mt.shard_views(
+        cfg, index.state), (0, 1))
+    new_cents, rl = mt.plan_op(cfg, mt.merge(0, 1), gathered,
+                               index.state[0].centroids.cpu().numpy())
+    batch = mt.pad_batch(cfg, gathered, rl, mt.maint_batch_size(cfg, 2))
+    st, aux = mt._commit_op_mesh(cfg, index._mesh, "data", index.state,
+                                 new_cents, batch)
+    errs = aux["shard_errors"].tolist()
+    check(errs[0] & mt.ABORT_BITS and errs[1] == 0
+          and int(aux["committed"]) == 0,
+          f"abort: shard errors {errs}, committed {int(aux['committed'])}")
+    check([state_digests(sh) for sh in st.shards] == before,
+          "abort: a shard's planes changed")
+    (rep,) = index.maintain([mt.merge(0, 1)], strict=False)
+    check(not rep.committed and rep.errors & mt.ABORT_BITS,
+          f"abort: report {rep}")
+    return {"shard_errors": errs, "planes_unchanged": True,
+            "report_committed": rep.committed}
+
+
+MESH_TIERED_BATCHES = 4              # Q = 64 batches, cold then warm
+
+
+def phase_mesh_tiered(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The mesh checkpoint loaded tiered onto 4 virtual shards
+    (``device_slabs=8192`` frames a shard, the payloads in pinned host
+    memory, one host store a shard): Q = 64 batches at nprobe 32, cold
+    then warm, ``==`` the all-resident 4-shard handle loaded from the same
+    checkpoint; a warm batch copies nothing to the card; every kernel-1
+    launch on ``grouped``, four a batch."""
+    import sivf_torch
+    want_ix, queries = main["mesh_served"], main["queries"]
+    index, load_ms = timed(lambda: sivf_torch.Index.load(
+        main["mesh_ckpt"], backend=vmesh(MESH_SHARDS),
+        device_slabs=DEVICE_SLABS))
+    launches = Launches()
+    batches = []
+    for rnd in ("cold", "warm"):
+        for b in range(MESH_TIERED_BATCHES):
+            qs = queries[b * TIERED_Q:(b + 1) * TIERED_Q]
+            copies = index._tiered.h2d_copies
+            with launches.of():
+                res, ms = timed(lambda: index.search(qs, K, NPROBE))
+            same_result(f"mesh.tiered {rnd} batch {b}", res,
+                        want_ix.search(qs, K, NPROBE))
+            uploads = index._tiered.h2d_copies - copies
+            check(rnd == "cold" or uploads == 0,
+                  f"mesh.tiered: a warm batch copied {uploads} times")
+            batches.append({"round": rnd, "ms": ms, "copies": uploads,
+                            **index._tiered.last_prefetch})
+    n = launches.n
+    nb = 2 * MESH_TIERED_BATCHES
+    check(n["fused"] == MESH_SHARDS * nb and n["fused_grouped"] == n["fused"],
+          f"mesh.tiered launches by route {n}")
+    st = index.stats()
+    return [{"phase": "mesh.tiered", "shards": MESH_SHARDS,
+             "virtual_shards_on_one_card": True,
+             "device_slabs_per_shard": DEVICE_SLABS, "load_ms": load_ms,
+             "queries": TIERED_Q, "nprobe": NPROBE, "batches": batches,
+             "equal_all_resident": True,
+             "per_shard_resident": st["per_shard_resident"],
+             "hit_rate": st["hit_rate"], "h2d_bytes": index._tiered.h2d_bytes,
+             "device_bytes": st["device_bytes"], "host_bytes":
+             st["host_bytes"], "launches": n}], []
+
+
+def phase_mesh_serve(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """A ``ServeEngine`` over the deferred 4-shard handle loaded from the
+    mesh checkpoint: the coalescing check (each tile's results ``==`` its
+    rows of a direct search, which is ``==`` the plain mesh version)."""
+    index = main.pop("mesh_served")
+    launches = Launches(serve_counts)
+    try:
+        line = coalesce_check(torch, index, main["queries"],
+                              main["wl"]["attrs_h"], "mesh", launches)
+    finally:
+        shutil.rmtree(main.pop("mesh_ckpt"), ignore_errors=True)
+        main.pop("mesh", None)
+    line.update(phase="mesh.serve", shards=MESH_SHARDS,
+                virtual_shards_on_one_card=True, launches=launches.n)
+    return [line], []
+
+
+def phase_mesh_pq(torch, hbm: float, main: dict) -> tuple[list, list]:
+    """The PQ path's config on four virtual shards: ``train`` replicates
+    codebooks ``==`` the single index's to every shard; the same traffic;
+    the live-row table ``==`` the single index's; searches ``==`` the
+    single path's (distances bit for bit, labels but inside ties)."""
+    import sivf_torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels.sivf_scan import pq_fused
+    wl, single, cfg = main["wl"], main["index"], main["cfg"]
+    index = sivf_torch.Index(cfg, wl["cents"], backend=vmesh(MESH_SHARDS))
+    gen = torch.Generator(device="cuda").manual_seed(wl["seed"])
+    _, train_ms = timed(lambda: index.train(wl["sample"], generator=gen))
+    want = digest(single.state.pq_codebooks)
+    cb = [digest(sh.pq_codebooks) for sh in index.state.shards]
+    check(cb == [want] * MESH_SHARDS, f"mesh.pq codebooks {cb} != {want}")
+    out = {}
+    zero_counts()                                # counts of this path
+    lines = drive(torch, index, wl, "mesh.pq", out)
+    launch = mesh_launch_checks("mesh.pq", {
+        "compacted": pq_fused.launches_compacted,
+        "per_query": pq_fused.launches_per_query}, "sivf_pq_fused_search",
+        "compacted")
+    tables_equal("mesh.pq vs single", dist.flatten_live_rows(
+        cfg, index.state), dist.flatten_live_rows(cfg, single.state))
+    vs_single = mesh_vs_single(out, main, "mesh.pq")
+    rec = {name: recall(torch, r.labels, wl["oracle"]["unfiltered"])
+           for name, r in (("mesh", out["result"]),
+                           ("single", main["result"]))}
+    lines.append({"phase": "mesh.pq", "shards": MESH_SHARDS,
+                  "virtual_shards_on_one_card": True, "train_ms": train_ms,
+                  "codebooks_sha256_every_shard": cb,
+                  "table_equal_single": True, "vs_single": vs_single,
+                  "recall_at_10": rec, **launch})
+    return lines, []
 
 
 RECLAIM_PLANES = ("slabs", "count", "heads", "nxt", "prv", "owner", "cursor",
@@ -4291,7 +4778,11 @@ def main(argv=None) -> int:
         # each path, then the phases that reuse its index (the unfused path
         # first: the full-size phase ends with a reclaim-heavy delete)
         paths = (("main_path", phase_main,
-                  (("unfused", phase_unfused), ("full_size", phase_full_size),
+                  (("unfused", phase_unfused), ("mesh.main", phase_mesh_main),
+                   ("mesh.lifecycle", phase_mesh_lifecycle),
+                   ("mesh.tiered", phase_mesh_tiered),
+                   ("mesh.serve", phase_mesh_serve),
+                   ("full_size", phase_full_size),
                    ("persist", phase_persist), ("tiered", phase_tiered),
                    ("maintain", phase_maintain),
                    ("serve.coalesce", phase_serve_coalesce),
@@ -4300,7 +4791,8 @@ def main(argv=None) -> int:
                    ("serve.tiered", phase_serve_tiered),
                    ("serve.telemetry", phase_serve_telemetry))),
                  ("pq_main_path", phase_pq_main,
-                  (("pq_full_size", phase_pq_full_size),
+                  (("mesh.pq", phase_mesh_pq),
+                   ("pq_full_size", phase_pq_full_size),
                    ("pq_lifecycle", phase_pq_lifecycle),
                    ("pq.serve.coalesce", phase_pq_serve))))
         for name, drive_fn, then in paths:
@@ -4314,8 +4806,9 @@ def main(argv=None) -> int:
                     for ln in got[0]:
                         emit(ln)
                     rows.update({r["name"]: r for r in got[1]})
-            if "ckpt" in out:           # the path's checkpoint under build/
-                shutil.rmtree(out["ckpt"], ignore_errors=True)
+            for key in ("ckpt", "mesh_ckpt"):    # checkpoints under build/
+                if key in out:
+                    shutil.rmtree(out[key], ignore_errors=True)
             out.clear()                 # free the path's index
             torch.cuda.empty_cache()
     got = run("lm", lambda: phase_lm(torch, args.seed, hbm))
@@ -4332,6 +4825,9 @@ def main(argv=None) -> int:
     for name, by_route in SERVE_LAUNCHES.items():
         if name in rows:
             rows[name]["serve_launches"] = by_route
+    for name, by_route in MESH_LAUNCHES.items():
+        if name in rows:                # four virtual shards on one card
+            rows[name]["mesh_launches"] = by_route
     if rows:
         emit({"kernels": [rows[n] for n in KERNEL_ORDER if n in rows]})
     print(smi(), flush=True)

@@ -1,4 +1,4 @@
-"""``sivf_torch.Index`` — the streaming-session handle, single backend.
+"""``sivf_torch.Index`` — the streaming-session handle, single or sharded.
 
 PyTorch counterpart of ``repro/core/api.py``:
 
@@ -15,10 +15,18 @@ PyTorch counterpart of ``repro/core/api.py``:
     index.save(path); index = Index.load(path, device="cuda")
     index.maintain()                               # split / merge / recluster
 
+    mesh = ShardMesh.virtual(4, "cuda")            # or ShardMesh(devices)
+    index = Index(cfg, centroids, backend=mesh)    # id % 4 owns each id
+    index = Index.load(path, backend=mesh)         # any checkpoint, any S
+    index.reshard("single")                        # a live handle, in place
+
 The handle owns a :class:`~repro_torch.core.state.SlabPoolState` on one
-device, pads ragged batches to power-of-two buckets (as the reference
-does, which keeps the shapes its kernels see few), turns the sticky
-``state.error`` bits into per-batch :class:`MutationReport`s, and resolves
+device, or with ``backend=ShardMesh(...)`` one per shard
+(``core/distributed.py``: broadcast inserts and deletes, scatter-gather
+searches merged by the port's top-k), pads ragged batches to power-of-two
+buckets (as the reference does, which keeps the shapes its kernels see
+few), turns the sticky ``state.error`` bits into per-batch
+:class:`MutationReport`s (with each shard's bits on a mesh), and resolves
 deferred reports in **one** device->host copy per queue.
 
 With ``SIVFConfig(pq=PQConfig(...))`` the handle trains PQ codebooks
@@ -32,8 +40,10 @@ With ``SIVFConfig(device_slabs=N)`` the payload planes live on the host
 searches prefetch their probed slabs, :meth:`Index.prefetch` stages a
 coming batch, and results are ``==`` the all-resident pool's.
 :meth:`Index.save` / :meth:`Index.load` write and read the reference's
-checkpoint format 3 (``checkpoint/manager.py``), and :meth:`Index.maintain`
-runs split / merge / recluster ops (``core/maintenance.py``).
+checkpoint format 3 (``checkpoint/manager.py``; a mesh's planes carry a
+leading shard axis), any checkpoint loading onto any shard count, and
+:meth:`Index.maintain` runs split / merge / recluster ops
+(``core/maintenance.py``), atomically across a mesh's shards.
 
 Every handle records into a ``repro_torch.obs.Telemetry`` (the process
 default, disabled until ``sivf_torch.telemetry.enable()``, unless given
@@ -42,11 +52,8 @@ default, disabled until ``sivf_torch.telemetry.enable()``, unless given
 row counters, and the launch signatures :meth:`Index.compile_stats`
 counts.
 
-What the reference's handle does and this port does not yet: mesh
-backends and resharding raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them. The reference's ``impl`` / ``block_q``
-(TPU kernel and tiling choices) have no counterpart: the tensor's device
-picks the scan path.
+The reference's ``impl`` / ``block_q`` (TPU kernel and tiling choices)
+have no counterpart: the tensor's device picks the scan path.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import interop
+from repro_torch.core import distributed as dist
 from repro_torch.core import filters as flt
 from repro_torch.core import index as ix
 from repro_torch.core import pq as pqmod
@@ -76,8 +84,6 @@ from repro_torch.core.state import (
     init_state,
 )
 from repro_torch.utils import resolve_device
-
-ROADMAP_DIST = "ROADMAP.md queue 1 item 10 (core/distributed.py)"
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +107,10 @@ class MutationReport:
     payload was replaced) and ``rejected`` (everything else: superseded
     in-batch duplicates, ids outside ``[0, n_max)``, every row of an
     aborted batch) are disjoint and sum to ``requested``. All counts are
-    measured from device state, as in the reference.
+    measured from device state, as in the reference, so they stay truthful
+    under a partial per-shard failure on a mesh: ids owned by an aborting
+    shard keep their old payloads and count as rejected. ``shard_errors``
+    then carries each shard's own bits (``None`` on the single backend).
     """
 
     op: str                 # "add" | "remove"
@@ -112,7 +121,7 @@ class MutationReport:
     errors: ErrorCode       # this batch's error bits (already cleared)
     n_live: int             # total live vectors after the batch
     padded_to: int          # bucket shape the batch was padded to
-    shard_errors: tuple[ErrorCode, ...] | None = None  # mesh only (None)
+    shard_errors: tuple[ErrorCode, ...] | None = None  # mesh: per-shard bits
 
     @property
     def ok(self) -> bool:
@@ -266,17 +275,29 @@ _AUX_SCALARS = ("n_requested", "n_live_before", "errors", "n_live_after",
 def _resolve_aux(auxes: list[dict]) -> list[dict]:
     """Copy a queue of device aux dicts to the host in ONE transfer.
 
-    Every aux value is an int32 scalar, so the whole queue stacks into one
-    flat tensor crossing in a single ``.cpu()``, however long the queue.
+    Every aux value is int32 (five scalars a batch, plus a mesh's
+    per-shard error vector ``shard_errors``), so the whole queue
+    concatenates into one flat tensor crossing in a single ``.cpu()``,
+    however long the queue.
     """
     if not auxes:
         return []
-    flat = torch.stack([a[k].reshape(()) for a in auxes
-                        for k in _AUX_SCALARS])
-    host = flat.cpu().tolist()
-    n = len(_AUX_SCALARS)
-    return [dict(zip(_AUX_SCALARS, host[i * n:(i + 1) * n]))
-            for i in range(len(auxes))]
+    parts, widths = [], []
+    for a in auxes:
+        parts.append(torch.stack([a[k].reshape(()) for k in _AUX_SCALARS]))
+        se = a.get("shard_errors")
+        widths.append(0 if se is None else se.numel())
+        if se is not None:
+            parts.append(se.reshape(-1).to(torch.int32))
+    host = torch.cat(parts).cpu().tolist()
+    n, out, off = len(_AUX_SCALARS), [], 0
+    for w in widths:
+        d = dict(zip(_AUX_SCALARS, host[off:off + n]))
+        if w:
+            d["shard_errors"] = host[off + n:off + n + w]
+        out.append(d)
+        off += n + w
+    return out
 
 
 class _SingleOps:
@@ -340,8 +361,95 @@ class _SingleOps:
                          fconsts=fconsts)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: {item}")
+class _MeshOps:
+    """Sharded insert/delete/search over a ``ShardedState``
+    (``core/distributed.py``) with the same aux contract as
+    :class:`_SingleOps` plus ``shard_errors``, the ``[S]`` per-shard error
+    vector. Every aux tensor lies on shard 0's device, so a queue of them
+    still crosses in one copy. Inserts are atomic per shard: ids owned by
+    an aborting shard keep their old payloads and do not count as
+    overwritten; ids on committing shards proceed normally.
+    """
+
+    def __init__(self, cfg: SIVFConfig, mesh, axis: str,
+                 use_tables: bool | None):
+        self.cfg = cfg
+        self.n = dist._axis_size(mesh, axis)
+        self._insert = {wp: dist.sharded_insert(cfg, mesh, axis, wp)
+                        for wp in (False, True)}
+        self._delete = dist.sharded_delete(cfg, mesh, axis)
+        self._search = dist.sharded_search(cfg, mesh, axis, use_tables)
+
+    def _pre(self, state, ids: torch.Tensor):
+        dev = state.device                  # the ids' device: shard 0's
+        valid = (ids >= 0) & (ids < self.cfg.n_max)
+        # an id lives only on its owner shard: read that shard's ATT row
+        # (mask before indexing, as on the single backend)
+        safe = torch.where(valid, ids, 0).long()
+        owner = torch.where(valid, ids % self.n, 0)
+        pb = torch.zeros_like(valid)
+        for s, sh in enumerate(state.shards):
+            hit = (sh.att_slab[safe.to(sh.device)] >= 0).to(dev)
+            pb |= (owner == s) & hit
+        aux = {"n_requested": (ids >= 0).sum(dtype=torch.int32),
+               "n_live_before": state.stacked("n_live").sum(
+                   dtype=torch.int32)}
+        return valid, valid & pb, aux
+
+    @staticmethod
+    def _clear(state):
+        return type(state)([_clear_error(sh) for sh in state.shards])
+
+    def _post(self, st, aux: dict):
+        errs = st.stacked("error")                           # [S] bits
+        aux["errors"] = _or_bits(errs)
+        aux["shard_errors"] = errs
+        aux["n_live_after"] = st.stacked("n_live").sum(dtype=torch.int32)
+        return errs
+
+    def insert(self, state, vecs: torch.Tensor, ids: torch.Tensor,
+               attrs: torch.Tensor | None = None, want_plan: bool = False):
+        valid, pb, aux = self._pre(state, ids)
+        out = self._insert[want_plan](self._clear(state), vecs, ids, attrs)
+        st, plan = out if want_plan else (out, None)
+        errs = self._post(st, aux)
+        # partial per-shard failure: only ids on committing shards count
+        # as overwritten (an aborting shard kept its old payloads)
+        shard_failed = (errs & _ABORT_BITS) != 0
+        failed = shard_failed[torch.where(valid, ids % self.n, 0).long()]
+        aux["n_overwritten"] = _count_unique(ids, pb & ~failed)
+        if want_plan:
+            return self._clear(st), aux, plan
+        return self._clear(st), aux
+
+    def delete(self, state, ids: torch.Tensor):
+        _, _, aux = self._pre(state, ids)
+        st = self._delete(self._clear(state), ids)
+        self._post(st, aux)
+        aux["n_overwritten"] = torch.zeros((), dtype=torch.int32,
+                                           device=state.device)
+        return self._clear(st), aux
+
+    def search(self, state, queries: torch.Tensor, k: int, nprobe: int,
+               fstruct: tuple | None = None,
+               fconsts: torch.Tensor | None = None):
+        return self._search(state, queries, k, nprobe, fstruct, fconsts)
+
+
+def _resolve_backend(backend, axis: str) -> tuple[str, int]:
+    """Validate a backend spec -> (``"single"`` | ``"mesh"``, shard count).
+
+    The one place that says what a backend argument may be (the
+    constructor, :meth:`Index.load` and :meth:`Index.reshard` take the
+    same forms): a :class:`~repro_torch.core.distributed.ShardMesh`
+    carrying the index's data axis, or the literal ``"single"``.
+    """
+    if isinstance(backend, dist.ShardMesh):
+        return "mesh", dist._axis_size(backend, axis)
+    if isinstance(backend, str) and backend == "single":
+        return "single", 1
+    raise TypeError(
+        f"backend must be 'single' or a ShardMesh, got {backend!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -349,17 +457,24 @@ def _not_ported(what: str, item: str):
 # ---------------------------------------------------------------------------
 
 class Index:
-    """Stateful SIVF session handle on one device.
+    """Stateful SIVF session handle on one device or a mesh of shards.
 
     Parameters
     ----------
     cfg:        :class:`SIVFConfig`.
     centroids:  ``[n_lists, dim]`` coarse-quantizer centroids (array or
                 tensor).
-    backend:    ``"single"`` only in this slice.
+    backend:    ``"single"`` (default) or a
+                :class:`~repro_torch.core.distributed.ShardMesh` whose
+                ``axis`` dimension data-shards the index (paper §4.2):
+                shard ``id % S`` owns each id, shard ``s`` lives on
+                ``mesh.devices[s]``.
+    axis:       the mesh's data axis (``"data"``).
     device:     where the state lives and every op runs; ``"cuda"`` by
                 default (raises when no GPU is visible), ``"cpu"`` runs the
-                plain versions of the kernels.
+                plain versions of the kernels. A mesh brings its own
+                devices: an explicit ``device`` that disagrees with them
+                raises ``ValueError``.
     use_tables: dense-table vs pointer-walk slab lookup (None = cfg).
     strict:     raise :class:`MutationRejected` on any per-batch error bit.
     min_bucket: smallest padded batch shape; batches pad to
@@ -377,23 +492,33 @@ class Index:
     ``cfg.device_slabs`` the state's payload planes are zero-width and the
     tiered runtime (``core/tiered.py``) holds the payloads.
 
-    ``_state`` (a ``SlabPoolState`` or ``{plane: array}`` with the
-    reference's dtypes, full-pool or, when tiered, meta) and
-    ``_pq_trained`` are :meth:`load`'s way in.
+    ``_state`` (a ``SlabPoolState``, a ``ShardedState``, or
+    ``{plane: array}`` with the reference's dtypes, stacked ``[S, ...]``
+    on a mesh; full-pool or, when tiered, meta) and ``_pq_trained`` are
+    :meth:`load`'s and :meth:`reshard`'s way in.
     """
 
     def __init__(self, cfg: SIVFConfig, centroids, backend="single", *,
-                 device="cuda", use_tables: bool | None = None,
-                 strict: bool = False, min_bucket: int = 64,
-                 deferred: bool = False, pq_codebooks=None, telemetry=None,
-                 _state=None, _pq_trained: bool | None = None):
-        if not (isinstance(backend, str) and backend == "single"):
-            raise _not_ported(f"backend={backend!r}", ROADMAP_DIST)
+                 axis: str = "data", device=None,
+                 use_tables: bool | None = None, strict: bool = False,
+                 min_bucket: int = 64, deferred: bool = False,
+                 pq_codebooks=None, telemetry=None, _state=None,
+                 _pq_trained: bool | None = None):
         if min_bucket < 1:
             raise ValueError("min_bucket must be >= 1")
         if pq_codebooks is not None and cfg.pq is None:
             raise ValueError("pq_codebooks given but cfg.pq is None")
-        self.device = resolve_device(device)
+        kind, _ = _resolve_backend(backend, axis)
+        self._axis = axis
+        self._mesh = backend if kind == "mesh" else None
+        if self._mesh is not None:
+            _check_mesh_device(self._mesh, device)
+            for d in set(self._mesh.devices):
+                resolve_device(d)
+            self.device = self._mesh.devices[0]
+        else:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
         if telemetry is None:
             from repro_torch import obs
             telemetry = obs.default()
@@ -406,25 +531,35 @@ class Index:
                                   bool | None]] = []
         self._epoch = 0
         self._use_tables = use_tables
-        self._ops = _SingleOps(cfg, use_tables)
+        self._ops = _SingleOps(cfg, use_tables) if self._mesh is None \
+            else _MeshOps(cfg, self._mesh, axis, use_tables)
         self._maint_cursor = 0      # round-robin recluster position
         self.last_maintain_ms: list[dict] = []
         store = None
         if _state is not None and cfg.tiered \
                 and trt.is_full_state(cfg, _state):
-            # a full pool (a load): payloads to the host store, only the
-            # metadata to the device
-            _state, store = trt.split_full(cfg, _state,
-                                           pin=self.device.type == "cuda")
+            # a full pool (a load, a reshard): payloads to the host store
+            # (one a shard on a mesh), only the metadata to the device
+            split = trt.split_full if self._mesh is None \
+                else trt.split_full_mesh
+            _state, store = split(cfg, _state, pin=self.device.type == "cuda")
         if isinstance(_state, dict):
-            _state = interop.state_from_numpy(cfg, _state, self.device)
+            _state = interop.state_from_numpy(cfg, _state, self.device) \
+                if self._mesh is None else dist.place_sharded(
+                    cfg, _state, self._mesh, axis)
         if _state is None:
             _state = init_state(cfg, centroids, pq_codebooks,
-                                device=self.device)
+                                device=self.device) \
+                if self._mesh is None else dist.init_sharded_state(
+                    cfg, centroids, self._mesh, axis, pq_codebooks)
         self._state = _state
-        self._tiered = trt.TieredRuntime(
-            cfg, self.device, use_tables, store, telemetry=telemetry) \
-            if cfg.tiered else None
+        self._tiered = None
+        if cfg.tiered:
+            self._tiered = trt.TieredRuntime(
+                cfg, self.device, use_tables, store, telemetry=telemetry) \
+                if self._mesh is None else trt.MeshTieredRuntime(
+                    cfg, self._mesh.devices, use_tables, store,
+                    telemetry=telemetry)
         if _pq_trained is None:
             _pq_trained = cfg.pq is None or pq_codebooks is not None
         self._pq_trained = bool(_pq_trained)
@@ -456,20 +591,23 @@ class Index:
 
     @property
     def backend(self) -> str:
-        return "single"
+        return "single" if self._mesh is None else "mesh"
 
     @property
     def n_shards(self) -> int:
-        return 1
+        return 1 if self._mesh is None else self._ops.n
 
     @property
-    def state(self) -> SlabPoolState:
-        """The underlying planes (functional-API interop; treat read-only)."""
+    def state(self):
+        """The underlying planes (functional-API interop; treat read-only):
+        a ``SlabPoolState`` on the single backend; on a mesh a
+        ``core.distributed.ShardedState``, one pool per shard, whose planes
+        read by name are stacked ``[S, ...]`` as the reference's are."""
         return self._state
 
     @property
     def n_live(self) -> int:
-        return int(self._state.n_live)
+        return int(self._state.n_live.sum())
 
     @property
     def epoch(self) -> int:
@@ -492,9 +630,10 @@ class Index:
     def stats(self) -> dict:
         """Occupancy/fragmentation report + handle/backend metadata (and
         the tiered cache's counters, ``core/tiered.py``)."""
-        s = ix.stats(self.cfg, self._state)
-        s["backend"] = "single"
-        s["n_shards"] = 1
+        s = ix.stats(self.cfg, self._state) if self._mesh is None \
+            else dist.stats(self.cfg, self._state)
+        s["backend"] = self.backend
+        s["n_shards"] = self.n_shards
         s["compiles"] = self.compile_stats()
         if self._tiered is not None:
             s.update(self._tiered.stats())
@@ -626,7 +765,8 @@ class Index:
         """Train the PQ codebooks from a sample (``cfg.pq`` required).
 
         Runs per-subspace k-means (``core.pq.train_pq``) on the handle's
-        device and installs the codebooks into the state. Must happen on
+        device and installs the codebooks into the state (replicated to
+        every shard on a mesh). Must happen on
         an *empty* index (stored codes would go stale under new codebooks)
         and before the first ``add``; alternatively pass ``pq_codebooks=``
         at construction. ``generator`` draws the initial codewords
@@ -645,7 +785,13 @@ class Index:
         cb = pqmod.train_pq(xs.to(self.device, torch.float32),
                             self.cfg.pq.m, self.cfg.pq.nbits, iters=iters,
                             generator=generator)
-        self._state = dataclasses.replace(self._state, pq_codebooks=cb)
+        if self._mesh is None:
+            self._state = dataclasses.replace(self._state, pq_codebooks=cb)
+        else:                       # replicated to every shard
+            self._state = type(self._state)([
+                dataclasses.replace(sh, pq_codebooks=cb.to(sh.device,
+                                                           copy=True))
+                for sh in self._state.shards])
         self._pq_trained = True
         return self
 
@@ -654,11 +800,6 @@ class Index:
             raise RuntimeError(
                 "PQ codebooks are untrained: call Index.train(sample) or "
                 "construct with pq_codebooks= before adding vectors")
-
-    # -- not ported yet -----------------------------------------------------
-
-    def reshard(self, *_, **__):
-        raise _not_ported("Index.reshard", ROADMAP_DIST)
 
     # -- mutation -----------------------------------------------------------
 
@@ -751,12 +892,15 @@ class Index:
         else:
             overwritten = 0
             accepted = max(n0 - n1, 0)
+        se = aux.get("shard_errors")
         report = MutationReport(
             op=op, requested=requested, accepted=accepted,
             overwritten=overwritten,
             rejected=max(requested - accepted - overwritten, 0),
             errors=ErrorCode(int(aux["errors"])), n_live=n1,
-            padded_to=bucket)
+            padded_to=bucket,
+            shard_errors=None if se is None
+            else tuple(ErrorCode(int(e)) for e in se))
         if strict and not report.ok:
             raise MutationRejected(report)
         return report
@@ -764,8 +908,8 @@ class Index:
     def flush(self) -> list[MutationReport]:
         """Resolve every outstanding :class:`PendingReport`, oldest first.
 
-        One device->host copy for the whole queue (``_resolve_aux``). In
-        strict mode the first failed report raises :class:`MutationRejected`
+        One device->host copy for the whole queue (``_resolve_aux``), a
+        mesh's per-shard error vectors included. In strict mode the first failed report raises :class:`MutationRejected`
         after the entire queue has resolved. ``[]`` when nothing is pending.
         """
         pending, self._pending = self._pending, []
@@ -891,9 +1035,10 @@ class Index:
         (``split`` / ``merge`` / ``recluster``); omitted, the drift policy
         plans up to ``max_ops`` ops from ``stats()["list_occupancy"]``,
         round-robining re-clustering across sweeps. Each op commits
-        atomically through the staged insert, so a failed op leaves every
-        live id searchable under the old layout and bumps no epoch; a
-        committed op bumps :attr:`epoch` like a mutation batch. On a
+        atomically through the staged insert (on a mesh every shard
+        reverts if any would abort), so a failed op leaves every live id
+        searchable under the old layout and bumps no epoch; a committed
+        op bumps :attr:`epoch` like a mutation batch. On a
         tiered index the queued plans drain before the gather, whose
         payloads come from the host store, and the commit's plan is
         replayed into it after.
@@ -928,8 +1073,11 @@ class Index:
                 gathered = mt.gather_live(self.cfg, self._state, views,
                                           op.lists)
                 t1 = time.perf_counter()
+                # shard 0's replica on a mesh (every shard holds the same)
+                cents = (self._state if self._mesh is None
+                         else self._state[0]).centroids
                 plan = mt.plan_op(self.cfg, op, gathered,
-                                  self._state.centroids.cpu().numpy())
+                                  cents.cpu().numpy())
                 t2 = time.perf_counter()
                 times = {"gather": (t1 - t0) * 1e3,
                          "plan": (t2 - t1) * 1e3, "commit": 0.0}
@@ -940,10 +1088,16 @@ class Index:
                         self.n_live))
                     continue
                 new_cents, lists = plan
-                batch = mt.pad_batch(self.cfg, gathered, lists,
-                                     mt.maint_batch_size(self.cfg))
-                out = mt._commit_op(self.cfg, self._state, new_cents, batch,
-                                    want_plan)
+                batch = mt.pad_batch(
+                    self.cfg, gathered, lists,
+                    mt.maint_batch_size(self.cfg, self.n_shards))
+                if self._mesh is None:
+                    out = mt._commit_op(self.cfg, self._state, new_cents,
+                                        batch, want_plan)
+                else:
+                    out = mt._commit_op_mesh(self.cfg, self._mesh,
+                                             self._axis, self._state,
+                                             new_cents, batch, want_plan)
                 self._state, aux = out[0], mt.read_aux(out[1])
                 committed = bool(aux["committed"])
                 if want_plan and committed:
@@ -978,18 +1132,23 @@ class Index:
     def save(self, path) -> None:
         """Persist the index in the reference's checkpoint format 3
         (``checkpoint/manager.py``: atomic, checksummed): one array per
-        plane in ``PLANES`` order with the reference's dtypes, and the
-        ``index.json`` sidecar. A tiered index saves its assembled full
-        pool, the same arrays an untiered one would."""
+        plane in ``PLANES`` order with the reference's dtypes (on a mesh
+        each stacked ``[S, ...]``), and the ``index.json`` sidecar with the
+        backend, the shard count and the routing rule (``id % n_shards``).
+        A tiered index saves its assembled full pool, the same arrays an
+        untiered one would."""
         from repro_torch.checkpoint.manager import CheckpointManager
         mgr = CheckpointManager(path, keep_last=1)
+        n = self.n_shards
         mgr.save_metadata(self._META, {
             "format": 3,
             "pq_trained": self._pq_trained,
-            "backend": "single",
-            "n_shards": 1,
-            "routing": {"rule": "mod", "n_shards": 1, "axis": "data"},
-            "axis": "data",
+            "backend": self.backend,
+            "n_shards": n,
+            # self-describing shard routing: a loader re-routes rows onto
+            # another shard count knowing only the sidecar
+            "routing": {"rule": "mod", "n_shards": n, "axis": self._axis},
+            "axis": self._axis,
             # the reference's defaults: the port has no impl or block_q
             "impl": "xla",
             "block_q": 8,
@@ -1002,7 +1161,11 @@ class Index:
         if self._tiered is not None:
             self._tiered.drain_plans()
             planes = trt.assemble_full(self.cfg, self._state,
-                                       self._tiered.store)
+                                       self._tiered.store) \
+                if self._mesh is None else trt.assemble_full_mesh(
+                    self.cfg, self._state, self._tiered.stores)
+        elif self._mesh is not None:
+            planes = self._state.stacked_numpy()
         else:
             planes = interop.state_to_numpy(self._state)
         mgr.save(0, [planes[name] for name in PLANES])
@@ -1011,32 +1174,51 @@ class Index:
     def load(cls, path, backend=None, **overrides) -> "Index":
         """Rebuild a handle from :meth:`save` output, the reference's
         included (formats 1-3; the planes a format-1 or -2 checkpoint
-        lacks fill fresh). The planes go onto ``device`` (``"cuda"``
-        unless given in ``overrides``) directly; a tiered target
+        lacks fill fresh), onto *any* backend.
+
+        Loading is elastic: a checkpoint saved on S shards loads onto S'
+        shards or ``"single"``. When the target's topology matches the
+        checkpoint's, the planes go onto their devices directly; otherwise
+        they are flattened to the canonical live-row table and re-routed
+        by ``id % S'`` (``core.distributed.reshard_state``): searches
+        return the same ids and distances either way, and later inserts
+        land on the owning shard.
+
+        ``backend`` is a ``ShardMesh`` or ``"single"``; a single-device
+        checkpoint defaults to ``"single"``, a sharded one needs it given.
+        ``device`` (``"cuda"`` unless given in ``overrides``) places a
+        single target; a mesh brings its devices. A tiered target
         (``device_slabs=`` here, or in the saved config) puts only the
-        metadata there. Other ``overrides`` replace saved handle options
-        (``strict``, ``min_bucket``, ...); the sidecar's ``impl`` and
-        ``block_q`` are ignored. A mesh checkpoint raises
-        ``NotImplementedError`` (ROADMAP.md queue 1 item 10)."""
+        metadata on the device. Other ``overrides`` replace saved handle
+        options (``strict``, ``min_bucket``, ``axis``, ...); the sidecar's
+        ``impl`` and ``block_q`` are ignored."""
         from repro_torch.checkpoint.manager import CheckpointManager
-        if backend not in (None, "single"):
-            raise _not_ported(f"Index.load(backend={backend!r})",
-                              ROADMAP_DIST)
         mgr = CheckpointManager(path)
         meta = mgr.load_metadata(cls._META)
-        if meta.get("backend", "single") != "single" \
-                or int(meta.get("n_shards", 1)) > 1:
-            raise _not_ported(
-                f"loading a {meta.get('backend')} checkpoint of "
-                f"{meta.get('n_shards')} shards", ROADMAP_DIST)
         cfg = interop.config_from_dict(meta["cfg"])
         if "device_slabs" in overrides:     # retier on load
             cfg = dataclasses.replace(
                 cfg, device_slabs=overrides.pop("device_slabs"))
-        kw = {"use_tables": meta["use_tables"], "strict": meta["strict"],
+        kw = {"axis": meta.get("axis", "data"),
+              "use_tables": meta["use_tables"], "strict": meta["strict"],
               "min_bucket": meta["min_bucket"],
               "deferred": meta.get("deferred", False)}
         kw.update(overrides)
+        src_kind = meta.get("backend", "single")
+        src_shards = int(meta.get("n_shards", 1))
+        # checkpoints older than the routing field used the same mod rule
+        rule = meta.get("routing", {}).get("rule", "mod")
+        if rule != "mod":
+            raise ValueError(
+                f"checkpoint uses unknown shard-routing rule {rule!r}; "
+                f"this build can only re-route 'mod' checkpoints")
+        if backend is None:
+            if src_kind == "mesh":
+                raise ValueError(
+                    "sharded checkpoint: pass backend= — the target mesh, "
+                    "or 'single' to collapse the shards onto one device")
+            backend = "single"
+        tgt_kind, n_to = _resolve_backend(backend, kw["axis"])
         step = mgr.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint steps under {path}")
@@ -1045,12 +1227,116 @@ class Index:
         # ``codes`` / ``pq_codebooks`` / ``attrs``, format 2 ``attrs``
         n_miss = {1: 3, 2: 1}.get(int(meta.get("format", 1)), 0)
         ns, c = cfg.n_slabs, cfg.capacity
-        fresh = {"codes": np.zeros((ns, c, cfg.code_m), np.uint8),
-                 "pq_codebooks": np.zeros(cfg.codebook_shape, np.float32),
-                 "attrs": np.zeros((ns, c, cfg.n_attrs), np.int32)}
+        lead = (src_shards,) if src_kind == "mesh" else ()
+        fresh = {"codes": np.zeros(lead + (ns, c, cfg.code_m), np.uint8),
+                 "pq_codebooks": np.zeros(lead + cfg.codebook_shape,
+                                          np.float32),
+                 "attrs": np.zeros(lead + (ns, c, cfg.n_attrs), np.int32)}
         out += [fresh[name] for name in PLANES[len(PLANES) - n_miss:]]
         if len(out) != len(PLANES):
             raise ValueError(f"checkpoint stored {len(out)} leaves but the "
                              f"state needs {len(PLANES)}")
-        return cls(cfg, None, _state=dict(zip(PLANES, out)),
+        planes = dict(zip(PLANES, out))
+        want = lead + (ns, c)
+        if planes["ids"].shape != want:
+            raise ValueError(
+                f"checkpoint ids plane is {planes['ids'].shape} but a "
+                f"{src_shards}-shard {src_kind} state of this config "
+                f"needs {want}")
+        state = planes
+        if not (tgt_kind == src_kind and n_to == src_shards):
+            # elastic reshard: host planes -> live-row table -> target;
+            # a tiered target is rebuilt on the host and split after
+            if cfg.tiered:
+                devices = "cpu"
+            elif tgt_kind == "mesh":
+                devices = backend.devices
+            else:
+                devices = resolve_device(kw.get("device") or "cuda")
+            state = dist.reshard_state(
+                dataclasses.replace(cfg, device_slabs=None), planes,
+                src_shards, n_to, stack=tgt_kind == "mesh", device=devices)
+        return cls(cfg, None, backend=backend, _state=state,
                    _pq_trained=meta.get("pq_trained", True), **kw)
+
+    # -- elastic resharding -------------------------------------------------
+
+    def reshard(self, backend="single", *, axis: str | None = None
+                ) -> "Index":
+        """Remap this *live* handle onto a new backend in place.
+
+        ``backend`` is a ``ShardMesh`` (any shard count) or ``"single"``.
+        Pending deferred reports are flushed first (their counts refer to
+        the old topology); then the slab pools flatten to the canonical
+        live-row table, re-route by ``id % S'`` and rebuild on the target
+        (``core.distributed.reshard_state``, the path :meth:`load` takes),
+        so searches return the same ids and distances before and after
+        and later mutations land on the owning shard. A tiered handle
+        keeps its cache counters. Returns ``self``.
+        """
+        with self._telemetry.span("reshard", root="auto",
+                                  n_from=self.n_shards):
+            return self._reshard_impl(backend, axis)
+
+    def _reshard_impl(self, backend, axis):
+        self.flush()
+        axis = self._axis if axis is None else axis
+        tgt_kind, n_to = _resolve_backend(backend, axis)
+        if tgt_kind == "mesh":
+            for d in set(backend.devices):
+                resolve_device(d)
+        if self._tiered is not None:
+            # the assembled full pool, resharded under the untiered twin
+            # config on the host, then split into stores + meta again
+            self._tiered.drain_plans()
+            src = trt.assemble_full(self.cfg, self._state,
+                                    self._tiered.store) \
+                if self._mesh is None else trt.assemble_full_mesh(
+                    self.cfg, self._state, self._tiered.stores)
+            cfg_r, devices = dataclasses.replace(self.cfg,
+                                                 device_slabs=None), "cpu"
+        else:
+            src, cfg_r = self._state, self.cfg
+            devices = backend.devices if tgt_kind == "mesh" else self.device
+        state = dist.reshard_state(cfg_r, src, self.n_shards, n_to,
+                                   stack=tgt_kind == "mesh", device=devices)
+        if self._tiered is not None:
+            pin = self.device.type == "cuda"
+            if tgt_kind == "mesh":
+                meta, stores = trt.split_full_mesh(self.cfg, state, pin)
+                state = dist.place_sharded(self.cfg, meta, backend, axis)
+                rt = trt.MeshTieredRuntime(
+                    self.cfg, backend.devices, self._use_tables, stores,
+                    telemetry=self._telemetry)
+            else:
+                meta, store = trt.split_full(self.cfg, state, pin)
+                state = interop.state_from_numpy(self.cfg, meta, self.device)
+                rt = trt.TieredRuntime(
+                    self.cfg, self.device, self._use_tables, store,
+                    telemetry=self._telemetry)
+            # the cache counters (and their window marks) carry over
+            self._tiered = rt.carry_from(self._tiered)
+        if tgt_kind == "mesh":
+            self._ops = _MeshOps(self.cfg, backend, axis, self._use_tables)
+            self._mesh = backend
+            self.device = backend.devices[0]
+        else:
+            self._ops = _SingleOps(self.cfg, self._use_tables)
+            self._mesh = None
+        self._axis = axis
+        self._state = state
+        return self
+
+
+def _check_mesh_device(mesh, device) -> None:
+    """An explicit ``device=`` must agree with every device of ``mesh``."""
+    if device is None:
+        return
+    dev = torch.device(device)
+    for d in mesh.devices:
+        if d.type != dev.type or (dev.index is not None
+                                  and d.index != dev.index):
+            raise ValueError(
+                f"device={str(dev)!r} disagrees with the mesh's devices "
+                f"{[str(x) for x in mesh.devices]}; a mesh index lives on "
+                f"its mesh's devices (omit device=)")

@@ -29,9 +29,16 @@ def n_words(capacity: int) -> int:
 
 
 def slot_word_bit(slot: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decompose slot index -> (word index, int32 bit mask)."""
-    bits = torch.from_numpy(_BIT_NP).to(slot.device)
-    return slot // WORD_BITS, bits[(slot % WORD_BITS).long()]
+    """Decompose slot index -> (word index, int32 bit mask).
+
+    The masks are :data:`_BIT_NP`'s, made on ``slot``'s device: copying
+    the table there would make the host wait (a copy from pageable
+    memory) at every insert and delete."""
+    s = (slot % WORD_BITS).to(torch.int32)
+    low = torch.bitwise_left_shift(torch.ones_like(s),
+                                   s.clamp(max=WORD_BITS - 2))
+    return slot // WORD_BITS, torch.where(s == WORD_BITS - 1,
+                                          int(_BIT_NP[-1]), low)
 
 
 def get_bits(bitmap: torch.Tensor, slab: torch.Tensor, slot: torch.Tensor

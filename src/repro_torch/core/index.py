@@ -92,40 +92,27 @@ def _dedupe_keep_last(ext_ids: torch.Tensor, valid: torch.Tensor
     return valid & keep
 
 
-def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
-                 ext_ids: torch.Tensor, lists: torch.Tensor,
-                 codes: torch.Tensor | None = None,
-                 attrs: torch.Tensor | None = None,
-                 want_plan: bool = False):
-    """All-or-nothing batched insert (reference ``_insert_impl``).
+class _InsertStage:
+    """An insert batch up to its commit decision (:func:`_insert_stage`)."""
 
-    The overwrite-deletes run on clones of the delete planes (``staged``)
-    while ``state`` stays intact; the allocation plan is computed exactly
-    on the staged pool. One host read of ``(ok, rows, new slabs)`` then
-    picks the outcome: an aborted batch (``POOL_EXHAUSTED`` /
-    ``CHAIN_OVERFLOW``) returns ``state`` untouched except for its error
-    bits; a committed batch writes its payloads into the shared payload
-    planes in place and returns ``staged``.
+    __slots__ = ("vecs", "ext_ids", "staged", "sl", "order", "rank",
+                 "space_l", "n_new_l", "offs_l", "pool_ok", "chain_ok",
+                 "range_bit", "decision")
 
-    With ``cfg.pq``, ``codes`` [B, m] may carry pre-encoded codewords;
-    omitted, the batch's rows are encoded once. With ``cfg.attributes``,
-    ``attrs`` [B, n_attrs] stamps each row (zeros when omitted). Both ride
-    the batch's sort and its commit; an aborted batch writes neither.
 
-    With ``want_plan=True`` (the tiered pool, ``core/tiered.py``) the
-    return value is ``(state, plan)``: ``plan["slab"]`` / ``plan["slot"]``
-    [B] int32 give the (slab, slot) the commit wrote for each *input*
-    row, slab -1 (slot 0) for padding rows, ids out of range, rows
-    superseded by a later duplicate and every row of an aborted batch;
-    ``plan["codes"]`` [B, code_m] uint8 holds the device-encoded PQ codes
-    in input order (zeros where the slab is -1). The plan stays on the
-    device. In tiered mode (``cfg.payload_slabs == 0``) the payload
-    planes are zero-width and their writes are skipped: the host store
-    replays them from the plan.
+def _insert_stage(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
+                  ext_ids: torch.Tensor, lists: torch.Tensor) -> _InsertStage:
+    """The first half of an insert, on the device and without a host read.
+
+    Sanitizes the ids, stages the overwrite-deletes on clones of the
+    delete planes (``state`` stays intact), sorts the batch by list and
+    plans each list's capacity. ``decision`` is the int64 device vector
+    ``(ok, valid rows, new slabs)`` that :func:`_insert_commit` needs on
+    the host: a mesh reads every shard's in one copy.
     """
     b = vecs.shape[0]
     c = cfg.capacity
-    ns, nl, nm = cfg.n_slabs, cfg.n_lists, cfg.n_max
+    nl, nm = cfg.n_lists, cfg.n_max
     dev = state.device
     ext_ids = ext_ids.to(_I32)
 
@@ -146,7 +133,10 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     sl, order = torch.sort(lists_key, stable=True)             # [B] sorted
     first_ix = torch.searchsorted(sl, sl, side="left")
     rank = (torch.arange(b, device=dev) - first_ix).to(_I32)
-    counts = torch.bincount(lists_key, minlength=nl + 1)[:nl].to(_I32)
+    # per-list counts by integer adds (exact in any order); unlike
+    # ``bincount`` this reads no device value on the host
+    counts = torch.zeros((nl + 1,), dtype=_I32, device=dev).index_add_(
+        0, lists_key.long(), torch.ones_like(lists_key))[:nl]
 
     # -- per-list capacity plan (segmented prefix sums) --------------------
     heads = staged.heads
@@ -154,31 +144,59 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
                         c)
     space_l = (c - cur_l).to(_I32)                             # head free slots
     n_new_l = ceil_div((counts - space_l).clamp(min=0), c).to(_I32)
-    offs_l = exclusive_cumsum(n_new_l)
     total_new = n_new_l.sum(dtype=_I32)
-    pool_ok = total_new <= staged.free_top                     # fail-fast
-    chain_ok = torch.all(staged.table_len + n_new_l <= cfg.max_chain)
 
-    # the one host sync of an insert: valid rows are a prefix of the
-    # list-sorted batch and new slabs a prefix of the allocation order
-    ok, n_valid, n_new = torch.stack(
-        [pool_ok & chain_ok, (sl < nl).sum(), total_new]).tolist()
-    range_bit = torch.where(err_range, ERR_ID_RANGE, 0).to(_I32)
+    st = _InsertStage()
+    st.vecs, st.ext_ids, st.staged = vecs, ext_ids, staged
+    st.sl, st.order, st.rank = sl, order, rank
+    st.space_l, st.n_new_l = space_l, n_new_l
+    st.offs_l = exclusive_cumsum(n_new_l)
+    st.pool_ok = total_new <= staged.free_top                  # fail-fast
+    st.chain_ok = torch.all(staged.table_len + n_new_l <= cfg.max_chain)
+    st.range_bit = torch.where(err_range, ERR_ID_RANGE, 0).to(_I32)
+    # valid rows are a prefix of the list-sorted batch and new slabs a
+    # prefix of the allocation order: three numbers place every write
+    st.decision = torch.stack([(st.pool_ok & st.chain_ok).long(),
+                               (sl < nl).sum(), total_new.long()])
+    return st
+
+
+def _stage_error_bits(st: _InsertStage) -> torch.Tensor:
+    """The error bits the staged batch raises if it aborts (device int32)."""
+    return (torch.where(st.pool_ok, 0, ERR_POOL_EXHAUSTED)
+            | torch.where(st.chain_ok, 0, ERR_CHAIN_OVERFLOW)
+            ).to(_I32) | st.range_bit
+
+
+def _insert_commit(cfg: SIVFConfig, state: SlabPoolState, st: _InsertStage,
+                   decision, codes: torch.Tensor | None = None,
+                   attrs: torch.Tensor | None = None,
+                   want_plan: bool = False):
+    """The second half of an insert: ``decision`` is ``st.decision`` read
+    on the host as ``(ok, n_valid, n_new)``. An aborted batch returns
+    ``state`` untouched except for its error bits; a committed one writes
+    its payloads into the shared payload planes in place and returns the
+    staged state. See :func:`_insert_impl` for ``want_plan``."""
+    ok, n_valid, n_new = (int(x) for x in decision)
+    b = st.vecs.shape[0]
+    c = cfg.capacity
+    ns = cfg.n_slabs
+    dev = state.device
+    staged, heads = st.staged, st.staged.heads
     if want_plan:
         plan = {"slab": torch.full((b,), -1, dtype=_I32, device=dev),
                 "slot": torch.zeros((b,), dtype=_I32, device=dev),
                 "codes": torch.zeros((b, cfg.code_m), dtype=torch.uint8,
                                      device=dev)}
     if not ok:
-        state.error |= (torch.where(pool_ok, 0, ERR_POOL_EXHAUSTED)
-                        | torch.where(chain_ok, 0, ERR_CHAIN_OVERFLOW)
-                        ).to(_I32) | range_bit
+        state.error |= _stage_error_bits(st)
         return (state, plan) if want_plan else state
 
     # -- per-item coordinates (valid rows only) ----------------------------
-    sl, rank = sl[:n_valid].long(), rank[:n_valid]
-    rows = order[:n_valid]
-    sv, sids = vecs[rows], ext_ids[rows]
+    space_l, n_new_l, offs_l = st.space_l, st.n_new_l, st.offs_l
+    sl, rank = st.sl[:n_valid].long(), st.rank[:n_valid]
+    rows = st.order[:n_valid]
+    sv, sids = st.vecs[rows], st.ext_ids[rows]
     if cfg.pq is not None:
         new_codes = pqmod.encode(staged.pq_codebooks, sv) if codes is None \
             else codes[rows].to(torch.uint8)
@@ -217,9 +235,10 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
         staged.nxt[gi] = nxt_of_g
         staged.prv[gi] = prv_of_g.to(_I32)
         staged.owner[gi] = list_of_g.to(_I32)
-        staged.cursor[gi] = 0
-        staged.live[gi] = 0
-        staged.bitmap[gi] = 0
+        # index_fill_, not ``[gi] = 0``: a Python scalar assigned through an
+        # index tensor is copied to the device first, and the host waits
+        for plane in (staged.cursor, staged.live, staged.bitmap):
+            plane.index_fill_(0, gi, 0)
         # per-list head relink
         has_new = n_new_l > 0
         first_new_l = slab_of_g[offs_l.clamp(0, n_new - 1).long()]
@@ -255,7 +274,7 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     staged.att_slab[sids.long()] = item_slab.to(_I32)
     staged.att_slot[sids.long()] = item_slot.to(_I32)
     staged.n_live += n_valid
-    staged.error |= range_bit
+    staged.error |= st.range_bit
     if not want_plan:
         return staged
     plan["slab"][rows] = item_slab.to(_I32)
@@ -263,6 +282,43 @@ def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     if cfg.pq is not None:
         plan["codes"][rows] = new_codes
     return staged, plan
+
+
+def _insert_impl(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
+                 ext_ids: torch.Tensor, lists: torch.Tensor,
+                 codes: torch.Tensor | None = None,
+                 attrs: torch.Tensor | None = None,
+                 want_plan: bool = False):
+    """All-or-nothing batched insert (reference ``_insert_impl``).
+
+    The overwrite-deletes run on clones of the delete planes (``staged``)
+    while ``state`` stays intact; the allocation plan is computed exactly
+    on the staged pool. One host read of ``(ok, rows, new slabs)`` then
+    picks the outcome: an aborted batch (``POOL_EXHAUSTED`` /
+    ``CHAIN_OVERFLOW``) returns ``state`` untouched except for its error
+    bits; a committed batch writes its payloads into the shared payload
+    planes in place and returns ``staged``.
+
+    With ``cfg.pq``, ``codes`` [B, m] may carry pre-encoded codewords;
+    omitted, the batch's rows are encoded once. With ``cfg.attributes``,
+    ``attrs`` [B, n_attrs] stamps each row (zeros when omitted). Both ride
+    the batch's sort and its commit; an aborted batch writes neither.
+
+    With ``want_plan=True`` (the tiered pool, ``core/tiered.py``) the
+    return value is ``(state, plan)``: ``plan["slab"]`` / ``plan["slot"]``
+    [B] int32 give the (slab, slot) the commit wrote for each *input*
+    row, slab -1 (slot 0) for padding rows, ids out of range, rows
+    superseded by a later duplicate and every row of an aborted batch;
+    ``plan["codes"]`` [B, code_m] uint8 holds the device-encoded PQ codes
+    in input order (zeros where the slab is -1). The plan stays on the
+    device. In tiered mode (``cfg.payload_slabs == 0``) the payload
+    planes are zero-width and their writes are skipped: the host store
+    replays them from the plan.
+    """
+    st = _insert_stage(cfg, state, vecs, ext_ids, lists)
+    # the one host read of an insert
+    return _insert_commit(cfg, state, st, st.decision.tolist(), codes, attrs,
+                          want_plan)
 
 
 def insert(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
@@ -459,14 +515,17 @@ def search(cfg: SIVFConfig, state: SlabPoolState, queries: torch.Tensor,
 # Introspection
 # ---------------------------------------------------------------------------
 
-def _memory_stats(cfg: SIVFConfig) -> dict:
-    """Pool memory footprint (one source of truth: ``memory_report``)."""
+def _memory_stats(cfg: SIVFConfig, n_shards: int = 1) -> dict:
+    """Pool memory footprint (one source of truth: ``memory_report``), the
+    per-pool planes scaled by the shard count; ``compression_ratio``
+    (shard-count invariant) only with PQ."""
     mr = memory_report(cfg)
-    keys = ("payload_bytes", "code_bytes", "attr_bytes", "host_bytes",
-            "device_bytes", "device_cache_bytes")
+    out = {k: mr[k] * n_shards
+           for k in ("payload_bytes", "code_bytes", "attr_bytes",
+                     "host_bytes", "device_bytes", "device_cache_bytes")}
     if cfg.pq is not None:
-        keys += ("compression_ratio",)
-    return {k: mr[k] for k in keys}
+        out["compression_ratio"] = mr["compression_ratio"]
+    return out
 
 
 def stats(cfg: SIVFConfig, state: SlabPoolState) -> dict:
@@ -493,7 +552,8 @@ def stats(cfg: SIVFConfig, state: SlabPoolState) -> dict:
 
 
 def _list_occupancy(cfg: SIVFConfig, state: SlabPoolState) -> np.ndarray:
-    """Exact per-list live-row counts, recounted from bitmaps + ownership."""
+    """Exact per-list live-row counts, recounted from bitmaps + ownership
+    (of one pool, or summed over a mesh's stacked ``[S, ...]`` planes)."""
     owner = state.owner.cpu().numpy()
     per_slab = host_live_mask(cfg, state.bitmap).sum(-1)
     occ = np.zeros((cfg.n_lists,), np.int64)

@@ -1,7 +1,7 @@
 """Online index maintenance under drift: split / merge / re-cluster.
 
-PyTorch counterpart of ``repro/core/maintenance.py``, single backend (the
-mesh commit is ROADMAP.md queue 1 item 10).
+PyTorch counterpart of ``repro/core/maintenance.py``, on one pool or a
+mesh of shards (``core/distributed.py``).
 
   * **split**  — a skewed list's live rows are re-partitioned by a local
     deterministic 2-means trained on the skewed list's rows alone; the
@@ -21,7 +21,10 @@ reference's code, so the new centroids are ``==`` the reference's), then
 ONE atomic device batch through ``index._insert_impl`` on a state staged
 with the new centroids. A failed op (pool exhausted / chain overflow)
 restores the old centroid plane and leaves every live id where it was.
-Stored PQ codes ride the re-insert verbatim.
+Stored PQ codes ride the re-insert verbatim. On a mesh the gather reads
+every shard, the batch is broadcast (each shard re-inserts the rows it
+owns) and the shards vote: if any would abort, none commits
+(``distributed.sharded_maintain``).
 """
 from __future__ import annotations
 
@@ -91,23 +94,33 @@ class MaintenanceReport:
 # Host-side gather
 # ---------------------------------------------------------------------------
 
-def shard_views(cfg: SIVFConfig, state: SlabPoolState, stores=None) -> list:
-    """Views of the planes the gather needs, one dict per shard (one here).
+def _shards(state) -> list:
+    """The per-shard pools of a ``SlabPoolState`` (one) or a
+    ``distributed.ShardedState``."""
+    from repro_torch.core.distributed import ShardedState
+    return state.shards if isinstance(state, ShardedState) else [state]
+
+
+def shard_views(cfg: SIVFConfig, state, stores=None) -> list:
+    """Views of the planes the gather needs, one dict per shard.
 
     ``owner`` / ``bitmap`` / ``ids`` come to the host; the payload planes
-    stay where they are (the state's tensors, or the tiered host store's
+    stay where they are (the state's tensors, or the tiered host stores'
     arrays when the device ones are zero-width) and :func:`gather_live`
     reads only the rows it selects.
     """
     if cfg.tiered and stores is None:
         raise ValueError("tiered config: maintenance gather needs the "
                          "host stores (pass stores=runtime.stores)")
-    v = {"owner": state.owner.cpu().numpy(),
-         "bitmap": state.bitmap.cpu().numpy(),
-         "ids": state.ids.cpu().numpy()}
-    src = stores[0] if cfg.tiered else state
-    v["data"], v["codes"], v["attrs"] = src.data, src.codes, src.attrs
-    return [v]
+    views = []
+    for s, sh in enumerate(_shards(state)):
+        v = {"owner": sh.owner.cpu().numpy(),
+             "bitmap": sh.bitmap.cpu().numpy(),
+             "ids": sh.ids.cpu().numpy()}
+        src = stores[s] if cfg.tiered else sh
+        v["data"], v["codes"], v["attrs"] = src.data, src.codes, src.attrs
+        views.append(v)
+    return views
 
 
 def _rows(plane, si: np.ndarray, so: np.ndarray) -> np.ndarray:
@@ -159,7 +172,8 @@ def gather_live(cfg: SIVFConfig, state: SlabPoolState, views: list,
         # PQ without store_raw: stand-in vectors decoded from the stored
         # codes. They feed only the norms plane and the centroid means;
         # the codes ride the re-insert verbatim.
-        cb = state.pq_codebooks.cpu().numpy().astype(np.float32)
+        cb = _shards(state)[0].pq_codebooks.cpu().numpy().astype(
+            np.float32)                  # shard 0's replica on a mesh
         m = cb.shape[0]
         if len(ids):
             c = codes.astype(np.int64)                   # [N, m]
@@ -314,6 +328,33 @@ def _commit_op(cfg: SIVFConfig, state: SlabPoolState, new_cents, batch: dict,
            "n_live": st.n_live.clone()}
     st = clear_error(st)
     return (st, aux, plan) if want_plan else (st, aux)
+
+
+def _commit_op_mesh(cfg: SIVFConfig, mesh, axis: str, state, new_cents,
+                    batch: dict, want_plan: bool = False):
+    """The mesh twin of :func:`_commit_op` (``distributed.sharded_maintain``):
+    the batch broadcast to every shard, one vote, every shard committed or
+    every shard kept as it was. ``aux`` adds ``shard_errors`` [S], each
+    shard's own bits, and ``errors`` ORs them."""
+    from repro_torch.core import distributed as dist
+    dev = state.device
+    put = (lambda a: None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev))
+    out = dist.sharded_maintain(cfg, mesh, axis, want_plan)(
+        state, put(np.asarray(new_cents, np.float32)), put(batch["vecs"]),
+        put(batch["ids"]), put(batch["lists"]),
+        put(batch["codes"]) if cfg.pq is not None else None,
+        put(batch["attrs"]) if cfg.n_attrs else None)
+    st, errs = out[0], out[1]
+    bits = torch.zeros((), dtype=torch.int32, device=dev)
+    for e in errs:
+        bits = bits | e
+    aux = {"errors": bits,
+           "committed": (~torch.any((errs & ABORT_BITS) != 0)).to(
+               torch.int32),
+           "n_live": st.stacked("n_live").sum(dtype=torch.int32),
+           "shard_errors": errs}
+    return (st, aux, out[2]) if want_plan else (st, aux)
 
 
 def read_aux(aux: dict) -> dict:

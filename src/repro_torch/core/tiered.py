@@ -1,6 +1,8 @@
 """Tiered slab pool: host-resident cold store + on-device hot slab cache.
 
-PyTorch counterpart of ``repro/core/tiered.py``, single backend.
+PyTorch counterpart of ``repro/core/tiered.py``, on one device
+(:class:`TieredRuntime`) or a mesh of shards (:class:`MeshTieredRuntime`:
+one host store, residency and frame cache per shard).
 
   * **Host store** (:class:`HostStore`) — the canonical payload planes
     (``data`` / ``codes`` / ``attrs``), sized by the full ``cfg.n_slabs``
@@ -54,8 +56,7 @@ its explicit copies.
 
 Residency is runtime-only state: checkpoints store the assembled
 full-pool planes (:func:`assemble_full`), so a tiered save writes the
-same arrays as an untiered one. The mesh backend's per-shard caches are
-ROADMAP.md queue 1 item 10.
+same arrays as an untiered one.
 """
 from __future__ import annotations
 
@@ -198,11 +199,17 @@ def cache_view(cfg: SIVFConfig, state: SlabPoolState, cache: SlabCacheDev
 # ---------------------------------------------------------------------------
 
 def is_full_state(cfg: SIVFConfig, state) -> bool:
-    """True when ``state`` (a ``SlabPoolState`` or ``{plane: array}``)
-    carries full-width payload planes, not a tiered meta state's
-    zero-width ones."""
-    data = state["data"] if isinstance(state, dict) else state.data
-    return data.shape[0] == cfg.n_slabs
+    """True when ``state`` (a ``SlabPoolState``, a mesh's
+    ``ShardedState``, or ``{plane: array}``, stacked or not) carries
+    full-width payload planes, not a tiered meta state's zero-width
+    ones."""
+    if isinstance(state, dict):
+        data = state["data"]
+    elif hasattr(state, "shards"):
+        data = state.shards[0].data
+    else:
+        data = state.data
+    return data.shape[-3] == cfg.n_slabs
 
 
 def _host_planes(state) -> dict:
@@ -224,6 +231,62 @@ def split_full(cfg: SIVFConfig, full, pin: bool = False
                 codes=np.zeros((0, c, cfg.code_m), np.uint8),
                 attrs=np.zeros((0, c, cfg.n_attrs), np.int32))
     return meta, store
+
+
+def split_full_mesh(cfg: SIVFConfig, full, pin: bool = False
+                    ) -> tuple[dict, list[HostStore]]:
+    """A mesh's full pools (a ``ShardedState`` or stacked ``{plane:
+    array}``) -> (stacked ``{plane: array}`` with zero-width payload
+    planes, one host store per shard)."""
+    planes = full.stacked_numpy() if hasattr(full, "stacked_numpy") \
+        else {name: np.asarray(full[name]) for name in PLANES}
+    metas, stores = [], []
+    for s in range(planes["ids"].shape[0]):
+        meta, store = split_full(cfg, {k: v[s] for k, v in planes.items()},
+                                 pin)
+        metas.append(meta)
+        stores.append(store)
+    return {name: np.stack([m[name] for m in metas]) for name in PLANES}, \
+        stores
+
+
+def assemble_full_mesh(cfg: SIVFConfig, meta, stores: list[HostStore]
+                       ) -> dict:
+    """:func:`assemble_full` of each shard of a mesh's meta state, stacked
+    ``[S, ...]``: what a mesh checkpoint stores."""
+    per = [assemble_full(cfg, sh, st) for sh, st in zip(meta.shards, stores)]
+    return {name: np.stack([p[name] for p in per]) for name in PLANES}
+
+
+def _plans_to_host(plans: list) -> tuple[list, bool]:
+    """Queued plans as numpy, every device tensor among them copied in ONE
+    device-to-host transfer; and whether there was one to copy."""
+    keys = ("slab", "slot", "codes", "vecs", "attrs")
+    dev = [(i, k, plans[i][k]) for i in range(len(plans)) for k in keys
+           if isinstance(plans[i][k], torch.Tensor)
+           and plans[i][k].device.type != "cpu"]
+    dev.sort(key=lambda e: -e[2].element_size())   # aligned dtype views
+    if dev:
+        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                          for _, _, t in dev]).cpu()
+        off = 0
+        for i, k, t in dev:
+            n = t.numel() * t.element_size()
+            plans[i][k] = flat[off:off + n].view(t.dtype).reshape(t.shape)
+            off += n
+    return [{k: None if p[k] is None else np.asarray(
+        p[k].numpy() if isinstance(p[k], torch.Tensor) else p[k])
+        for k in keys} for p in plans], bool(dev)
+
+
+def _slab_counts(cfg: SIVFConfig, table: torch.Tensor) -> torch.Tensor:
+    """Per-slab reference counts of a slab table, on its device."""
+    ns = cfg.n_slabs
+    flat = table.reshape(-1)
+    idx = torch.where(flat >= 0, flat, ns).long()
+    counts = torch.zeros((ns + 1,), dtype=torch.int32, device=table.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts[:ns]
 
 
 def assemble_full(cfg: SIVFConfig, meta: SlabPoolState, store: HostStore
@@ -261,6 +324,7 @@ class TieredRuntime:
             raise ValueError("TieredRuntime needs SIVFConfig(device_slabs=)")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.shard = 0                   # its place on a mesh (messages)
         self.use_tables = use_tables
         self.pin = self.device.type == "cuda"
         self.store = store or HostStore.build(cfg, self.pin)
@@ -329,25 +393,10 @@ class TieredRuntime:
         if not self._plans:
             return
         plans, self._plans = self._plans, []
-        keys = ("slab", "slot", "codes", "vecs", "attrs")
-        dev = [(i, k, plans[i][k]) for i in range(len(plans)) for k in keys
-               if isinstance(plans[i][k], torch.Tensor)
-               and plans[i][k].device.type != "cpu"]
-        dev.sort(key=lambda e: -e[2].element_size())   # aligned dtype views
-        if dev:
-            flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
-                              for _, _, t in dev]).cpu()
-            self.d2h_reads += 1
-            off = 0
-            for i, k, t in dev:
-                n = t.numel() * t.element_size()
-                plans[i][k] = flat[off:off + n].view(t.dtype).reshape(
-                    t.shape)
-                off += n
-        for p in plans:
-            self._apply_plan({k: None if p[k] is None else np.asarray(
-                p[k].numpy() if isinstance(p[k], torch.Tensor) else p[k])
-                for k in keys})
+        host, copied = _plans_to_host(plans)
+        self.d2h_reads += copied
+        for p in host:
+            self._apply_plan(p)
 
     def _apply_plan(self, p: dict) -> None:
         slab, slot = p["slab"], p["slot"]
@@ -369,14 +418,17 @@ class TieredRuntime:
     def plan(self, state: SlabPoolState, queries: torch.Tensor, nprobe: int
              ) -> torch.Tensor:
         """Stage 1: probe lists -> pool slab-id table ``[Q, T]``."""
-        cfg = self.cfg
-        ut = cfg.track_tables if self.use_tables is None else self.use_tables
         self._plan_sigs.add((int(queries.shape[0]), nprobe))
         with self.tel.span("plan"):
-            lists = quantizer.probe(state.centroids, queries.to(cfg.dtype),
-                                    nprobe, cfg.metric)
-            return (ix.gather_tables if ut else ix.walk_chains)(cfg, state,
-                                                                lists)
+            return self._table(state, queries, nprobe)
+
+    def _table(self, state: SlabPoolState, queries: torch.Tensor,
+               nprobe: int) -> torch.Tensor:
+        cfg = self.cfg
+        ut = cfg.track_tables if self.use_tables is None else self.use_tables
+        lists = quantizer.probe(state.centroids, queries.to(cfg.dtype),
+                                nprobe, cfg.metric)
+        return (ix.gather_tables if ut else ix.walk_chains)(cfg, state, lists)
 
     def prefetch(self, table: torch.Tensor, nprobe: int, epoch: int
                  ) -> PrefetchTicket:
@@ -388,14 +440,7 @@ class TieredRuntime:
         """
         with self.tel.span("prefetch"):
             self.drain_plans()
-            ns = self.cfg.n_slabs
-            flat = table.reshape(-1)
-            idx = torch.where(flat >= 0, flat, ns).long()
-            counts = torch.zeros((ns + 1,), dtype=torch.int32,
-                                 device=table.device)
-            counts.scatter_add_(0, idx,
-                                torch.ones_like(idx, dtype=torch.int32))
-            counts = counts[:ns].cpu().numpy()
+            counts = _slab_counts(self.cfg, table).cpu().numpy()
             self.d2h_reads += 1
             stats = {"refs": 0, "unique": 0, "hits": 0, "misses": 0,
                      "dirty_refresh": 0, "uploaded": 0, "evicted": 0}
@@ -434,10 +479,10 @@ class TieredRuntime:
         f_cap = self.cfg.device_slabs
         if uniq.size > f_cap:
             raise ValueError(
-                f"query batch probes {uniq.size} distinct slabs on shard 0 "
-                f"but device_slabs={f_cap}: the hot cache cannot hold one "
-                f"batch's working set — raise device_slabs, lower nprobe, "
-                f"or shrink the query batch")
+                f"query batch probes {uniq.size} distinct slabs on shard "
+                f"{self.shard} but device_slabs={f_cap}: the hot cache "
+                f"cannot hold one batch's working set — raise "
+                f"device_slabs, lower nprobe, or shrink the query batch")
         frame = res.frame_of[uniq]
         hit_slabs = uniq[frame >= 0]
         miss_slabs = uniq[frame < 0]
@@ -562,11 +607,15 @@ class TieredRuntime:
         self._scan_sigs.add((int(queries.shape[0]), int(table.shape[1]), k,
                              fstruct))
         with self.tel.span("scan"):
-            ftable = translate_table(table, self.cache.frame_of)
-            view = cache_view(self.cfg, state, self.cache)
-            return ix._scan_dispatch(self.cfg, view,
-                                     queries.to(self.cfg.dtype), ftable, k,
-                                     fstruct, fconsts)
+            return self._scan(state, queries, table, k, fstruct, fconsts)
+
+    def _scan(self, state: SlabPoolState, queries: torch.Tensor,
+              table: torch.Tensor, k: int, fstruct, fconsts
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        ftable = translate_table(table, self.cache.frame_of)
+        view = cache_view(self.cfg, state, self.cache)
+        return ix._scan_dispatch(self.cfg, view, queries.to(self.cfg.dtype),
+                                 ftable, k, fstruct, fconsts)
 
     def search(self, state: SlabPoolState, queries: torch.Tensor, k: int,
                nprobe: int, fstruct=None, fconsts=None, epoch: int = 0,
@@ -600,14 +649,19 @@ class TieredRuntime:
             getattr(self, name).carry(getattr(other, name))
         return self
 
+    def _residency(self) -> tuple[list, int]:
+        """(resident slabs per shard, dirty slabs)."""
+        return [self.res.resident_slabs], len(self.res.dirty)
+
     def stats(self) -> dict:
         probed = self.hits.total + self.misses.total
         probed_w = self.hits.window + self.misses.window
+        resident, dirty = self._residency()
         return {
             "tiered": True,
             "device_slabs": self.cfg.device_slabs,
-            "resident_slabs": self.res.resident_slabs,
-            "per_shard_resident": [self.res.resident_slabs],
+            "resident_slabs": sum(resident),
+            "per_shard_resident": resident,
             "hit_rate": (self.hits.total / probed) if probed else 1.0,
             "hit_rate_kind": "cumulative",
             "hit_rate_window": (self.hits.window / probed_w)
@@ -621,6 +675,161 @@ class TieredRuntime:
             "dedup_refs": self.refs.total,
             "dedup_unique_refs": self.unique_refs.total,
             "dedup_saved_fetches": self.refs.total - self.unique_refs.total,
-            "dirty_slabs": len(self.res.dirty),
+            "dirty_slabs": dirty,
             "pending_plans": len(self._plans),
         }
+
+
+class MeshTieredRuntime:
+    """The tiered pool on a mesh: one :class:`TieredRuntime` per shard
+    (its host store, residency and frame cache on the shard's device),
+    driven together as the reference's mesh runtime is.
+
+    A search's stages run on every shard: ``plan`` gives one slab table a
+    shard; ``prefetch`` drains the queued plans (the stacked ``[S, B]``
+    commit plans of the mesh's inserts, in one device read), reads every
+    shard's reference counts in ONE copy, runs each shard's LRU decisions
+    and packed upload, and counts once for the mesh; ``scan`` runs each
+    shard's frame-view scan and merges the partials as the untiered mesh
+    search does (``distributed.merge_partials``). The counters and
+    :meth:`stats` are the mesh's totals, as the reference's are.
+    """
+
+    _COUNTERS = TieredRuntime._COUNTERS
+
+    def __init__(self, cfg: SIVFConfig, devices, use_tables: bool | None
+                 = None, stores: list | None = None, telemetry=None):
+        devices = list(devices)
+        if stores is not None and len(stores) != len(devices):
+            raise ValueError(
+                f"{len(stores)} host stores for {len(devices)} shards")
+        self.cfg = cfg
+        self.shards = [TieredRuntime(cfg, d, use_tables,
+                                     None if stores is None else stores[s],
+                                     telemetry=telemetry)
+                       for s, d in enumerate(devices)]
+        for s, sub in enumerate(self.shards):
+            sub.shard = s
+        self.tel = self.shards[0].tel
+        self._plans: list[dict] = []
+        self.seq = 0
+        for name in self._COUNTERS:
+            setattr(self, name, WindowedCounter())
+        self.last_prefetch: dict = {}
+        self.d2h_reads = 0
+        self._plan_sigs: set = set()
+        self._scan_sigs: set = set()
+
+    @property
+    def stores(self) -> list[HostStore]:
+        return [sub.store for sub in self.shards]
+
+    @property
+    def h2d_copies(self) -> int:
+        return sum(sub.h2d_copies for sub in self.shards)
+
+    @property
+    def h2d_bytes(self) -> int:
+        return sum(sub.h2d_bytes for sub in self.shards)
+
+    def queue_plan(self, plan: dict, vecs, attrs) -> None:
+        """Queue one committed batch's stacked ``[S, B]`` plan (row ``b`` of
+        every shard's plan names input row ``b``)."""
+        self._plans.append({
+            "slab": plan["slab"], "slot": plan["slot"],
+            "codes": plan["codes"],
+            "vecs": None if self.cfg.payload_dim == 0 else vecs,
+            "attrs": attrs if self.cfg.n_attrs else None})
+
+    def drain_plans(self) -> None:
+        """Apply every queued plan to the shards' host stores (one read)."""
+        if not self._plans:
+            return
+        plans, self._plans = self._plans, []
+        host, copied = _plans_to_host(plans)
+        self.d2h_reads += copied
+        for p in host:
+            for s, sub in enumerate(self.shards):
+                sub._apply_plan({"slab": p["slab"][s], "slot": p["slot"][s],
+                                 "codes": p["codes"][s], "vecs": p["vecs"],
+                                 "attrs": p["attrs"]})
+
+    def plan(self, state, queries: torch.Tensor, nprobe: int) -> list:
+        """Stage 1 on every shard: one pool slab-id table ``[Q, T]`` each."""
+        self._plan_sigs.add((int(queries.shape[0]), nprobe))
+        with self.tel.span("plan"):
+            return [sub._table(st, queries.to(st.device), nprobe)
+                    for sub, st in zip(self.shards, state.shards)]
+
+    def prefetch(self, tables: list, nprobe: int, epoch: int
+                 ) -> PrefetchTicket:
+        """Stage 2 on every shard; the shards' reference counts cross in
+        one copy. The ticket's ``table`` is the list of shard tables."""
+        with self.tel.span("prefetch"):
+            self.drain_plans()
+            dev = tables[0].device
+            counts = torch.stack([_slab_counts(self.cfg, t).to(dev)
+                                  for t in tables]).cpu().numpy()
+            self.d2h_reads += 1
+            stats = {"refs": 0, "unique": 0, "hits": 0, "misses": 0,
+                     "dirty_refresh": 0, "uploaded": 0, "evicted": 0}
+            ups = [sub._prefetch_slabs(counts[s], stats)
+                   for s, sub in enumerate(self.shards)]
+            stats["dedup_saved"] = stats["refs"] - stats["unique"]
+            for name, key in (("hits", "hits"), ("misses", "misses"),
+                              ("refs", "refs"), ("unique_refs", "unique"),
+                              ("uploads", "uploaded"),
+                              ("evictions", "evicted")):
+                getattr(self, name).add(stats[key])
+            self.last_prefetch = stats
+            self.seq += 1
+            for sub, (frames, slabs) in zip(self.shards, ups):
+                if frames:
+                    sub._upload(np.asarray(frames, np.int32),
+                                np.asarray(slabs, np.int32))
+            if self.tel.enabled:
+                m = self.shards[0]._m_cache
+                m.inc(stats["hits"], event="hit")
+                m.inc(stats["misses"], event="miss")
+                m.inc(stats["evicted"], event="eviction")
+                m.inc(stats["uploaded"], event="upload")
+                m.inc(stats["dirty_refresh"], event="dirty_refresh")
+                m.inc(stats["dedup_saved"], event="dedup_saved")
+                self.shards[0]._m_bytes.inc(counts.nbytes, direction="d2h",
+                                            stage="prefetch")
+        return PrefetchTicket(table=tables, nprobe=nprobe,
+                              padded_q=int(tables[0].shape[0]), seq=self.seq,
+                              epoch=epoch)
+
+    def scan(self, state, queries: torch.Tensor, tables: list, k: int,
+             fstruct, fconsts) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stage 3: each shard's frame-view scan, then the merge."""
+        from repro_torch.core.distributed import merge_partials
+        self._scan_sigs.add((int(queries.shape[0]), int(tables[0].shape[1]),
+                             k, fstruct))
+        with self.tel.span("scan"):
+            ds, ls = [], []
+            for sub, st, t in zip(self.shards, state.shards, tables):
+                d, lab = sub._scan(st, queries.to(st.device), t, k, fstruct,
+                                   None if fconsts is None
+                                   else fconsts.to(st.device))
+                ds.append(d)
+                ls.append(lab)
+            return merge_partials(ds, ls, k)
+
+    search = TieredRuntime.search
+
+    def compile_stats(self) -> dict:
+        """Distinct plan and scan launch signatures dispatched."""
+        return {"tiered_plan": len(self._plan_sigs),
+                "tiered_scan": len(self._scan_sigs)}
+
+    roll_window = TieredRuntime.roll_window
+    carry_from = TieredRuntime.carry_from
+
+    def _residency(self) -> tuple[list, int]:
+        return ([sub.res.resident_slabs for sub in self.shards],
+                sum(len(sub.res.dirty) for sub in self.shards))
+
+    stats = TieredRuntime.stats
+

@@ -12,7 +12,8 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 
-ROADMAP_MESH = "ROADMAP.md queue 1 item 10 (core/distributed.py)"
+ROADMAP_MESH = ("ROADMAP.md queue 1 item 10b (the LM's model-axis plan, "
+                "sharding/{axes,rules}.py)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,9 @@
     res = index.search(queries, 10, 32, filter=sivf_torch.Eq("tenant", 7))
 
     index.save(path)                               # checkpoint format 3
+    mesh = sivf_torch.ShardMesh.virtual(4, "cuda")   # 4 shards, one card
+    index = sivf_torch.Index.load(path, backend=mesh)   # any shard count
+    index.reshard("single")                        # a live handle
     index = sivf_torch.Index.load(path, device_slabs=8192)   # tiered
     index.maintain([sivf_torch.split(3, 9), sivf_torch.recluster(5)])
 
@@ -28,11 +31,12 @@
     text = sivf_torch.telemetry.render_prometheus()
 
 Everything re-exported here lives in ``repro_torch.core`` and
-``repro_torch.serve``. It is the port of the single-backend path of
+``repro_torch.serve``. It is the port of
 ``sivf`` (raw fp32 or PQ payloads, with or without filter attributes,
-all-resident or tiered, with persistence, maintenance, the streaming serve
-engine and its telemetry); what is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+all-resident or tiered, on one device or sharded over a ``ShardMesh``,
+with persistence and elastic resharding, maintenance, the streaming serve
+engine and its telemetry); what is not ported yet (a tiered pool on a
+mesh) raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
@@ -43,6 +47,12 @@ from repro_torch.core.api import (  # noqa: F401
     MutationReport,
     PendingReport,
     SearchResult,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    ShardMesh,
+    flatten_live_rows,
+    reshard_state,
+    search_stacked,
 )
 from repro_torch.core.filters import (  # noqa: F401
     And,
@@ -87,7 +97,8 @@ __all__ = [
     "MaintOp", "MaintenanceAborted", "MaintenanceReport",
     "MutationRejected", "MutationReport", "PendingReport", "PQConfig",
     "Range", "SearchResult", "ServeEngine", "ServeMaintenanceResult",
-    "ServeMutationResult", "ServeSearchResult", "SIVFConfig", "TenantQuota",
-    "compile_filter", "init_state", "memory_report", "merge", "recluster",
-    "split", "telemetry", "train_kmeans", "train_pq",
+    "ServeMutationResult", "ServeSearchResult", "ShardMesh", "SIVFConfig",
+    "TenantQuota", "compile_filter", "flatten_live_rows", "init_state",
+    "memory_report", "merge", "recluster", "reshard_state",
+    "search_stacked", "split", "telemetry", "train_kmeans", "train_pq",
 ]

@@ -156,22 +156,32 @@ def test_strict_mode_raises_on_both(setup):
 
 
 def test_unported_surface_names_its_roadmap_item(setup, tmp_path):
+    """The mesh surface is ported (``core/distributed.py``), a tiered
+    pool on a mesh included: what raised naming ROADMAP.md queue 1 item
+    10 now works, or raises the reference's own usage errors."""
     _, cents, _, tcfg = setup
     index = sivf_torch.Index(tcfg, cents, device="cpu")
-    # a mesh checkpoint: the sidecar of a saved index, marked as the
-    # reference's mesh backend writes it
+    two = sivf_torch.ShardMesh.virtual(2, "cpu")
+    # a sidecar marked as the reference's mesh backend writes it, over a
+    # single pool's planes: the reference's error without backend=, and a
+    # shape check with one
     index.save(tmp_path)
     side = tmp_path / "index.json"
     meta = json.loads(side.read_text())
     side.write_text(json.dumps({**meta, "backend": "mesh", "n_shards": 2}))
-    for call, item in ((lambda: index.reshard("m"), "item 10"),
-                       (lambda: sivf_torch.Index.load(tmp_path,
-                                                      device="cpu"),
-                        "item 10"),
-                       (lambda: sivf_torch.Index(tcfg, cents, backend="mesh",
-                                                 device="cpu"), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(ValueError, match="sharded checkpoint: pass backend"):
+        sivf_torch.Index.load(tmp_path, device="cpu")
+    with pytest.raises(ValueError, match="2-shard mesh state"):
+        sivf_torch.Index.load(tmp_path, backend=two)
+    m = sivf_torch.Index(tcfg, cents, backend=two)
+    assert (m.backend, m.n_shards, m.stats()["n_shards"]) == ("mesh", 2, 2)
+    assert index.reshard(two) is index and index.n_shards == 2
+    with pytest.raises(TypeError, match="backend must be"):
+        sivf_torch.Index(tcfg, cents, backend="mesh", device="cpu")
+    tiered = sivf_torch.Index(dataclasses.replace(tcfg, device_slabs=8),
+                              cents, backend=two)
+    assert tiered.stats()["per_shard_resident"] == [0, 0]
+    index = sivf_torch.Index(tcfg, cents, device="cpu")
     # the PQ and filter surface is ported: on a raw index without
     # attributes these are the reference's usage errors
     with pytest.raises(RuntimeError, match="PQConfig"):

@@ -14,7 +14,9 @@
   * a tiered save writes the same array files as an untiered save, and
     as the reference's, of the same op sequence; ``load(device_slabs=)``
     retiers;
-  * a mesh sidecar raises naming ROADMAP.md queue 1 item 10.
+  * a sidecar claiming shards its planes lack raises the reference's
+    error; a single checkpoint loads onto a one-shard mesh (mesh
+    checkpoints themselves: ``tests/test_torch_reshard.py``).
 
 Shapes are ``tests/test_torch_pq.py``'s (dim 16, 4 lists, 24 slabs of
 32, 64-row batches), so the reference compiles little.
@@ -351,16 +353,29 @@ def test_tiered_save_writes_the_untiered_arrays(tmp_path, rng):
 
 
 def test_mesh_checkpoint_raises_naming_item_10(tmp_path):
+    """Mesh checkpoints are ported (``tests/test_torch_reshard.py`` loads
+    real ones across shard counts). A sidecar that claims shards its
+    planes do not have raises the reference's own error in the port; a
+    jax mesh is no backend of the port; a single checkpoint loads onto a
+    one-shard mesh."""
     jcfg, _ = _configs("raw")
     j = sivf.Index(jcfg, jnp.zeros((NL, D), jnp.float32), min_bucket=B)
     j.save(tmp_path)
-    meta = json.loads((tmp_path / "index.json").read_text())
+    side = tmp_path / "index.json"
+    meta = json.loads(side.read_text())
     for patch in ({"backend": "mesh", "n_shards": 2},
                   {"backend": "single", "n_shards": 4}):
-        (tmp_path / "index.json").write_text(json.dumps({**meta, **patch}))
-        with pytest.raises(NotImplementedError, match="item 10"):
+        side.write_text(json.dumps({**meta, **patch}))
+        with pytest.raises(ValueError) as ej:
+            sivf.Index.load(tmp_path)
+        with pytest.raises(ValueError) as et:
             sivf_torch.Index.load(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+        assert str(et.value) == str(ej.value)
+    side.write_text(json.dumps(meta))
+    with pytest.raises(TypeError, match="ShardMesh"):
         sivf_torch.Index.load(tmp_path, backend=jax.make_mesh((1,),
                                                               ("data",)),
                               device="cpu")
+    m = sivf_torch.Index.load(tmp_path,
+                              backend=sivf_torch.ShardMesh.virtual(1, "cpu"))
+    assert (m.backend, m.n_shards, m.n_live) == ("mesh", 1, 0)
