@@ -124,6 +124,34 @@ engine reported beside it. For ``wkv6`` the kernel and its plain version
 are also held against a float64 evaluation of the recurrence on the
 path's step-0 and re-admit-step inputs, active and idle slots apart.
 
+Between the index paths and the LM phases, the ``baselines`` phase runs
+the paper's comparison engines (``repro_torch.baselines``) at the raw
+path's shape beside a SIVF index of the raw configuration (no attributes,
+no overwrite, which the baselines do not track): ``FlatIndex(128,
+2,097,152)``, ``ContiguousIVF`` on the raw path's 4,096 centroids with
+``list_cap`` 488 (2 N / lists, as ``benchmarks/paper.py`` sizes it) and
+``LSHIndex`` (4 tables of 256 buckets of 8,192 rows) each ingest the 1M
+rows in 16,384-row batches, remove 1,024 ids (the paper's Fig. 1a unit)
+and then 100,000 in 65,536-id buckets, and run six Q=1024 searches (k=10,
+ContiguousIVF and SIVF at nprobe 32); ``HNSWLite`` (m 8, ef 24) takes
+800 rows and a 100-id delete that rebuilds the graph on the host. Flat
+is held to the exact top-10 over the live set and ContiguousIVF to the
+exact top-10 within the lists it and SIVF probe (labels ``==`` outside
+ties, distances allclose 1e-5) and to SIVF's recall@10, HNSW's live
+count to 700, and kernel 4's launches to the chunks the searches cut
+(every Flat, ContiguousIVF and LSH search takes its k smallest through
+it).
+
+After the ``hybrid`` phase, the ``arch.*`` phases serve Qwen3-14B,
+Phi-3-medium-14B and Granite-MoE-3B-A800M at full width (bf16, random
+weights from ``--seed``) through the same engine on shorter traffic
+(admit 2,048 and 517 tokens, 16 decode steps): flash launches all on
+``tensor_core`` and paged ones as counted, the traffic again through
+``attn_impl="ref"`` (taking the first run's experts) held to page state
+``==`` and ``LM_LOGIT_RTOL``, then the kernel run a second time, whose
+logits must be ``==`` the first for Granite (its MoE combine adds in a
+fixed order).
+
 The coarse centroids are trained twice from one generator state and the
 PQ codebooks twice from one seed: k-means sums in a fixed order, so each
 pair must agree bit for bit.
@@ -139,9 +167,11 @@ the raw path's phases), the mesh's ``mesh.*`` traffic lines, ``mesh.main``,
 ``tiered.launches``, ``maintain``, ``serve.coalesce``, ``serve.prefix``,
 ``serve.load``, ``serve.tiered`` and ``serve.telemetry`` lines, the PQ
 path's ``mesh.pq.*`` lines and ``mesh.pq``, ``pq.persist``, ``pq.tiered`` and
-``serve.coalesce``, the ``lm``, ``lm.kernels_full_width`` and
-``lm.vs_ref`` lines, the same three for ``rwkv`` and ``hybrid`` (and
-``rwkv.wkv6_float64`` before ``rwkv.vs_ref``), the ``{"kernels": [...]}``
+``serve.coalesce``, the ``baselines.*`` lines (``sivf``, ``flat``,
+``contiguous_ivf``, ``lsh``, ``hnsw``) and ``baselines``, the ``lm``,
+``lm.kernels_full_width`` and ``lm.vs_ref`` lines, the same three for
+``rwkv`` and ``hybrid`` (and ``rwkv.wkv6_float64`` before
+``rwkv.vs_ref``), the ``arch.*`` lines, the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -152,6 +182,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import hashlib
 import json
 import os
@@ -321,24 +352,32 @@ def compare_topk(dk, lk, dp, lp) -> tuple[float, int]:
             f"{lp[r, j]}")
     fin = np.isfinite(dp)
     err = float(np.abs(dk[fin] - dp[fin]).max()) if fin.any() else 0.0
+    near = np.isclose(dp[:, 1:], dp[:, :-1], rtol=RTOL, atol=RTOL)
+    return err, labels_outside_ties(lk, lp, near)
+
+
+def labels_outside_ties(lk, lp, near) -> int:
+    """Labels ``lk`` equal ``lp`` position for position, except inside
+    tie groups (runs of positions whose ``near [Q, k-1]`` links them to
+    the next) where the label sets must agree; a group that reaches the
+    k-th position may hold other tied candidates. Returns the groups
+    whose labels differ."""
     groups = 0
     for r in np.nonzero((lk != lp).any(axis=1))[0]:
-        row = dp[r]
-        near = np.isclose(row[1:], row[:-1], rtol=RTOL, atol=RTOL)
-        starts = np.concatenate([[0], np.nonzero(~near)[0] + 1])
-        ends = np.concatenate([starts[1:], [len(row)]])
+        starts = np.concatenate([[0], np.nonzero(~near[r])[0] + 1])
+        ends = np.concatenate([starts[1:], [lk.shape[1]]])
         for a, b in zip(starts, ends):
             if (lk[r, a:b] == lp[r, a:b]).all():
                 continue
             groups += 1
-            tail = b == len(row)
+            tail = b == lk.shape[1]
             check(tail or sorted(lk[r, a:b]) == sorted(lp[r, a:b]),
                   f"row {r}: labels differ outside a near-tie group")
             check(b - a > 1 or tail,
                   f"row {r}: label differs at an untied position {a}")
         check(len(set(lk[r][lk[r] >= 0])) == int((lk[r] >= 0).sum()),
               f"row {r}: duplicate labels")
-    return err, groups
+    return groups
 
 
 def compiled(torch, pred):
@@ -2562,14 +2601,17 @@ def phase_serve_prefix(torch, hbm: float, main: dict) -> tuple[list, list]:
              "tiles": st["search_tiles"], "oracle_held": True}], []
 
 
-def idle_share(torch, seconds: float) -> dict:
-    """The device's busy and idle shares over ``seconds`` of whatever the
-    process runs meanwhile (``torch.profiler``: the union of the device's
-    kernel and copy intervals over the wall time)."""
+def idle_share(torch, during) -> dict:
+    """The device's busy and idle shares while ``during()`` runs
+    (``torch.profiler``: the union of the device's kernel and copy
+    intervals over the wall time). ``during`` must leave no other thread
+    issuing work on the card when it returns: the profiler starts and
+    stops with the card quiet (a stop while another thread launched work
+    has crashed the process)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        time.sleep(seconds)
+        during()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -2716,7 +2758,7 @@ def phase_serve_load(torch, hbm: float, main: dict) -> tuple[list, list]:
     eng = serve_engine(index, quotas={"app": wide}, max_queue=1 << 20)
     runs = []
     n_live0 = index.n_live
-    idle_share(torch, 0.01)             # the profiler's first start is slow
+    idle_share(torch, lambda: time.sleep(0.01))   # a slow first start
     try:
         with launches.of():
             eng.session("app").search(qh[:1]).result(120)   # warm
@@ -2726,13 +2768,10 @@ def phase_serve_load(torch, hbm: float, main: dict) -> tuple[list, list]:
                 idle = open_loop(eng, rate, LOAD_HALF_S, qh)
                 active = open_loop(eng, rate, LOAD_HALF_S, qh, ingest)
                 prof = {}
-                if enabled:
-                    th = threading.Thread(target=lambda: prof.update(
+                if enabled:     # profiled from the run's first submission
+                    # to its last result: the card is quiet at both ends
+                    share = idle_share(torch, lambda: prof.update(
                         open_loop(eng, rate, LOAD_PROFILE_S, qh, ingest)))
-                    th.start()
-                    time.sleep(0.05)
-                    share = idle_share(torch, LOAD_PROFILE_S - 0.1)
-                    th.join()
                     prof = {"idle_share": share["idle_share"],
                             "busy_ms": share["busy_ms"],
                             "wall_ms": share["wall_ms"],
@@ -3475,6 +3514,7 @@ LM_READMIT = 300                       # into slot 3 once it is evicted
 LM_STEPS = (64, 16)                    # decode steps before / after
 LM_KEEP = 1024                         # slide(0, keep_last=LM_KEEP)
 LM_LOGIT_RTOL = 0.1                    # engine vs attn_impl="ref" (PERF.md)
+LM_TRAFFIC = dict(prompts=LM_PROMPTS, readmit=LM_READMIT, steps=LM_STEPS)
 
 
 FULL_WIDTH_RTOL = 2.0 ** -7    # one bf16 step of the value compared ...
@@ -3569,7 +3609,7 @@ SPLIT_WINDOWS = ((100, 600), (256, 512), (0, None))   # (start, length)
 
 def paged_edge_checks(torch, rng) -> tuple[list, dict]:
     """The paged decode kernel vs its plain version: page 8/16/32, g = 1,
-    2, 4, dk = dv and dk != dv, ``-1`` pads, an all-pad row (output 0),
+    2, 3, 4 and 5, four over ten KV heads, dk = dv and dk != dv, ``-1`` pads, an all-pad row (output 0),
     ``starts`` mid-page, a length at a page end, one live token, B = 1 and
     B = 8, rows of a width that is no whole 16-byte vector (plain loads);
     and against the split over the window (equal shares of whole 32-slot
@@ -3586,7 +3626,11 @@ def paged_edge_checks(torch, rng) -> tuple[list, dict]:
     shapes = [(8, 16, 6, 32, 8, 128, 128), (8, 8, 9, 16, 8, 64, 64),
               (8, 32, 4, 8, 8, 128, 64), (1, 16, 5, 4, 4, 128, 128),
               (1, 32, 3, 32, 8, 64, 96), (8, 16, 4, 2, 1, 16, 40),
-              (2, 8, 9, 4, 4, 36, 20)]
+              (2, 8, 9, 4, 4, 36, 20),
+              # the registered GQA shapes: g = 3 at dh 64 (Granite), g = 5
+              # (Qwen3), four query heads on each of ten KV heads (Phi-3)
+              (8, 16, 6, 24, 8, 64, 64), (8, 16, 6, 40, 8, 128, 128),
+              (8, 16, 6, 40, 10, 128, 128)]
     split_shapes = [(4, 16, 41, 32, 8, 128, 128), (4, 16, 37, 40, 1, 288, 256)]
     for split_set, (b, page, maxp, hq, hkv, dk, dv) in (
             [(False, sh) for sh in shapes] + [(True, sh) for sh in split_shapes]):
@@ -3619,7 +3663,8 @@ def paged_edge_checks(torch, rng) -> tuple[list, dict]:
 def flash_edge_checks(torch, rng) -> tuple[list, dict]:
     """The flash kernels vs their plain version: causal and not, Sq = Sk
     and Sq < Sk, S = 1, 17, 129 and 1000 (ragged tiles), g = 1 and 4, dh
-    128 and 64, float32 and bfloat16; then each route by name: bf16 at dh
+    128 and 64, float32 and bfloat16; the registered GQA shapes in bf16
+    (g = 3 at dh 64, g = 5, four over five KV heads); then each route by name: bf16 at dh
     64, 128, 256 and 80 (tensor cores; 80 reads zeros past dh) and dh 40
     (SIMT), at S = 1, 127, 129 and 1000 against tiles of 128."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
@@ -3651,6 +3696,9 @@ def flash_edge_checks(torch, rng) -> tuple[list, dict]:
             for b, hq, hkv, dh in ((1, 8, 2, 128), (2, 2, 2, 64)):
                 for dtype in ("float32", "bfloat16"):
                     one(b, hq, hkv, sq, sk, dh, causal, dtype)
+            for b, hq, hkv, dh in ((1, 6, 2, 64), (1, 10, 2, 128),
+                                   (1, 20, 5, 128)):
+                one(b, hq, hkv, sq, sk, dh, causal, "bfloat16")
     for sq, sk in ((1, 1), (127, 127), (129, 129), (1000, 1000), (127, 1000)):
         for causal in (True, False):
             for dh, which in ((64, "tensor_core"), (128, "tensor_core"),
@@ -3699,23 +3747,27 @@ def control_pair(name: str, out, plain, args, kw) -> tuple:
                                 **kw)
 
 
-def lm_traffic(seed: int, vocab: int) -> tuple[list, np.ndarray]:
-    """Prompts (four admits, then the re-admit) and the teacher-forced
+def lm_traffic(seed: int, vocab: int, traffic: dict = LM_TRAFFIC
+               ) -> tuple[list, np.ndarray]:
+    """Prompts (the admits, then any re-admit) and the teacher-forced
     token of every slot at every decode step, from ``seed`` with numpy."""
     rng = np.random.default_rng(seed)
+    readmit = () if traffic["readmit"] is None else (traffic["readmit"],)
     prompts = [rng.integers(1, vocab, n).astype(np.int32)
-               for n in LM_PROMPTS + (LM_READMIT,)]
-    forced = rng.integers(1, vocab, (sum(LM_STEPS), LM_ENGINE["max_seqs"])
+               for n in traffic["prompts"] + readmit]
+    forced = rng.integers(1, vocab, (sum(traffic["steps"]),
+                                     LM_ENGINE["max_seqs"])
                           ).astype(np.int32)
     return prompts, forced
 
 
-def lm_operations(prompts, forced_t) -> list:
+def lm_operations(prompts, forced_t, traffic: dict = LM_TRAFFIC) -> list:
     """The LM traffic as ``(name, call)`` pairs, ``call(engine)`` running
-    the operation: admit the four prompts into slots 0..3, decode
-    ``LM_STEPS[0]`` lockstep steps, slide slot 0's window, evict slot 3,
-    admit the fifth prompt into slot 3 (onto the freed pages), decode
-    ``LM_STEPS[1]`` more. Every step's input tokens are the forced ones."""
+    the operation: admit the prompts into slots 0, 1, ..., decode
+    ``steps[0]`` lockstep steps; where the traffic has a re-admit, then
+    slide slot 0's window to ``LM_KEEP``, evict slot 3, admit the last
+    prompt into slot 3 (onto the freed pages) and decode ``steps[1]``
+    more. Every step's input tokens are the forced ones."""
     def admit(seq, toks):
         return f"admit{seq}", lambda eng: eng.admit(seq, toks)
 
@@ -3725,16 +3777,18 @@ def lm_operations(prompts, forced_t) -> list:
             return eng.step()
         return f"step{i}", go
 
-    n = len(LM_PROMPTS)
-    return ([admit(seq, toks) for seq, toks in enumerate(prompts[:n])]
-            + [step(i) for i in range(LM_STEPS[0])]
-            + [("slide", lambda eng: eng.slide(0, LM_KEEP)),
-               ("evict", lambda eng: eng.evict(3)), admit(3, prompts[n])]
-            + [step(i) for i in range(LM_STEPS[0], sum(LM_STEPS))])
+    n, steps = len(traffic["prompts"]), traffic["steps"]
+    ops = ([admit(seq, toks) for seq, toks in enumerate(prompts[:n])]
+           + [step(i) for i in range(steps[0])])
+    if traffic["readmit"] is None:
+        return ops
+    return (ops + [("slide", lambda eng: eng.slide(0, LM_KEEP)),
+                   ("evict", lambda eng: eng.evict(3)), admit(3, prompts[n])]
+            + [step(i) for i in range(steps[0], sum(steps))])
 
 
 def serve_lm(torch, eng, prompts, forced, captures=None,
-             dev="cuda") -> dict:
+             dev="cuda", traffic: dict = LM_TRAFFIC) -> dict:
     """Drive ``eng`` through the LM traffic (:func:`lm_operations`).
     ``captures`` maps an operation (``"admit0"``, ``"step64"``) to the
     :class:`Capture` that records its kernels' inputs.
@@ -3745,7 +3799,8 @@ def serve_lm(torch, eng, prompts, forced, captures=None,
     captures = captures or {}
     out = {"admit": [], "step_ms": [], "pages": [], "logits": [],
            "active": []}
-    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev)):
+    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev),
+                                  traffic):
         before = int(eng.pages.free_top)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3768,6 +3823,35 @@ def serve_lm(torch, eng, prompts, forced, captures=None,
             out[op] = {"ms": ms, "free_top_before": before,
                        "free_top_after": int(eng.pages.free_top)}
     return out
+
+
+def logits_vs(torch, got: dict, ref: dict) -> dict:
+    """Hold two runs of one traffic to each other: the same operations,
+    page state ``==`` after each, the same active slots and finite logits
+    at each step; returns max and mean |d| / max |ref| of the active
+    slots' logits and the top-1 agreement."""
+    check([op for op, _ in got["pages"]] == [op for op, _ in ref["pages"]],
+          "the two runs took different operations")
+    for (op, a), (_, b) in zip(got["pages"], ref["pages"]):
+        for plane in a:
+            check(np.array_equal(a[plane], b[plane]),
+                  f"page state after {op}: plane {plane} differs")
+    worst, mean_rel, top1, n_rows, equal = 0.0, [], 0, 0, True
+    for i, (lk, lr, ak, ar) in enumerate(zip(got["logits"], ref["logits"],
+                                             got["active"], ref["active"])):
+        check(torch.equal(ak, ar), f"step {i}: active slots differ")
+        equal &= torch.equal(lk, lr)
+        lk, lr = lk[ak].float(), lr[ar].float()
+        check(bool(torch.isfinite(lk).all() and torch.isfinite(lr).all()),
+              f"step {i}: non-finite logits")
+        worst = max(worst, float((lk - lr).abs().max() / lr.abs().max()))
+        mean_rel.append(float((lk - lr).abs().mean() / lr.abs().mean()))
+        top1 += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        n_rows += lk.shape[0]
+    return {"max_rel_logit_err": worst,
+            "mean_rel_logit_err": float(np.mean(mean_rel)),
+            "top1_agreement": top1 / max(n_rows, 1), "rows_compared": n_rows,
+            "logits_equal": bool(equal)}
 
 
 def device_profile(torch, fn, reps: int = 1) -> dict:
@@ -3849,6 +3933,55 @@ def flash_work(q, k, causal=True) -> tuple:
     es = q.element_size()
     return (2 * (b * hq * sq * dh + b * hkv * sk * dh) * es,
             4 * b * hq * dh * visible)
+
+
+def full_width_checks(torch, caps: dict, layers) -> dict:
+    """Each attention kernel against its plain version on the inputs a
+    path gave it: ``caps`` maps ``"flash_attention"`` and
+    ``"paged_attention"`` to the :class:`Capture` of the engine's calls
+    at ``layers``. Holds each call to the full-width :func:`attn_err`,
+    requires the short-window :func:`planted_control` to be refused, and
+    for flash reads what the check says of P carried in bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        mha_p_bf16_ref,
+        mha_ref,
+    )
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    fns = {"flash_attention": (fk.flash_attention_cuda, mha_ref),
+           "paged_attention": (pk.paged_attention_cuda, paged_attention_ref)}
+    full = {}
+    for name, cap in caps.items():
+        kern, plain = fns[name]
+        check(set(cap.args) == set(layers), f"{name}: captured layers "
+              f"{sorted(cap.args)}")
+        errs, rms, controls, p_bf16 = {}, {}, {}, {}
+        for li, (args, kw) in cap.args.items():
+            k_out = kern(*args, **kw)
+            torch.cuda.synchronize()
+            want = plain(*args, **kw)
+            errs[li] = attn_err(f"{name} layer {li} at full width", k_out,
+                                want, "bfloat16", full_width=True)
+            rms[li] = float(want.float().square().mean().sqrt())
+            controls[li] = planted_control(
+                f"{name} layer {li}, window short by one slot",
+                *control_pair(name, k_out, plain, args, kw))
+            if name == "flash_attention":
+                p_bf16[li] = p_bf16_verdicts(F, args, want, mha_p_bf16_ref)
+        full[name] = {"max_abs_err_by_layer": errs,
+                      "rms_plain_by_layer": rms,
+                      "limit": f"{FULL_WIDTH_RTOL}*|plain| + "
+                               f"{FULL_WIDTH_ATOL}*RMS(plain)",
+                      "control_short_window_by_layer": controls,
+                      **({"full_width_check_of_p_in_bf16_by_layer": p_bf16}
+                         if p_bf16 else {}),
+                      "shapes": [list(a.shape) for a in
+                                 cap.args[layers[0]][0]
+                                 if hasattr(a, "shape")]}
+    return full
 
 
 def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
@@ -3941,36 +4074,9 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
         "path_seconds": path_s}
 
     # each kernel vs its plain version on the path's own inputs
-    full = {}
-    for name, cap, kern, plain in (
-            ("flash_attention", caps["admit0"], fk.flash_attention_cuda,
-             mha_ref),
-            ("paged_attention", caps[readmit_step], pk.paged_attention_cuda,
-             paged_attention_ref)):
-        check(set(cap.args) == {0, last}, f"{name}: captured layers "
-              f"{sorted(cap.args)}")
-        errs, rms, controls, p_bf16 = {}, {}, {}, {}
-        for li, (args, kw) in cap.args.items():
-            k_out = kern(*args, **kw)
-            torch.cuda.synchronize()
-            want = plain(*args, **kw)
-            errs[li] = attn_err(f"{name} layer {li} at full width", k_out,
-                                want, "bfloat16", full_width=True)
-            rms[li] = float(want.float().square().mean().sqrt())
-            controls[li] = planted_control(
-                f"{name} layer {li}, window short by one slot",
-                *control_pair(name, k_out, plain, args, kw))
-            if name == "flash_attention":
-                p_bf16[li] = p_bf16_verdicts(F, args, want, mha_p_bf16_ref)
-        full[name] = {"max_abs_err_by_layer": errs,
-                      "rms_plain_by_layer": rms,
-                      "limit": f"{FULL_WIDTH_RTOL}*|plain| + "
-                               f"{FULL_WIDTH_ATOL}*RMS(plain)",
-                      "control_short_window_by_layer": controls,
-                      **({"full_width_check_of_p_in_bf16_by_layer": p_bf16}
-                         if p_bf16 else {}),
-                      "shapes": [list(a.shape) for a in cap.args[0][0]
-                                 if hasattr(a, "shape")]}
+    full = full_width_checks(torch, {"flash_attention": caps["admit0"],
+                                     "paged_attention": caps[readmit_step]},
+                             (0, last))
     fa, fkw = caps["admit0"].args[0]
     pa, pkw = caps[readmit_step].args[0]
     # the path finds a layer's pages (and mostly its q, k, v) out of the
@@ -4049,35 +4155,18 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
     t0 = time.perf_counter()
     ref = serve_lm(torch, ref_eng, prompts, forced, dev=dev)
     ref_s = time.perf_counter() - t0
-    check([op for op, _ in ref["pages"]] == [op for op, _ in pages_k],
-          "the two runs took different operations")
-    for (op, a), (_, b) in zip(pages_k, ref["pages"]):
-        for plane in a:
-            check(np.array_equal(a[plane], b[plane]),
-                  f"page state after {op}: plane {plane} differs")
-    worst, top1, n_rows, mean_rel = 0.0, 0, 0, []
-    for i, (lk, lr, ak, ar) in enumerate(zip(logits_k, ref["logits"],
-                                             active_k, ref["active"])):
-        check(torch.equal(ak, ar), f"step {i}: active slots differ")
-        lk, lr = lk[ak].float(), lr[ar].float()
-        check(bool(torch.isfinite(lk).all() and torch.isfinite(lr).all()),
-              f"step {i}: non-finite logits")
-        rel = float((lk - lr).abs().max() / lr.abs().max())
-        worst = max(worst, rel)
-        mean_rel.append(float((lk - lr).abs().mean() / lr.abs().mean()))
-        top1 += int((lk.argmax(-1) == lr.argmax(-1)).sum())
-        n_rows += lk.shape[0]
-    check(worst <= LM_LOGIT_RTOL, f"decode logits: max |kernel - ref| is "
-          f"{worst} of max |ref|, above {LM_LOGIT_RTOL}")
+    got_k = {"pages": pages_k, "logits": logits_k, "active": active_k}
+    agree = logits_vs(torch, got_k, ref)
+    agree.pop("logits_equal")
+    check(agree["max_rel_logit_err"] <= LM_LOGIT_RTOL,
+          f"decode logits: max |kernel - ref| is "
+          f"{agree['max_rel_logit_err']} of max |ref|, above {LM_LOGIT_RTOL}")
     vs_ref = {"phase": "lm.vs_ref", "ref_path_seconds": ref_s,
               "ref_step_ms_median": float(np.median(ref["step_ms"])),
               "ref_admit_ms": [a["ms"] for a in ref["admit"]],
               "page_states_equal": True, "operations": len(pages_k),
-              "logits_finite": True, "max_rel_logit_err": worst,
-              "mean_rel_logit_err": float(np.mean(mean_rel)),
-              "logit_rtol": LM_LOGIT_RTOL,
-              "top1_agreement": top1 / n_rows, "rows_compared": n_rows}
-    del ref_eng, ref, logits_k, params
+              "logits_finite": True, **agree, "logit_rtol": LM_LOGIT_RTOL}
+    del ref_eng, ref, logits_k, got_k, params
     torch.cuda.empty_cache()
     return [lm_line, full_line, vs_ref], rows
 
@@ -4732,6 +4821,407 @@ def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
     return vs_ref
 
 
+# ---------------------------------------------------------------------------
+# The three GQA architectures registered beside Llama: flash and paged
+# attention (TPU kernels 6 and 5) at their shapes, and Granite's MoE
+# combine in a fixed order
+# ---------------------------------------------------------------------------
+
+ARCH_PHASES = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m")
+ARCH_TRAFFIC = dict(prompts=(2048, 517), readmit=None, steps=(16,))
+ARCH_LAUNCHES: dict = {}       # kernels 5 / 6: each architecture's launches
+
+
+def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
+    """Serve one architecture at full width in bf16 (random weights from
+    ``seed``) through PagedLMEngine on ``ARCH_TRAFFIC``: a counted run on
+    the kernels, whose flash calls of the first admit and paged calls of
+    the last step (first and last layer) are held to their plain versions
+    by :func:`full_width_checks`; the same traffic through
+    ``attn_impl="ref"`` (the plain attention versions, taking the first
+    run's experts where the model has MoE layers) held to it within
+    ``LM_LOGIT_RTOL``; then the kernel run again, whose logits must be
+    ``==`` the first. The repeat's times are the warm ones."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.models import mlp
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.paged_lm import PagedLMEngine
+    from repro_torch.sharding.rules import unpadded_plan
+    cfg = get_arch(name)
+    plan = unpadded_plan(cfg)
+    prompts, forced = lm_traffic(seed, cfg.vocab_size, ARCH_TRAFFIC)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, init_ms = timed(lambda: init_params(cfg, plan, seed=seed,
+                                                device=dev))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+
+    n_admits, n_steps = len(ARCH_TRAFFIC["prompts"]), sum(
+        ARCH_TRAFFIC["steps"])
+    layers = (0, cfg.n_layers - 1)
+    caps = {"flash_attention": Capture(fops, "flash_attention", layers),
+            "paged_attention": Capture(pops, "paged_attention", layers)}
+
+    def run(captures=None, **kw):
+        eng = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE, **kw)
+        out = serve_lm(torch, eng, prompts, forced, captures, dev=dev,
+                       traffic=ARCH_TRAFFIC)
+        out["pool_bytes"] = 2 * eng.k_pool.numel() * eng.k_pool.element_size()
+        return out
+
+    t0 = time.perf_counter()
+    with Router(mlp) as router:
+        router.begin(0)
+        zero_counts()                                # counts of this path
+        got = run({"admit0": caps["flash_attention"],
+                   f"step{n_steps - 1}": caps["paged_attention"]})
+        launches = {"flash_attention": fk.launches,
+                    "flash_attention[tensor_core]": fk.launches_tensor_core,
+                    "flash_attention[simt]": fk.launches_simt,
+                    "paged_attention": pk.launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        full = full_width_checks(torch, caps, layers)
+        del caps
+        router.begin(1)
+        ref = run(attn_impl="ref")
+        flips, decisions = router.differing(None, (0, 1))
+    path_s = time.perf_counter() - t0
+    check(launches["flash_attention"] == cfg.n_layers * n_admits,
+          f"{name}: flash launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} x {n_admits} admits")
+    check(launches["flash_attention[tensor_core]"]
+          == launches["flash_attention"],
+          f"{name}: flash launches {launches}: not all on tensor_core")
+    check(launches["paged_attention"] == cfg.n_layers * n_steps,
+          f"{name}: paged launches {launches['paged_attention']} != "
+          f"{cfg.n_layers} x {n_steps} steps")
+    ARCH_LAUNCHES[name] = launches
+    vs_ref = logits_vs(torch, got, ref)
+    check(vs_ref["max_rel_logit_err"] <= LM_LOGIT_RTOL,
+          f"{name}: decode logits: max |kernel - ref| is "
+          f"{vs_ref['max_rel_logit_err']} of max |ref|, above "
+          f"{LM_LOGIT_RTOL}")
+    del ref
+    again = run()
+    repeat = logits_vs(torch, got, again)
+    check(repeat["logits_equal"], f"{name}: a second run from the same "
+          f"seed and inputs gave other logits: {repeat}")
+    steps = np.array(again["step_ms"])
+    active = [int(a.sum()) for a in again["active"]]
+    line = {
+        "phase": f"arch.{name}", "arch": name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.head_dim, "qk_norm": cfg.qk_norm,
+        "moe": [cfg.n_experts, cfg.moe_top_k] if cfg.moe else None,
+        "dtype": cfg.dtype, "params": cfg.param_count(),
+        "param_bytes": param_bytes, "pool_bytes": got["pool_bytes"],
+        "engine": LM_ENGINE, "traffic": ARCH_TRAFFIC,
+        "init_params_ms": init_ms,
+        "admit": again["admit"], "admit_first_run": got["admit"],
+        "step_ms": again["step_ms"],
+        "step_ms_median": float(np.median(steps)),
+        "step_ms_median_first_run": float(np.median(got["step_ms"])),
+        "decode_tokens_per_s_median": float(np.median(
+            np.array(active) / steps * 1e3)),
+        "peak_device_bytes": peak, "launches": launches,
+        "kernels_full_width": full,
+        "vs_ref": {**vs_ref, "logit_rtol": LM_LOGIT_RTOL,
+                   "page_states_equal": True,
+                   "moe_decisions_ref_would_change": flips,
+                   "moe_decisions": decisions},
+        "repeat": repeat,
+        "path_seconds": path_s}
+    del got, again, params
+    torch.cuda.empty_cache()
+    return [line]
+
+
+# ---------------------------------------------------------------------------
+# The paper's comparison baselines beside SIVF (kernel 4 in every Flat,
+# ContiguousIVF and LSH search; kernel 1 in SIVF's)
+# ---------------------------------------------------------------------------
+
+BASE_FLAT_CAP = 1 << 21                  # FlatIndex(128, 2,097,152)
+BASE_LIST_CAP = 2 * N_BASE // N_LISTS    # 488, as benchmarks/paper.py sizes
+BASE_LSH = dict(n_tables=4, bits=8, bucket_cap=8192)
+BASE_HNSW = dict(m=8, ef=24)             # benchmarks/paper.py tab4
+BASE_HNSW_ROWS, BASE_HNSW_REMOVE = 800, 100
+FIG1A_REMOVE = 1024                      # the paper's Fig. 1a delete unit
+BASE_LAUNCHES: dict = {}                 # kernels 1 / 4 on this path
+
+
+def engine_bytes(torch, eng) -> int:
+    """Device bytes of a baseline engine's tensors."""
+    return sum(v.numel() * v.element_size() for v in vars(eng).values()
+               if isinstance(v, torch.Tensor) and v.device.type != "cpu")
+
+
+def over_limit(torch, got, want) -> float:
+    """max |got - want| / (RTOL + RTOL |want|) over finite ``want``: the
+    share of compare_topk's distance limit used (1.0 is the limit)."""
+    g, w = got.double(), want.double()
+    fin = torch.isfinite(w)
+    return float(((g - w).abs() / (RTOL + RTOL * w.abs()))[fin].max())
+
+
+def probed_exact(torch, wl: dict, live, queries, chunk: int = 32):
+    """The exact top-K (float64 distances, rounded to float32 at the end)
+    over the ``live`` rows of the workload's base that
+    ``quantizer.assign`` routes, in the ingest's batches, into each
+    query's ``NPROBE`` probed lists: the answer a ContiguousIVF and a
+    SIVF index over the same adds, removes and centroids must give, built
+    from the workload alone and from none of the engines' state (row i
+    has id i)."""
+    from repro_torch.core import quantizer
+    base, cents = wl["base"], wl["cents"]
+    lists = torch.cat([quantizer.assign(cents, base[lo:lo + INGEST_BATCH])
+                       for lo in range(0, base.shape[0], INGEST_BATCH)])
+    probes = quantizer.probe(cents, queries, NPROBE).long()
+    xs = base.double()
+    xx = xs.square().sum(-1)
+    out_d, out_l = [], []
+    for lo in range(0, queries.shape[0], chunk):
+        q = queries[lo:lo + chunk].double()
+        probed = torch.zeros((q.shape[0], cents.shape[0]), dtype=torch.bool,
+                             device=q.device)
+        probed.scatter_(1, probes[lo:lo + chunk], True)
+        d = q.square().sum(-1, keepdim=True) - 2.0 * q @ xs.T + xx
+        d.masked_fill_(~(probed[:, lists.long()] & live), float("inf"))
+        v, i = d.topk(K, largest=False)
+        out_d.append(v.float())
+        out_l.append(i.to(torch.int32))
+    return torch.cat(out_d), torch.cat(out_l)
+
+
+def drive_engine(torch, eng, wl, fig1a, rm, expect, dev) -> dict:
+    """Ingest, the 1,024-id remove, the bucketed removes and N_SEARCH
+    searches through one engine's IndexProtocol; ``expect`` gathers the
+    top-k launches its searches make (a chunk each, for an engine with
+    ``query_bytes``). The first search also records the operands of its
+    first and last top-k calls (``topk_operands``, cloned)."""
+    from repro_torch.baselines import query_chunks
+    from repro_torch.kernels.topk import ops as topk_ops
+    base, queries = wl["base"], wl["queries"]
+    ids = torch.arange(base.shape[0], dtype=torch.int32, device=dev)
+    reps, ingest_ms = [], 0.0
+    for lo in range(0, base.shape[0], INGEST_BATCH):
+        r, dt = timed(lambda: eng.add(base[lo:lo + INGEST_BATCH],
+                                      ids[lo:lo + INGEST_BATCH]))
+        reps.append(r)
+        ingest_ms += dt
+    r1k, ms_1k = timed(lambda: eng.remove(fig1a))
+    buckets = [timed(lambda: eng.remove(rm[lo:lo + REMOVE_BATCH]))
+               for lo in range(0, REMOVE_ROWS, REMOVE_BATCH)]
+    chunks = (len(query_chunks(N_QUERIES, eng.query_bytes(NPROBE)))
+              if hasattr(eng, "query_bytes") else 0)
+    cap = Capture(topk_ops, "topk", (0, chunks - 1))
+    lat = []
+    for i in range(N_SEARCH):
+        with cap if i == 0 else contextlib.nullcontext():
+            res, dt = timed(lambda: eng.search(queries, K, NPROBE))
+        lat.append(dt)
+        expect.append(chunks)
+    return {"ingest_ms": ingest_ms,
+            "ingest_rows_per_s": base.shape[0] / ingest_ms * 1e3,
+            "accepted": sum(r.accepted for r in reps),
+            "rejected": sum(r.rejected for r in reps),
+            "remove_1024_ms": ms_1k, "remove_1024_accepted": r1k.accepted,
+            "remove_bucket_ms": [dt for _, dt in buckets],
+            "remove_buckets_accepted": sum(r.accepted for r, _ in buckets),
+            "search_ms": lat, "search_ms_median": float(np.median(lat)),
+            "search_chunks": chunks, "n_live": eng.n_live, "result": res,
+            "topk_operands": cap.args}
+
+
+def phase_baselines(torch, wl: dict, dev="cuda") -> list:
+    """The workload's 1M rows through a SIVF index of the raw
+    configuration (no attributes, no overwrite: the baselines track
+    none), Flat, ContiguousIVF and LSH, then HNSW-lite at 800 rows; reads
+    each engine's ingest rate, remove and search times, recall@10 against
+    the exact top-10 over the live set, device bytes. Holds Flat to that
+    exact top-10, and ContiguousIVF to the exact top-10 within the lists
+    it and SIVF probe at nprobe 32 (:func:`probed_exact`, from the
+    workload alone; labels ``==`` outside ties, distances allclose 1e-5),
+    to SIVF's labels outside ties and to SIVF's recall@10. Two float32
+    evaluations of ``|q|^2 - 2 q.x + |x|^2`` at this data's magnitudes
+    (terms near 1,300, distances near 200) each use up to about the 1e-5
+    limit against the exact value, so ContiguousIVF's distances are held
+    to the exact ones, not to SIVF's (the share of the limit each uses is
+    reported, ``dist_err_over_limit``), and two labels may trade places
+    between the engines only where their exact distances lie within
+    twice the larger engine's distance error. Holds the top-k launches
+    to the searches' chunks, and kernel 4 on the first and last chunk of
+    each engine's first search to its plain version (``==`` bits and
+    labels) on the operands the search gave it."""
+    import sivf_torch
+    from repro_torch.baselines import (
+        ContiguousIVF,
+        FlatIndex,
+        HNSWLite,
+        LSHIndex,
+    )
+    from repro_torch.kernels.sivf_scan import fused
+    from repro_torch.kernels.topk import topk as tk
+    from repro_torch.kernels.topk.ref import topk_ref
+    n, queries = wl["base"].shape[0], wl["queries"]
+    rm = wl["rm_ids"].to(dev)
+    rng = np.random.default_rng(wl["seed"] + 2)
+    outside = np.ones(n, bool)
+    outside[wl["rm_ids"].numpy()] = False
+    fig1a = torch.from_numpy(rng.choice(np.flatnonzero(outside),
+                                        FIG1A_REMOVE, replace=False)
+                             .astype(np.int32)).to(dev)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    live[rm.long()] = False
+    live[fig1a.long()] = False
+    gen = torch.Generator(device=dev).manual_seed(wl["seed"])
+    sivf_cfg = sivf_torch.SIVFConfig(**{**CFG, "attributes": ()})
+    engines = {
+        "sivf": lambda: sivf_torch.Index(sivf_cfg, wl["cents"], device=dev),
+        "flat": lambda: FlatIndex(DIM, BASE_FLAT_CAP, device=dev),
+        "contiguous_ivf": lambda: ContiguousIVF(
+            wl["cents"], list_cap=BASE_LIST_CAP, device=dev),
+        "lsh": lambda: LSHIndex(gen, DIM, **BASE_LSH, device=dev)}
+    zero_counts()                                # counts of this path
+    expect, lines, operands = [], [], {}
+    sivf_res = best = sivf_recall = None
+    for name, make in engines.items():
+        eng = make()
+        got = {"engine": name,
+               **drive_engine(torch, eng, wl, fig1a, rm, expect, dev)}
+        res = got.pop("result")
+        operands[name] = (got["search_chunks"], got.pop("topk_operands"))
+        got["device_bytes"] = (sivf_torch.memory_report(sivf_cfg)
+                               ["device_bytes"] if name == "sivf"
+                               else engine_bytes(torch, eng))
+        if name == "contiguous_ivf":
+            got.update(list_cap=int(eng.buf.shape[1]),
+                       n_relayouts=eng.n_relayouts)
+        check(got["accepted"] + got["rejected"] == n,
+              f"{name}: ingest reports {got['accepted']} + "
+              f"{got['rejected']} != {n}")
+        if name != "lsh":                  # LSH drops rows of full buckets
+            check(got["accepted"] == n and got["remove_1024_accepted"]
+                  == FIG1A_REMOVE and got["remove_buckets_accepted"]
+                  == REMOVE_ROWS and got["n_live"]
+                  == n - FIG1A_REMOVE - REMOVE_ROWS, f"{name}: {got}")
+        if name == "sivf":          # the exact top-10 over the live set
+            best = exact_top(torch, eng, queries)
+            sivf_res = res
+        elif name == "flat":
+            rows = wl["base"][best.long()].double()
+            best_d = (rows - queries[:, None].double()).square().sum(-1)
+            err, ties = compare_topk(res.distances, res.labels,
+                                     best_d.float(), best)
+            got.update(max_abs_dist_err_vs_exact=err,
+                       tie_groups_vs_exact=ties)
+            got.update(dist_err_over_limit_vs_exact=over_limit(
+                torch, res.distances, best_d))
+        elif name == "contiguous_ivf":   # SIVF's probed lists, exactly
+            od, ol = probed_exact(torch, wl, live, queries)
+            err, ties = compare_topk(res.distances, res.labels, od, ol)
+            fin = torch.isfinite(od)
+            errs = [float((r.distances.to(dev) - od)[fin].abs().max())
+                    for r in (res, sivf_res)]
+            gap = 2.0 * max(errs)
+            check(np.isfinite(gap), f"distance errors {errs} vs exact: an "
+                  "engine returned +inf where a live row was probed")
+            odh = od.cpu().numpy()
+            swaps = labels_outside_ties(
+                res.labels.cpu().numpy(), sivf_res.labels.cpu().numpy(),
+                np.abs(np.diff(odh, axis=1)) <= gap)
+            got["vs_probed_exact"] = {
+                "max_abs_dist_err": err, "tie_groups": ties,
+                "dist_err_over_limit": over_limit(torch, res.distances, od)}
+            got["sivf_vs_probed_exact"] = {   # a reading: kernel 1's rounding
+                "max_abs_dist_err": errs[1],
+                "rows_with_other_labels": int((sivf_res.labels.to(dev) != ol
+                                               ).any(1).sum()),
+                "dist_err_over_limit": over_limit(torch, sivf_res.distances,
+                                                  od)}
+            got["vs_sivf"] = {
+                "tie_gap": gap, "tie_groups": swaps,
+                "rows_with_other_labels": int((res.labels != sivf_res.labels
+                                               ).any(1).sum()),
+                "dist_err_over_limit": over_limit(torch, res.distances,
+                                                  sivf_res.distances)}
+        got["recall_at_10"] = recall(torch, res.labels.to(dev), best)
+        if name == "sivf":
+            sivf_recall = got["recall_at_10"]
+        elif name == "contiguous_ivf":
+            check(got["recall_at_10"] == sivf_recall,
+                  f"contiguous_ivf recall@10 {got['recall_at_10']} != "
+                  f"SIVF's {sivf_recall} over the same probed lists")
+        lines.append({"phase": f"baselines.{name}", **got})
+        del eng, res
+        torch.cuda.empty_cache()
+    launches = {"topk": tk.launches, "topk[warp]": tk.launches_warp,
+                "topk[block]": tk.launches_block,
+                "sivf_fused_search": fused.launches,
+                "sivf_fused_search[grouped]": fused.launches_grouped}
+    check(launches["topk"] == sum(expect) == launches["topk[warp]"],
+          f"top-k launches {launches} != {sum(expect)}, the searches' "
+          "chunks, all on warp")
+    check(launches["sivf_fused_search"] == N_SEARCH
+          == launches["sivf_fused_search[grouped]"],
+          f"fused launches {launches}: SIVF's searches on grouped")
+    BASE_LAUNCHES.update(launches)
+    topk_vs_plain = {}                  # kernel 4 at the engines' shapes
+    for name, (chunks, calls) in operands.items():
+        check(len(calls) == min(2, chunks),
+              f"{name}: captured top-k calls {sorted(calls)} of {chunks}")
+        for i, ((d, lab, k), _) in sorted(calls.items()):
+            dk, lk = tk.topk_route("warp", d, lab, k)
+            torch.cuda.synchronize()
+            dp, lp = topk_ref(d, lab, k)
+            what = f"{name}/chunk {i}/{list(d.shape)}/k={k}"
+            topk_vs_plain[what] = {
+                "max_abs_err": check_equal(f"topk {what}", dk, lk, dp, lp),
+                "inf_entries": int(torch.isinf(d).sum())}
+    del operands
+
+    # the graph on the host: 800 rows, then a delete that rebuilds it
+    hnsw = HNSWLite(DIM, **BASE_HNSW)
+    xs = wl["base"][:BASE_HNSW_ROWS].cpu().numpy()
+    hid = np.arange(BASE_HNSW_ROWS, dtype=np.int32)
+    add, add_ms = timed(lambda: hnsw.add(xs, hid))
+    rem, rem_ms = timed(lambda: hnsw.remove(hid[:BASE_HNSW_REMOVE]))
+    check(add.accepted == BASE_HNSW_ROWS and rem.accepted == BASE_HNSW_REMOVE
+          and hnsw.n_live == BASE_HNSW_ROWS - BASE_HNSW_REMOVE,
+          f"hnsw: n_live {hnsw.n_live}, reports {add} {rem}")
+    hres, h_ms = timed(lambda: hnsw.search(queries, K))
+    live = torch.from_numpy(xs[BASE_HNSW_REMOVE:]).to(dev).double()
+    hbest = torch.cdist(queries.double(), live).topk(
+        K, largest=False).indices + BASE_HNSW_REMOVE
+    lines.append({"phase": "baselines.hnsw", "engine": "hnsw",
+                  "rows": BASE_HNSW_ROWS, "reduced": f"{BASE_HNSW_ROWS} "
+                  "rows: the graph is Python on the host, as at "
+                  "benchmarks/paper.py:698",
+                  "ingest_ms": add_ms,
+                  "ingest_rows_per_s": BASE_HNSW_ROWS / add_ms * 1e3,
+                  "remove_ms_full_rebuild": rem_ms,
+                  "search_ms": h_ms, "n_live": hnsw.n_live,
+                  "recall_at_10": recall(torch, hres.labels.to(dev),
+                                         hbest.to(torch.int32))})
+    lines.append({"phase": "baselines", "n_base": n, "queries": N_QUERIES,
+                  "k": K, "nprobe": NPROBE, "launches": launches,
+                  "topk_launches_expected": sum(expect),
+                  "flat_vs_exact": "labels == outside ties, "
+                                   "distances allclose(1e-5)",
+                  "contiguous_ivf_vs_probed_exact": "labels == outside "
+                  "ties, distances allclose(1e-5)",
+                  "contiguous_ivf_vs_sivf": "labels == outside ties of "
+                  "the exact distances within tie_gap, recall@10 ==",
+                  "topk_vs_plain": topk_vs_plain})
+    return lines
+
+
 KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
                 "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
                 "reclaim", "sivf_scan", "topk", "paged_attention",
@@ -4742,6 +5232,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    faulthandler.enable()           # a crash prints every thread's stack
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4811,6 +5302,10 @@ def main(argv=None) -> int:
                     shutil.rmtree(out[key], ignore_errors=True)
             out.clear()                 # free the path's index
             torch.cuda.empty_cache()
+        for ln in run("baselines", lambda: phase_baselines(torch, wl)) or []:
+            emit(ln)
+        del wl
+        torch.cuda.empty_cache()
     got = run("lm", lambda: phase_lm(torch, args.seed, hbm))
     if got:
         for ln in got[0]:
@@ -4822,9 +5317,25 @@ def main(argv=None) -> int:
             for ln in got[0]:
                 emit(ln)
             rows.update({r["name"]: r for r in got[1]})
+    for name in ARCH_PHASES:
+        for ln in run(f"arch.{name}",
+                      lambda: phase_arch(torch, name, args.seed)) or []:
+            emit(ln)
     for name, by_route in SERVE_LAUNCHES.items():
         if name in rows:
             rows[name]["serve_launches"] = by_route
+    if BASE_LAUNCHES:                   # the baselines beside SIVF
+        for name, by_route in (
+                ("topk", {"warp": BASE_LAUNCHES["topk[warp]"],
+                          "block": BASE_LAUNCHES["topk[block]"]}),
+                ("sivf_fused_search",
+                 {"grouped": BASE_LAUNCHES["sivf_fused_search[grouped]"]})):
+            if name in rows:
+                rows[name]["baselines_launches"] = by_route
+    for name in ("flash_attention", "paged_attention"):
+        if name in rows and ARCH_LAUNCHES:
+            rows[name]["arch_launches"] = {
+                arch: n[name] for arch, n in ARCH_LAUNCHES.items()}
     for name, by_route in MESH_LAUNCHES.items():
         if name in rows:                # four virtual shards on one card
             rows[name]["mesh_launches"] = by_route

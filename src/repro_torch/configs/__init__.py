@@ -1,26 +1,35 @@
 """Architecture registry of the port (counterpart of
 ``repro/configs/__init__.py``).
 
-``ARCHS`` holds the configs the port can run: the dense GQA decoder
-``llama3-8b``, the RNN ``rwkv6-3b`` and the hybrid Mamba + attention +
-MoE ``jamba-v0.1-52b``. Any other architecture of the reference raises
+``ARCHS`` holds the configs the port can run: the dense GQA decoders
+``llama3-8b``, ``qwen3-14b`` (with per-head QK-RMSNorm) and
+``phi3-medium-14b``, the GQA + MoE decoder ``granite-moe-3b-a800m``, the
+RNN ``rwkv6-3b`` and the hybrid Mamba + attention + MoE
+``jamba-v0.1-52b``. Any other architecture of the reference raises
 ``NotImplementedError`` from :func:`get_arch`, naming the ROADMAP item
 that ports its path; an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import jamba_v0_1_52b, llama3_8b, rwkv6_3b
+from repro_torch.configs import (
+    granite_moe_3b_a800m,
+    jamba_v0_1_52b,
+    llama3_8b,
+    phi3_medium_14b,
+    qwen3_14b,
+    rwkv6_3b,
+)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
-    llama3_8b.CONFIG, rwkv6_3b.CONFIG, jamba_v0_1_52b.CONFIG]}
+    llama3_8b.CONFIG, qwen3_14b.CONFIG, phi3_medium_14b.CONFIG,
+    granite_moe_3b_a800m.CONFIG, rwkv6_3b.CONFIG, jamba_v0_1_52b.CONFIG]}
 
 # the reference's other architectures, and the ROADMAP item that ports them
 NOT_PORTED: dict[str, str] = {
     name: "ROADMAP.md queue 1 item 13 (the LM side's remaining paths)"
-    for name in ("minicpm3-4b", "qwen3-14b", "phi3-medium-14b",
-                 "llava-next-34b", "moonshot-v1-16b-a3b",
-                 "granite-moe-3b-a800m", "whisper-base")
+    for name in ("minicpm3-4b", "llava-next-34b", "moonshot-v1-16b-a3b",
+                 "whisper-base")
 }
 
 

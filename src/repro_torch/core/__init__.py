@@ -36,6 +36,7 @@ from repro_torch.core.maintenance import (  # noqa: F401
 )
 from repro_torch.core.pq import PQConfig, train_pq  # noqa: F401
 from repro_torch.core.quantizer import assign, probe, train_kmeans  # noqa: F401
+from repro_torch.core.reference import ReferenceIndex  # noqa: F401
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,
     Index,

@@ -1,5 +1,5 @@
-"""Carry configs, slab-pool state, LM parameters and KV page state
-between the reference and the port.
+"""Carry configs, slab-pool state, LM parameters, KV page state and the
+baselines' state between the reference and the port.
 
 numpy only: a reference ``SlabPoolState`` becomes ``{plane: np.ndarray}``
 (``np.asarray`` per field) on its side, and :func:`state_from_numpy`
@@ -16,8 +16,13 @@ the port's layer ``l`` is position ``l % period``, entry ``l // period``.
 Weights keep their ``[d_in, d_out]`` layout: a crossing only stacks and
 splits, never transposes. KV page state crosses as ``{plane: array}`` of
 its seven planes, and the engine's recurrent-state pools (RWKV6, Mamba)
-as the reference engine's per-position pools. This module imports
-nothing of the reference package.
+as the reference engine's per-position pools. A baseline's state crosses
+as ``{plane: array}`` of the attributes :data:`BASELINE_PLANES` names
+(Flat: buffer, ids, cursor; ContiguousIVF: buffer, ids, counts,
+``n_relayouts``; LSH: planes, bucket vectors, ids, cursors), so that two
+engines start from one state (an ``LSHIndex`` can take the reference's
+``jax.random`` planes, which no torch generator draws). This module
+imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -232,3 +237,45 @@ def page_state_to_numpy(st: kvc.PageState) -> dict:
     the state's in-place updates."""
     return {name: getattr(st, name).cpu().numpy().copy()
             for name in kvc.PLANES}
+
+
+# the attributes that make up each baseline engine's state, by class name
+# (``repro_torch.baselines``, whose names the reference's engines share);
+# tensors cross as their dtype, the host integers (Flat's cursor,
+# ContiguousIVF's n_relayouts) as 0-d arrays
+BASELINE_PLANES = {
+    "FlatIndex": ("buf", "ids", "cursor"),
+    "ContiguousIVF": ("buf", "ids", "counts", "n_relayouts"),
+    "LSHIndex": ("planes", "bucket_vecs", "bucket_ids", "cursors"),
+}
+
+
+def baseline_state_to_numpy(engine) -> dict:
+    """``{plane: np.ndarray}`` of a Flat, ContiguousIVF or LSH engine: a
+    copy on the host."""
+    out = {}
+    for name in BASELINE_PLANES[type(engine).__name__]:
+        v = getattr(engine, name)
+        out[name] = v.cpu().numpy().copy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    return out
+
+
+def load_baseline_state(engine, planes: dict):
+    """Set ``engine``'s state from ``{plane: array}`` (all its planes, as
+    numpy, the reference's arrays included), each tensor on the engine's
+    device in the dtype it has there; returns the engine."""
+    names = BASELINE_PLANES[type(engine).__name__]
+    missing = set(names) - set(planes)
+    if missing:
+        raise ValueError(f"missing planes: {sorted(missing)}")
+    for name in names:
+        cur, a = getattr(engine, name), np.array(planes[name], copy=True)
+        if not isinstance(cur, torch.Tensor):
+            setattr(engine, name, int(a))
+            continue
+        t = torch.from_numpy(a)
+        if t.dtype != cur.dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, want {cur.dtype}")
+        setattr(engine, name, t.to(cur.device))
+    return engine

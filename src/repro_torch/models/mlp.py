@@ -9,8 +9,9 @@ pairs sorted stably by expert, ranked within their expert, the pairs
 ranked at or beyond the capacity dropped, the rest gathered into an
 ``[E, cap, d]`` buffer, run through the three per-expert products
 (``torch.bmm``, as the reference leaves its einsums to XLA), and added
-back to their tokens weighted. The expert-parallel all-to-all of the mesh
-path has no counterpart on one card.
+back to their tokens weighted, in a fixed order (:func:`combine`). The
+expert-parallel all-to-all of the mesh path has no counterpart on one
+card.
 """
 from __future__ import annotations
 
@@ -123,9 +124,28 @@ def apply_moe(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor):
     hh = F.silu(torch.bmm(buf, p["w_gate"].to(dt))) * torch.bmm(
         buf, p["w_up"].to(dt))                               # [E, cap, h]
     out_buf = torch.bmm(hh, p["w_down"].to(dt))              # [E, cap, d]
-    y = x.new_zeros((n, d))
-    y.index_add_(0, stok, out_buf[se, rank] * sw[:, None].to(dt))
-    return y.reshape(b, s, d), aux
+    # the combine: each token's kept terms at their place in its experts'
+    # ascending order (a token's experts are distinct), dropped ones zero
+    by_expert = (tope[:, None, :] < tope[:, :, None]).sum(-1).reshape(n * k)
+    terms = x.new_zeros((n, k, d))
+    terms[stok, by_expert[order[keep]]] = out_buf[se, rank] * sw[:, None].to(dt)
+    return combine(terms).reshape(b, s, d), aux
+
+
+def combine(terms: torch.Tensor) -> torch.Tensor:
+    """``terms [N, K, d]`` -> ``[N, d]``: from zero, add ``terms[:, j]``
+    for ``j = 0 .. K-1`` in turn, each sum rounded to the terms' dtype.
+
+    The order the reference's scatter-add (``y.at[stok].add``) takes on
+    the CPU, where the pairs arrive stably sorted by expert: each token's
+    terms in ascending expert order. Plain elementwise adds, with no
+    atomics, so a run on the card repeats itself bit for bit; a dropped
+    term is ``+0.0``, which leaves a sum from ``+0.0`` unchanged.
+    """
+    y = torch.zeros_like(terms[:, 0])
+    for j in range(terms.shape[1]):
+        y = y + terms[:, j]
+    return y
 
 
 def moe(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor):

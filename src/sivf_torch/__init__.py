@@ -35,8 +35,10 @@ Everything re-exported here lives in ``repro_torch.core`` and
 ``sivf`` (raw fp32 or PQ payloads, with or without filter attributes,
 all-resident or tiered, on one device or sharded over a ``ShardMesh``,
 with persistence and elastic resharding, maintenance, the streaming serve
-engine and its telemetry); what is not ported yet (a tiered pool on a
-mesh) raises ``NotImplementedError`` naming its ROADMAP.md item.
+engine and its telemetry, a tiered pool on a mesh included). Nothing it
+exports raises ``NotImplementedError``; the paper's comparison baselines
+are ``repro_torch.baselines`` (as ``repro.baselines`` sits beside
+``sivf``).
 """
 from repro_torch.core.api import (  # noqa: F401
     ErrorCode,

@@ -65,6 +65,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.rwkv, repro_torch.models.mamba; "
             "import repro_torch.obs, repro_torch.serve.sivf_engine; "
             "import sivf_torch.telemetry; "
+            "import repro_torch.baselines; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
