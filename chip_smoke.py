@@ -143,14 +143,21 @@ count to 700, and kernel 4's launches to the chunks the searches cut
 it).
 
 After the ``hybrid`` phase, the ``arch.*`` phases serve Qwen3-14B,
-Phi-3-medium-14B and Granite-MoE-3B-A800M at full width (bf16, random
-weights from ``--seed``) through the same engine on shorter traffic
-(admit 2,048 and 517 tokens, 16 decode steps): flash launches all on
-``tensor_core`` and paged ones as counted, the traffic again through
+Phi-3-medium-14B, Granite-MoE-3B-A800M, MiniCPM3-4B (MLA: absorbed
+latent pages, kernel 5 at one KV head of keys 288 and values 256 for 40
+query heads, scale 96 ** -0.5; its prefill through kernel 6 at dh 96 with
+V zero-padded from 64), Moonlight-16B-A3B (top-6 of 64 experts plus 2
+shared) and LLaVA-NeXT-34B (its first admit with 576 image-patch
+embeddings from ``--seed``) at full width, uncut (bf16, random weights
+from ``--seed``) through the same engine on shorter traffic (admit 2,048
+and 517 tokens, 16 decode steps): flash launches all on ``tensor_core``
+and paged ones as counted, the first and last layer's calls held to the
+plain versions at full width with their planted controls refused, each
+kernel's layer-0 call timed (``kernel_times``), the traffic again through
 ``attn_impl="ref"`` (taking the first run's experts) held to page state
 ``==`` and ``LM_LOGIT_RTOL``, then the kernel run a second time, whose
-logits must be ``==`` the first for Granite (its MoE combine adds in a
-fixed order).
+logits must be ``==`` the first (the MoE combine adds in a fixed
+order).
 
 The coarse centroids are trained twice from one generator state and the
 PQ codebooks twice from one seed: k-means sums in a fixed order, so each
@@ -3605,6 +3612,12 @@ def paged_inputs(torch, rng, b, page, maxp, hq, hkv, dk, dv, dtype,
 
 
 SPLIT_WINDOWS = ((100, 600), (256, 512), (0, None))   # (start, length)
+# MiniCPM3's, Moonlight's and LLaVA's kernel shapes, held with a planted control:
+# paged (B, page, maxp, Hq, Hkv, dk, dv) of LLaVA (g 7) and Moonlight
+# (g 1) at dh 128; flash (B, Hq, Hkv, dh, dv or None) of MiniCPM3's MLA
+# prefill (dh 96, V zero-padded from 64) and LLaVA's (g 7)
+ARCH_PAGED_SHAPES = ((8, 16, 9, 56, 8, 128, 128), (8, 16, 9, 16, 16, 128, 128))
+ARCH_FLASH_SHAPES = ((1, 40, 40, 96, 64), (1, 56, 8, 128, None))
 
 
 def paged_edge_checks(torch, rng) -> tuple[list, dict]:
@@ -3616,7 +3629,10 @@ def paged_edge_checks(torch, rng) -> tuple[list, dict]:
     chunks, ``n_split`` a sequence): tables of ``maxp * page`` slots that
     the shares do not divide, with a window crossing several shares, one
     of 256 slots and a whole table, at Llama's and at MLA's shape (dk
-    288, dv 256, g 40, one KV head); float32 and bfloat16."""
+    288, dv 256, g 40, one KV head); float32 and bfloat16. The
+    architectures' decode shapes (``ARCH_PAGED_SHAPES``: LLaVA's g 7 and
+    Moonlight's g 1 at dh 128) also hold a planted control, each window
+    one slot short, that the full-width check must refuse."""
     from repro_torch.kernels.paged_attention.paged_attention import (
         launch_plan,
         paged_attention_cuda,
@@ -3630,7 +3646,7 @@ def paged_edge_checks(torch, rng) -> tuple[list, dict]:
               # the registered GQA shapes: g = 3 at dh 64 (Granite), g = 5
               # (Qwen3), four query heads on each of ten KV heads (Phi-3)
               (8, 16, 6, 24, 8, 64, 64), (8, 16, 6, 40, 8, 128, 128),
-              (8, 16, 6, 40, 10, 128, 128)]
+              (8, 16, 6, 40, 10, 128, 128)] + list(ARCH_PAGED_SHAPES)
     split_shapes = [(4, 16, 41, 32, 8, 128, 128), (4, 16, 37, 40, 1, 288, 256)]
     for split_set, (b, page, maxp, hq, hkv, dk, dv) in (
             [(False, sh) for sh in shapes] + [(True, sh) for sh in split_shapes]):
@@ -3655,6 +3671,11 @@ def paged_edge_checks(torch, rng) -> tuple[list, dict]:
             errs[dtype] = max(errs[dtype], attn_err(name, got, want, dtype))
             if b > 1:
                 check(bool((got[0] == 0).all()), f"{name}: all-pad row not 0")
+            if (b, page, maxp, hq, hkv, dk, dv) in ARCH_PAGED_SHAPES:
+                planted_control(f"{name}, window short by one slot",
+                                *control_pair("paged_attention", got,
+                                              paged_attention_ref, args, {}))
+                name += " (control refused)"
             cases.append(f"{name} ({plan['n_split']} splits, "
                          f"{plan['stages']} stages, vec={plan['vec']})")
     return cases, errs
@@ -3666,16 +3687,23 @@ def flash_edge_checks(torch, rng) -> tuple[list, dict]:
     128 and 64, float32 and bfloat16; the registered GQA shapes in bf16
     (g = 3 at dh 64, g = 5, four over five KV heads); then each route by name: bf16 at dh
     64, 128, 256 and 80 (tensor cores; 80 reads zeros past dh) and dh 40
-    (SIMT), at S = 1, 127, 129 and 1000 against tiles of 128."""
+    (SIMT), at S = 1, 127, 129 and 1000 against tiles of 128; last the
+    architectures' prefill shapes in bf16, causal (MiniCPM3's MLA: dh 96
+    at g 1 with V's columns 64.. zero, whose output columns must come out
+    0; LLaVA's g 7 at dh 128), each also with a planted control, each
+    row without its own key, that the full-width check must refuse."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import mha_ref
     cases, errs = [], {"float32": 0.0, "bfloat16": 0.0}
 
-    def one(b, hq, hkv, sq, sk, dh, causal, dtype, want_route=None):
+    def one(b, hq, hkv, sq, sk, dh, causal, dtype, want_route=None,
+            dv=None, control=False):
         dt = getattr(torch, dtype)
         q, k, v = (torch.from_numpy(rng.normal(size=(
             b, h, s, dh)).astype(np.float32)).to("cuda", dt)
             for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+        if dv is not None:                # V zero-padded from dv to dh
+            v[..., dv:] = 0
         which = fk.route(dt, dh)
         check(want_route in (None, which), f"dh={dh} {dtype}: route {which}")
         before = getattr(fk, f"launches_{which}")
@@ -3687,6 +3715,15 @@ def flash_edge_checks(torch, rng) -> tuple[list, dict]:
         name = (f"Sq={sq}/Sk={sk}/causal={causal}/g={hq // hkv}/dh={dh}/"
                 f"{dtype}/{which}")
         errs[dtype] = max(errs[dtype], attn_err(name, got, want, dtype))
+        if dv is not None:
+            check(bool((got[..., dv:] == 0).all()),
+                  f"{name}: output columns past dv={dv} not 0")
+            name += f"/V padded from {dv}"
+        if control:
+            planted_control(f"{name}, rows without their own key",
+                            *control_pair("flash_attention", got, mha_ref,
+                                          (q, k, v), {"causal": causal}))
+            name += " (control refused)"
         cases.append(name)
 
     lengths = [(1, 1), (17, 17), (129, 129), (1000, 1000), (1, 1000),
@@ -3705,6 +3742,10 @@ def flash_edge_checks(torch, rng) -> tuple[list, dict]:
                               (256, "tensor_core"), (80, "tensor_core"),
                               (40, "simt")):
                 one(1, 8, 2, sq, sk, dh, causal, "bfloat16", which)
+    for s in (1, 129, 1000):
+        for b, hq, hkv, dh, dv in ARCH_FLASH_SHAPES:
+            one(b, hq, hkv, s, s, dh, True, "bfloat16", "tensor_core", dv=dv,
+                control=s > 1)
     return cases, errs
 
 
@@ -3747,6 +3788,11 @@ def control_pair(name: str, out, plain, args, kw) -> tuple:
                                 **kw)
 
 
+def engine_pool_bytes(eng) -> int:
+    """Bytes of an LM engine's K and V page pools (MLA's differ)."""
+    return sum(p.numel() * p.element_size() for p in (eng.k_pool, eng.v_pool))
+
+
 def lm_traffic(seed: int, vocab: int, traffic: dict = LM_TRAFFIC
                ) -> tuple[list, np.ndarray]:
     """Prompts (the admits, then any re-admit) and the teacher-forced
@@ -3761,14 +3807,19 @@ def lm_traffic(seed: int, vocab: int, traffic: dict = LM_TRAFFIC
     return prompts, forced
 
 
-def lm_operations(prompts, forced_t, traffic: dict = LM_TRAFFIC) -> list:
+def lm_operations(prompts, forced_t, traffic: dict = LM_TRAFFIC,
+                  prefix=None) -> list:
     """The LM traffic as ``(name, call)`` pairs, ``call(engine)`` running
-    the operation: admit the prompts into slots 0, 1, ..., decode
+    the operation: admit the prompts into slots 0, 1, ... (slot 0's with
+    the ``prefix`` embeddings where there are any), decode
     ``steps[0]`` lockstep steps; where the traffic has a re-admit, then
     slide slot 0's window to ``LM_KEEP``, evict slot 3, admit the last
     prompt into slot 3 (onto the freed pages) and decode ``steps[1]``
     more. Every step's input tokens are the forced ones."""
     def admit(seq, toks):
+        if seq == 0 and prefix is not None:
+            return "admit0", lambda eng: eng.admit(0, toks,
+                                                   prefix_embeds=prefix)
         return f"admit{seq}", lambda eng: eng.admit(seq, toks)
 
     def step(i):
@@ -3788,8 +3839,9 @@ def lm_operations(prompts, forced_t, traffic: dict = LM_TRAFFIC) -> list:
 
 
 def serve_lm(torch, eng, prompts, forced, captures=None,
-             dev="cuda", traffic: dict = LM_TRAFFIC) -> dict:
-    """Drive ``eng`` through the LM traffic (:func:`lm_operations`).
+             dev="cuda", traffic: dict = LM_TRAFFIC, prefix=None) -> dict:
+    """Drive ``eng`` through the LM traffic (:func:`lm_operations`, slot
+    0's admit with ``prefix``).
     ``captures`` maps an operation (``"admit0"``, ``"step64"``) to the
     :class:`Capture` that records its kernels' inputs.
     Returns timings, the page state after each operation, each step's
@@ -3800,7 +3852,7 @@ def serve_lm(torch, eng, prompts, forced, captures=None,
     out = {"admit": [], "step_ms": [], "pages": [], "logits": [],
            "active": []}
     for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev),
-                                  traffic):
+                                  traffic, prefix):
         before = int(eng.pages.free_top)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3923,16 +3975,26 @@ def paged_work(q, k_pages, v_pages, tables, lengths, starts) -> tuple:
     return bytes_, flops, int(live)
 
 
-def flash_work(q, k, causal=True) -> tuple:
-    """(bytes, flops) of one flash call: q, k, v and the output once; two
-    products of dh per visible (q row, k column) pair and q head."""
+def flash_work(q, k, causal=True, dv=None) -> tuple:
+    """(bytes, flops) of one flash call: q, k, v and the output once;
+    ``q k`` of dh and ``P v`` of ``dv`` (the V width the function needs,
+    dh unless given: MLA pads V from 64 to 96 and needs only 64) per
+    visible (q row, k column) pair and q head."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    dv = dh if dv is None else dv
     rows = np.arange(sq) + (sk - sq)
     visible = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
     es = q.element_size()
-    return (2 * (b * hq * sq * dh + b * hkv * sk * dh) * es,
-            4 * b * hq * dh * visible)
+    return ((b * hq * sq * (dh + dv) + b * hkv * sk * (dh + dv)) * es,
+            2 * b * hq * (dh + dv) * visible)
+
+
+def peak_of(torch, dtype) -> float:
+    """The card's peak FLOP/s for operands of ``dtype``: bf16 and fp16 on
+    the tensor cores, float32 outside them."""
+    return BF16_PEAK if dtype in (torch.bfloat16, torch.float16) \
+        else FP32_PEAK
 
 
 def full_width_checks(torch, caps: dict, layers) -> dict:
@@ -4026,7 +4088,7 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
                    torch, lambda: warm.admit(len(LM_PROMPTS), prompts[3]))}
     del warm
     eng = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE)
-    pool_bytes = 2 * eng.k_pool.numel() * eng.k_pool.element_size()
+    pool_bytes = engine_pool_bytes(eng)
     readmit_step = f"step{LM_STEPS[0]}"
     caps = {"admit0": Capture(fops, "flash_attention", (0, last)),
             readmit_step: Capture(pops, "paged_attention", (0, last))}
@@ -4106,11 +4168,13 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
     rows = [row("paged_attention", PAGED_SRC, PAGED_REP,
                 launches["paged_attention"],
                 max(full["paged_attention"]["max_abs_err_by_layer"].values()),
-                p_ms, p_plain, p_bytes, p_flops, hbm),
+                p_ms, p_plain, p_bytes, p_flops, hbm,
+                peak=peak_of(torch, pa[0].dtype)),
             row("flash_attention", FLASH_SRC, FLASH_REP,
                 launches["flash_attention"],
                 max(full["flash_attention"]["max_abs_err_by_layer"].values()),
-                f_ms, f_plain, f_bytes, f_flops, hbm, peak=BF16_PEAK,
+                f_ms, f_plain, f_bytes, f_flops, hbm,
+                peak=peak_of(torch, q.dtype),
                 library_ms=f_lib)]
     full["paged_attention"].update(
         ms=p_ms, ms_l2_warm=p_warm, plain_ms=p_plain, live_slots=live, bytes=p_bytes,
@@ -4822,12 +4886,14 @@ def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
 
 
 # ---------------------------------------------------------------------------
-# The three GQA architectures registered beside Llama: flash and paged
-# attention (TPU kernels 6 and 5) at their shapes, and Granite's MoE
-# combine in a fixed order
+# The decoder-only architectures registered beside Llama: flash and paged
+# attention (TPU kernels 6 and 5) at their shapes (MiniCPM3's MLA on
+# latent pages among them), the MoE combine in a fixed order (Granite;
+# Moonlight's with its shared experts), LLaVA's image-patch prefix
 # ---------------------------------------------------------------------------
 
-ARCH_PHASES = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m")
+ARCH_PHASES = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m",
+               "minicpm3-4b", "moonshot-v1-16b-a3b", "llava-next-34b")
 ARCH_TRAFFIC = dict(prompts=(2048, 517), readmit=None, steps=(16,))
 ARCH_LAUNCHES: dict = {}       # kernels 5 / 6: each architecture's launches
 
@@ -4841,12 +4907,17 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
     ``attn_impl="ref"`` (the plain attention versions, taking the first
     run's experts where the model has MoE layers) held to it within
     ``LM_LOGIT_RTOL``; then the kernel run again, whose logits must be
-    ``==`` the first. The repeat's times are the warm ones."""
+    ``==`` the first. The repeat's times are the warm ones. A vision-stub
+    model's first admit carries its ``n_prefix_embeds`` image-patch
+    embeddings, ``N(0, 1)`` from ``seed``. Last, each kernel's layer-0
+    call of the first run is timed with the L2 flushed (``kernel_times``:
+    beside its bound, its plain version and, for flash, SDPA)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.models import attention as attn
     from repro_torch.models import mlp
     from repro_torch.models.model import init_params
     from repro_torch.serve.paged_lm import PagedLMEngine
@@ -4854,6 +4925,13 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
     cfg = get_arch(name)
     plan = unpadded_plan(cfg)
     prompts, forced = lm_traffic(seed, cfg.vocab_size, ARCH_TRAFFIC)
+    prefix = None
+    if cfg.frontend == "vision_stub":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        prefix = torch.randn((cfg.n_prefix_embeds, cfg.d_model),
+                             generator=gen, device=dev).to(
+                                 getattr(torch, cfg.dtype))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -4871,8 +4949,8 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
     def run(captures=None, **kw):
         eng = PagedLMEngine(cfg, plan, params, device=dev, **LM_ENGINE, **kw)
         out = serve_lm(torch, eng, prompts, forced, captures, dev=dev,
-                       traffic=ARCH_TRAFFIC)
-        out["pool_bytes"] = 2 * eng.k_pool.numel() * eng.k_pool.element_size()
+                       traffic=ARCH_TRAFFIC, prefix=prefix)
+        out["pool_bytes"] = engine_pool_bytes(eng)
         return out
 
     t0 = time.perf_counter()
@@ -4887,6 +4965,9 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
                     "paged_attention": pk.launches}
         peak = torch.cuda.max_memory_allocated() - base
         full = full_width_checks(torch, caps, layers)
+        times = arch_kernel_times(
+            torch, caps, dev,
+            dv=cfg.v_head_dim if cfg.attention == "mla" else None)
         del caps
         router.begin(1)
         ref = run(attn_impl="ref")
@@ -4919,6 +5000,15 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
         "head_dim": cfg.head_dim, "qk_norm": cfg.qk_norm,
         "moe": [cfg.n_experts, cfg.moe_top_k] if cfg.moe else None,
+        "mla": {"q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+                "qk_nope": cfg.qk_nope_dim, "qk_rope": cfg.qk_rope_dim,
+                "v_head": cfg.v_head_dim,
+                "page_dk_dv": list(attn.mla_page_dims(cfg)[1:]),
+                "scale": cfg.qk_head_dim ** -0.5}
+        if cfg.attention == "mla" else None,
+        "shared_experts": cfg.n_shared_experts if cfg.moe else None,
+        "prefix_embeds": None if prefix is None else list(prefix.shape),
+        "reduced": None,
         "dtype": cfg.dtype, "params": cfg.param_count(),
         "param_bytes": param_bytes, "pool_bytes": got["pool_bytes"],
         "engine": LM_ENGINE, "traffic": ARCH_TRAFFIC,
@@ -4930,16 +5020,67 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
         "decode_tokens_per_s_median": float(np.median(
             np.array(active) / steps * 1e3)),
         "peak_device_bytes": peak, "launches": launches,
-        "kernels_full_width": full,
+        "kernels_full_width": full, "kernel_times": times,
         "vs_ref": {**vs_ref, "logit_rtol": LM_LOGIT_RTOL,
                    "page_states_equal": True,
                    "moe_decisions_ref_would_change": flips,
                    "moe_decisions": decisions},
         "repeat": repeat,
         "path_seconds": path_s}
-    del got, again, params
+    del got, again, params, prefix
     torch.cuda.empty_cache()
     return [line]
+
+
+def arch_kernel_times(torch, caps: dict, dev="cuda", dv=None) -> dict:
+    """Kernels 5 and 6 on their captured layer-0 calls: the median of 20
+    launches each after a 256 MB write (the L2 flushed, as the kernels
+    line times them) and warm, the plain version's time, the bound
+    (:func:`row`'s: bytes over the memory rate or flops over the
+    operands' :func:`peak_of`, whichever is longer) on these inputs, and
+    for flash SDPA on the same q, k, v and scale. ``dv`` is the V width
+    the architecture needs where flash is given V zero-padded (MLA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
+    scratch = torch.empty(1 << 26, dtype=torch.float32, device=dev)
+    out = {}
+    for name, kern, plain in (
+            ("paged_attention", pk.paged_attention_cuda, paged_attention_ref),
+            ("flash_attention", fk.flash_attention_cuda, mha_ref)):
+        args, kw = caps[name].args[0]
+        peak = peak_of(torch, args[0].dtype)
+        if name == "paged_attention":
+            bytes_, flops, _ = paged_work(*args)
+        else:
+            bytes_, flops = flash_work(args[0], args[1], dv=dv)
+        ms = cuda_median_ms_cold(lambda: kern(*args, **kw), 20, scratch.zero_)
+        r = row(name, "", "", 0, 0.0, ms, cuda_ms(lambda: plain(*args, **kw),
+                                                  reps=3),
+                bytes_, flops, hbm, peak=peak)
+        out[name] = {"shapes": [list(a.shape) for a in args
+                                if hasattr(a, "shape")],
+                     "scale": kw.get("scale"), "ms": ms,
+                     "ms_l2_warm": cuda_median_ms(lambda: kern(*args, **kw),
+                                                  20),
+                     "plain_ms": r["plain_ms"], "bytes": bytes_,
+                     "flops": flops, "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "pct_of_bound": r["bound_ms"] / ms * 100,
+                     "achieved_tflops": flops / ms / 1e9}
+        if name == "flash_attention":
+            q, k, v = args
+            out[name]["sdpa_bf16_ms"] = cuda_median_ms_cold(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True,
+                    scale=kw.get("scale")), 20, scratch.zero_)
+            out[name]["route"] = fk.route(q.dtype, q.shape[-1])
+    del scratch
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,11 @@
 ``ARCHS`` holds the configs the port can run: the dense GQA decoders
 ``llama3-8b``, ``qwen3-14b`` (with per-head QK-RMSNorm) and
 ``phi3-medium-14b``, the GQA + MoE decoder ``granite-moe-3b-a800m``, the
-RNN ``rwkv6-3b`` and the hybrid Mamba + attention + MoE
-``jamba-v0.1-52b``. Any other architecture of the reference raises
+MLA decoder ``minicpm3-4b`` (absorbed latent pages), the MoE decoder with
+shared experts ``moonshot-v1-16b-a3b``, the VLM backbone
+``llava-next-34b`` (image-patch prefix embeddings), the RNN ``rwkv6-3b``
+and the hybrid Mamba + attention + MoE ``jamba-v0.1-52b``. The
+reference's encoder-decoder ``whisper-base`` raises
 ``NotImplementedError`` from :func:`get_arch`, naming the ROADMAP item
 that ports its path; an unknown name raises ``KeyError``.
 """
@@ -15,6 +18,9 @@ from repro_torch.configs import (
     granite_moe_3b_a800m,
     jamba_v0_1_52b,
     llama3_8b,
+    llava_next_34b,
+    minicpm3_4b,
+    moonshot_v1_16b_a3b,
     phi3_medium_14b,
     qwen3_14b,
     rwkv6_3b,
@@ -23,13 +29,14 @@ from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
     llama3_8b.CONFIG, qwen3_14b.CONFIG, phi3_medium_14b.CONFIG,
-    granite_moe_3b_a800m.CONFIG, rwkv6_3b.CONFIG, jamba_v0_1_52b.CONFIG]}
+    granite_moe_3b_a800m.CONFIG, minicpm3_4b.CONFIG,
+    moonshot_v1_16b_a3b.CONFIG, llava_next_34b.CONFIG, rwkv6_3b.CONFIG,
+    jamba_v0_1_52b.CONFIG]}
 
 # the reference's other architectures, and the ROADMAP item that ports them
 NOT_PORTED: dict[str, str] = {
-    name: "ROADMAP.md queue 1 item 13 (the LM side's remaining paths)"
-    for name in ("minicpm3-4b", "llava-next-34b", "moonshot-v1-16b-a3b",
-                 "whisper-base")
+    "whisper-base": "ROADMAP.md queue 1 item 13d (the Whisper "
+                    "encoder-decoder)",
 }
 
 

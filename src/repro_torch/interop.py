@@ -15,8 +15,9 @@ leaves (``{"embed": {"table": a}, "final_norm": ..., "layers": [{name:
 the port's layer ``l`` is position ``l % period``, entry ``l // period``.
 Weights keep their ``[d_in, d_out]`` layout: a crossing only stacks and
 splits, never transposes. KV page state crosses as ``{plane: array}`` of
-its seven planes, and the engine's recurrent-state pools (RWKV6, Mamba)
-as the reference engine's per-position pools. A baseline's state crosses
+its seven planes, and the engine's K/V pools (MLA's latent pages
+included) and recurrent-state pools (RWKV6, Mamba) as the reference
+engine's per-position pools. A baseline's state crosses
 as ``{plane: array}`` of the attributes :data:`BASELINE_PLANES` names
 (Flat: buffer, ids, cursor; ContiguousIVF: buffer, ids, counts,
 ``n_relayouts``; LSH: planes, bucket vectors, ids, cursors), so that two
@@ -122,8 +123,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
     param tree with numpy leaves. ``dtype`` (default: as given) is the
     storage dtype of matrices and embeddings; the float32 leaves (norm
     scales, RWKV's ``w0``/``u``/group norm, Mamba's ``a_log``/``dt_bias``/
-    ``d``) stay float32. Every group of a layer crosses: ``ln1``, ``attn``
-    | ``tm`` | ``mamba``, ``ln2``, ``mlp`` | ``cm`` | ``moe``."""
+    ``d``, the attention's ``q_norm``/``k_norm`` and MLA's ``q_ln``/
+    ``kv_ln``) stay float32. Every group of a layer crosses: ``ln1``,
+    ``attn`` (GQA or MLA) | ``tm`` | ``mamba``, ``ln2``, ``mlp`` | ``cm`` |
+    ``moe`` (with its nested ``shared`` group)."""
     M.check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.layer_period
@@ -132,7 +135,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
                          f"{len(tree['layers'])}")
 
     def group(name, leaves, pick=lambda a: a):
-        return {k: _leaf(pick(a), dev, dtype, name, k)
+        """A group's leaves; a nested group (the MoE's ``shared``) takes
+        its parent's float32 rule."""
+        return {k: group(name, a, pick) if isinstance(a, dict) else
+                _leaf(pick(a), dev, dtype, name, k)
                 for k, a in leaves.items()}
 
     layers = []
@@ -164,12 +170,17 @@ def params_to_numpy(cfg: ModelConfig, params: M.DecoderLM) -> dict:
             "layers": []}
     if hasattr(params, "head"):
         tree["head"] = {k: _host(t) for k, t in params.head.items()}
+
+    def stacked(groups):                # one group over the periods
+        return {k: stacked([g[k] for g in groups])
+                if isinstance(v, torch.nn.ParameterDict) else
+                np.stack([_host(g[k]) for g in groups])
+                for k, v in groups[0].items()}
+
     for pos in range(period):
         stack = [params.layers[li] for li in range(pos, cfg.n_layers, period)]
-        tree["layers"].append({
-            name: {k: np.stack([_host(lp[name][k]) for lp in stack])
-                   for k in stack[0][name].keys()}
-            for name in stack[0].keys()})
+        tree["layers"].append({name: stacked([lp[name] for lp in stack])
+                               for name in stack[0].keys()})
     return tree
 
 
@@ -191,6 +202,22 @@ def recurrent_state_to_numpy(cfg: ModelConfig, pools: dict) -> list:
             np.stack([_host(pool[ords[li]]) for li in layers])
             for pool in pools[kind]))
     return out
+
+
+def kv_pools_to_numpy(cfg: ModelConfig, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor) -> list:
+    """The engine's K and V pools (``[n_attn, n_pages, page, Hkv, d]``) in
+    the reference engine's layout: one entry per period position, ``None``
+    where the position is no attention layer, else ``(k, v)`` stacked over
+    the periods, ``[n_per, n_pages, page, Hkv, d]``. MLA's latent pages
+    cross the same way (``Hkv = 1``, K ``latent (+) rope``, V ``latent``).
+    bfloat16 comes back as float32."""
+    kinds, ords, period = M.layer_kinds(cfg), M.ordinals(cfg), \
+        cfg.layer_period
+    return [None if kinds[pos] != "attn" else tuple(
+        np.stack([_host(pool[ords[li]])
+                  for li in range(pos, cfg.n_layers, period)])
+        for pool in (k_pool, v_pool)) for pos in range(period)]
 
 
 def recurrent_state_from_numpy(cfg: ModelConfig, entries: list,

@@ -1,9 +1,23 @@
-"""Grouped-query attention, full-sequence (prefill) and paged decode.
+"""Grouped-query and multi-head latent attention, full-sequence (prefill)
+and paged decode.
 
-Counterpart of the GQA half of ``repro/models/attention.py``: ``init_gqa``,
-``_head_mask``, ``_gqa_qkv`` (qk-norm included), ``gqa_full`` and
-``gqa_decode_paged``. MLA, cross-attention and the dense-cache
-``gqa_decode`` are not ported.
+Counterpart of ``repro/models/attention.py``'s GQA (``init_gqa``,
+``_head_mask``, ``_gqa_qkv`` with qk-norm, ``gqa_full``,
+``gqa_decode_paged``) and MLA (``init_mla``, ``_mla_qkv``, ``mla_full``,
+``mla_absorbed_parts``, ``mla_absorbed_out``, and the latent-page decode of
+``repro/serve/paged_lm.py::_mla_paged``). Cross-attention and the
+dense-cache ``gqa_decode`` are not ported.
+
+MLA caches the absorbed form: per token one latent ``[kv_lora]`` and one
+roped key ``[qk_rope]`` shared by every head, so its pages hold one "KV
+head" of keys ``latent (+) rope`` and values ``latent``, and decode runs
+the paged kernel unchanged with ``Hkv = 1``, ``g = Hq``. Its prefill runs
+the expanded per-head q, k, v through the flash kernel: where the value
+head is narrower than the query/key head (64 against 96 in MiniCPM3), V
+is zero-padded to the key width and the padding columns of the output
+dropped, which is exact (a zero column of V gives a zero output column).
+The reference computes that attention with its XLA ``_sdpa`` whatever its
+``impl``; the absorbed einsums stay plain products here as there.
 
 ``impl`` picks the attention arithmetic:
   * ``"kernel"`` (default): the ops entry points, which dispatch by device,
@@ -16,6 +30,7 @@ Counterpart of the GQA half of ``repro/models/attention.py``: ``init_gqa``,
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -137,5 +152,170 @@ def gqa_decode_paged(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
     o = attend(q[:, 0].contiguous(), k_pages, v_pages, tables, lengths + 1,
                starts)
     o = o * _head_mask(plan, cfg.n_heads, x.device)[None, :, None].to(
+        o.dtype)
+    return dense(p["wo"], o.reshape(b, 1, -1)), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3): multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, plan: ShardPlan,
+             device, dtype=torch.float32) -> nn.ParameterDict:
+    """``w_dq``, ``w_uq``, ``w_dkv``, ``w_ukv``, ``wo`` in the reference's
+    order and shapes, and the float32 latent norms ``q_ln``, ``kv_ln``."""
+    d, hq = cfg.d_model, plan.n_heads_padded
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return param_group(
+        w_dq=dense_init(gen, d, cfg.q_lora_rank, device, dtype),
+        w_uq=dense_init(gen, cfg.q_lora_rank, hq * qk, device, dtype),
+        w_dkv=dense_init(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim, device,
+                         dtype),
+        w_ukv=dense_init(gen, cfg.kv_lora_rank,
+                         hq * (cfg.qk_nope_dim + cfg.v_head_dim), device,
+                         dtype),
+        wo=dense_init(gen, hq * cfg.v_head_dim, d, device, dtype),
+        q_ln=torch.ones((cfg.q_lora_rank,), dtype=torch.float32,
+                        device=device),
+        kv_ln=torch.ones((cfg.kv_lora_rank,), dtype=torch.float32,
+                         device=device))
+
+
+def _mla_query(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+               positions: torch.Tensor):
+    """x [B,S,d] -> (q_nope [B,S,H,nope], q_rope [B,S,H,rope] roped)."""
+    b, s, _ = x.shape
+    nope = cfg.qk_nope_dim
+    cq = rms_norm_1d(dense(p["w_dq"], x), p["q_ln"])
+    q = dense(p["w_uq"], cq).reshape(b, s, plan.n_heads_padded,
+                                     nope + cfg.qk_rope_dim)
+    return q[..., :nope], apply_rope(q[..., nope:], positions,
+                                     cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """x [B,S,d] -> (normed latent [B,S,kv_lora], roped key [B,S,rope]):
+    what a token leaves in the cache."""
+    b, s, _ = x.shape
+    lat = cfg.kv_lora_rank
+    ckv = dense(p["w_dkv"], x)                               # [B,S,lat+rope]
+    c_lat = rms_norm_1d(ckv[..., :lat], p["kv_ln"])
+    k_rope = apply_rope(ckv[..., lat:].reshape(b, s, 1, cfg.qk_rope_dim),
+                        positions, cfg.rope_theta)[:, :, 0]
+    return c_lat, k_rope
+
+
+def _w_ukv(p, cfg: ModelConfig, hq: int, dtype) -> tuple:
+    """``w_ukv`` as (W_k [lat, H, nope], W_v [lat, H, v_head]) in
+    ``dtype``."""
+    nope = cfg.qk_nope_dim
+    w = p["w_ukv"].reshape(cfg.kv_lora_rank, hq, nope + cfg.v_head_dim)
+    return w[..., :nope].to(dtype), w[..., nope:].to(dtype)
+
+
+def _mla_qkv(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+             positions: torch.Tensor):
+    """The expanded per-head operands: q, k [B,S,H,nope+rope] (the roped
+    key broadcast to every head), v [B,S,H,v_head]; and the cache entries
+    ``(latent, rope key)``."""
+    b, s, _ = x.shape
+    hq, nope, rp = plan.n_heads_padded, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_query(p, cfg, plan, x, positions)
+    c_lat, k_rope = _mla_latent(p, cfg, x, positions)
+    kv = dense(p["w_ukv"], c_lat).reshape(b, s, hq, nope + cfg.v_head_dim)
+    k = torch.cat([kv[..., :nope],
+                   k_rope[:, :, None].expand(b, s, hq, rp)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, kv[..., nope:], (c_lat, k_rope)
+
+
+def mla_full(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+             positions: torch.Tensor, causal: bool = True,
+             impl: str = "kernel"):
+    """Full-sequence MLA. Returns (out [B,S,d], (latent [B,S,kv_lora],
+    rope key [B,S,rope])): the absorbed form, which the paged engine's
+    latent pages take directly.
+
+    The attention runs on ``[B,H,S,w]`` operands of one width ``w =
+    max(qk_head_dim, v_head_dim)``, the narrower zero-padded, with
+    ``scale = qk_head_dim ** -0.5``: the flash kernel (TPU kernel 6) for
+    ``impl="kernel"``, ``mha_ref`` for ``"ref"``."""
+    check_impl(impl)
+    b, s, _ = x.shape
+    vh = cfg.v_head_dim
+    q, k, v, cache = _mla_qkv(p, cfg, plan, x, positions)
+    w = max(q.shape[-1], vh)
+    q, k, v = (F.pad(a, (0, w - a.shape[-1])).transpose(1, 2).contiguous()
+               for a in (q, k, v))
+    attend = flash_ops.flash_attention if impl == "kernel" else mha_ref
+    o = attend(q, k, v, causal=causal,
+               scale=cfg.qk_head_dim ** -0.5)[..., :vh].transpose(1, 2)
+    o = o * _head_mask(plan, cfg.n_heads, x.device)[None, None, :, None].to(
+        o.dtype)
+    return dense(p["wo"], o.reshape(b, s, -1)), cache
+
+
+def mla_absorbed_parts(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+                       positions: torch.Tensor):
+    """Absorbed-form decode inputs: ``W_k`` folded into the query, so
+    ``q_nope[h] . (c W_k[h]) = (q_nope[h] W_k[h]^T) . c``. Returns (q_comb
+    [B,S,H,lat+rope], latent [B,S,lat], rope key [B,S,rope])."""
+    q_nope, q_rope = _mla_query(p, cfg, plan, x, positions)
+    w_k, _ = _w_ukv(p, cfg, plan.n_heads_padded, q_nope.dtype)
+    q_abs = torch.einsum("bshd,lhd->bshl", q_nope, w_k)      # [B,S,H,lat]
+    c_lat, k_rope = _mla_latent(p, cfg, x, positions)
+    return torch.cat([q_abs, q_rope], dim=-1), c_lat, k_rope
+
+
+def mla_page_dims(cfg: ModelConfig) -> tuple:
+    """(hkv, dk, dv) of MLA's latent pages: one KV head whose K row is
+    ``latent (+) rope key`` and whose V row is the latent."""
+    return 1, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank
+
+
+def mla_page_rows(latent: torch.Tensor, rope: torch.Tensor) -> tuple:
+    """(k_rows [..., 1, lat+rope], v_rows [..., 1, lat]) in
+    :func:`mla_page_dims`'s layout from latent [..., lat] and rope key
+    [..., rope]."""
+    return torch.cat([latent, rope], dim=-1)[..., None, :], \
+        latent[..., None, :]
+
+
+def mla_absorbed_out(p, cfg: ModelConfig, ctx: torch.Tensor) -> torch.Tensor:
+    """ctx [B,S,H,lat] (attention-weighted latents) -> [B,S,H,v_head]:
+    ``out[h] = (sum_t p_t c_t) W_v[h]``."""
+    _, w_v = _w_ukv(p, cfg, ctx.shape[2], ctx.dtype)
+    return torch.einsum("bshl,lhv->bshv", ctx, w_v)
+
+
+def mla_decode_paged(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+                     k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     tables: torch.Tensor, lengths: torch.Tensor,
+                     starts: torch.Tensor, positions: torch.Tensor,
+                     write: tuple, impl: str = "kernel"):
+    """One-token MLA decode over latent pages (the reference engine's
+    ``_mla_paged``), with :func:`gqa_decode_paged`'s arguments.
+
+    ``k_pages`` [n_pages, page, 1, lat+rope] and ``v_pages`` [n_pages,
+    page, 1, lat] (updated in place: the new token's ``latent (+) rope``
+    and ``latent`` go into their slot). The absorbed query's ``Hq`` heads
+    attend to the one latent "KV head" with ``scale = qk_head_dim **
+    -0.5`` (not the operands' ``(lat+rope) ** -0.5``), then
+    :func:`mla_absorbed_out`, the head mask and ``wo``."""
+    check_impl(impl)
+    b = x.shape[0]
+    q_comb, c_lat, k_rope = mla_absorbed_parts(p, cfg, plan, x,
+                                               positions[:, None])
+    rows, pages, slots = write
+    k_rows, v_rows = mla_page_rows(c_lat, k_rope)            # [B,1,1,..]
+    k_pages[pages, slots] = k_rows[rows, 0].to(k_pages.dtype)
+    v_pages[pages, slots] = v_rows[rows, 0].to(v_pages.dtype)
+    attend = paged_ops.paged_attention if impl == "kernel" \
+        else paged_attention_ref
+    ctx = attend(q_comb[:, 0].contiguous(), k_pages, v_pages, tables,
+                 lengths + 1, starts, scale=cfg.qk_head_dim ** -0.5)
+    o = mla_absorbed_out(p, cfg, ctx[:, None])               # [B,1,H,vh]
+    o = o * _head_mask(plan, cfg.n_heads, x.device)[None, None, :, None].to(
         o.dtype)
     return dense(p["wo"], o.reshape(b, 1, -1)), k_pages, v_pages

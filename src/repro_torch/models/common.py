@@ -18,10 +18,18 @@ import torch
 from torch import nn
 
 
-def param_group(**tensors: torch.Tensor) -> nn.ParameterDict:
-    """An ``nn.ParameterDict`` of frozen parameters (inference only)."""
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def param_group(**tensors) -> nn.ParameterDict:
+    """An ``nn.ParameterDict`` of frozen parameters (inference only). A
+    value that is itself a group (a dict or ``nn.ParameterDict``, as the
+    MoE's ``shared`` experts) stays a nested group, read as ``p["shared"]
+    ["w_up"]``."""
+    p = nn.ParameterDict()
+    for k, v in tensors.items():
+        if isinstance(v, dict):
+            v = param_group(**v)
+        p[k] = v if isinstance(v, nn.ParameterDict) else \
+            nn.Parameter(v, requires_grad=False)
+    return p
 
 
 def normal(gen: torch.Generator, shape, scale: float, device,

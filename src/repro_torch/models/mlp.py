@@ -9,8 +9,9 @@ pairs sorted stably by expert, ranked within their expert, the pairs
 ranked at or beyond the capacity dropped, the rest gathered into an
 ``[E, cap, d]`` buffer, run through the three per-expert products
 (``torch.bmm``, as the reference leaves its einsums to XLA), and added
-back to their tokens weighted, in a fixed order (:func:`combine`). The
-expert-parallel all-to-all of the mesh path has no counterpart on one
+back to their tokens weighted, in a fixed order (:func:`combine`); the
+shared experts' dense SwiGLU output (Moonlight's) is added after that sum.
+The expert-parallel all-to-all of the mesh path has no counterpart on one
 card.
 """
 from __future__ import annotations
@@ -52,8 +53,9 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, plan: ShardPlan,
              device, dtype=torch.float32) -> nn.ParameterDict:
     """Router ``[d, E]`` and expert weights ``w_gate``/``w_up`` ``[E, d,
     h]``, ``w_down`` ``[E, h, d]``, all ``N(0, 1/d)`` as the reference
-    draws them (plus a dense ``shared`` expert group where the config has
-    shared experts)."""
+    draws them, then, where the config has shared experts, their dense
+    SwiGLU group ``shared`` of width ``n_shared_experts * moe_d_ff``
+    (:func:`init_mlp`)."""
     d, h = cfg.d_model, cfg.moe_d_ff
     e = plan.n_experts_padded or cfg.n_experts
     scale = (1.0 / d) ** 0.5
@@ -62,9 +64,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, plan: ShardPlan,
          "w_up": normal(gen, (e, d, h), scale, device, dtype),
          "w_down": normal(gen, (e, h, d), scale, device, dtype)}
     if cfg.n_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not ported: ROADMAP.md queue 1 item 13 "
-            "(models/mlp.py shared experts)")
+        p["shared"] = init_mlp(gen, d, cfg.n_shared_experts * h, "swiglu",
+                               device, dtype)
     return param_group(**p)
 
 
@@ -129,7 +130,10 @@ def apply_moe(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor):
     by_expert = (tope[:, None, :] < tope[:, :, None]).sum(-1).reshape(n * k)
     terms = x.new_zeros((n, k, d))
     terms[stok, by_expert[order[keep]]] = out_buf[se, rank] * sw[:, None].to(dt)
-    return combine(terms).reshape(b, s, d), aux
+    out = combine(terms).reshape(b, s, d)
+    if "shared" in p:                   # after the routed sum, as there
+        out = out + apply_mlp(p["shared"], x, "swiglu")
+    return out, aux
 
 
 def combine(terms: torch.Tensor) -> torch.Tensor:

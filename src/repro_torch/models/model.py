@@ -1,5 +1,6 @@
-"""Model assembly for decoder-only LMs: dense GQA, RWKV6, and the hybrid
-Mamba + attention + MoE stack.
+"""Model assembly for decoder-only LMs: dense GQA or MLA attention (with
+MoE, shared experts included, and an image-patch prefix), RWKV6, and the
+hybrid Mamba + attention + MoE stack.
 
 Counterpart of ``repro/models/model.py``: ``init_params``,
 ``forward(..., collect_cache=True)`` (the prefill of the paged engine) and
@@ -9,8 +10,10 @@ The parameters are a :class:`DecoderLM` module: ``embed``, ``final_norm``
 (and ``head`` unless embeddings are tied) as parameter groups, and an
 ``nn.ModuleList`` of layers, each an ``nn.ModuleDict`` named as in the
 reference's param tree (``_init_layer``): ``ln1``; the mixer, ``attn``
-(GQA), ``tm`` (RWKV6 time-mix) or ``mamba``; ``ln2``; the feed-forward,
-``mlp``, ``cm`` (RWKV6 channel-mix) or ``moe``. Layer ``l`` is the
+(GQA, or MLA where ``cfg.attention == "mla"``), ``tm`` (RWKV6 time-mix)
+or ``mamba``; ``ln2``; the feed-forward, ``mlp``, ``cm`` (RWKV6
+channel-mix) or ``moe`` (with its nested ``shared`` group where the
+config has shared experts). Layer ``l`` is the
 reference's period position ``l % period``, entry ``l // period`` of its
 stack, and its kinds come from ``cfg.is_attn_layer`` / ``cfg.block`` /
 ``cfg.is_moe_layer`` at that position. A Python loop over the layers, in
@@ -24,9 +27,8 @@ leaves the reference uses in float32 (norm scales, RWKV's decay base,
 bonus and group-norm, Mamba's ``a_log``, ``dt_bias`` and ``d``) in
 float32, with the numbers a float32 store would give after the cast.
 
-Architectures whose blocks are not ported (MLA, encoder-decoder, the
-vision stub, shared experts) raise ``NotImplementedError`` naming their
-ROADMAP item.
+The encoder-decoder (Whisper) is not ported: it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,37 +52,31 @@ from repro_torch.sharding.rules import ShardPlan
 from repro_torch.utils import resolve_device
 
 ROADMAP = {
-    "mla": "ROADMAP.md queue 1 item 13 (models/attention.py MLA)",
-    "shared_experts": "ROADMAP.md queue 1 item 13 (models/mlp.py shared "
-                      "experts)",
-    "enc_dec": "ROADMAP.md queue 1 item 13 (whisper encoder-decoder)",
-    "vision_stub": "ROADMAP.md queue 1 item 13 (VLM prefix embeddings)",
+    "enc_dec": "ROADMAP.md queue 1 item 13d (whisper encoder-decoder)",
 }
 # the mixer kinds, in the order ``forward`` returns their caches
 KINDS = ("attn", "rwkv", "mamba")
 # parameter groups stored in float32 whatever cfg.dtype (see above)
 FLOAT32_LEAVES = {"ln1": None, "ln2": None, "final_norm": None,
+                  "attn": {"q_norm", "k_norm", "q_ln", "kv_ln"},
                   "tm": rwkv_mod.FLOAT32_LEAVES,
                   "mamba": mamba_mod.FLOAT32_LEAVES}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
-    whose blocks are ported: GQA attention, RWKV6, Mamba, dense MLPs and
-    MoE without shared experts."""
-    for what, unported in (("mla", cfg.attention == "mla"),
-                           ("shared_experts", cfg.moe and
-                            cfg.n_shared_experts > 0),
-                           ("enc_dec", cfg.enc_dec),
-                           ("vision_stub", cfg.frontend == "vision_stub")):
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported: {ROADMAP[what]}")
-    if cfg.block not in ("attn", "rwkv", "hybrid") or \
-            cfg.attention not in ("gqa", "none"):
+    whose blocks are ported: GQA or MLA attention, RWKV6, Mamba, dense
+    MLPs, MoE (shared experts included), no frontend or the vision
+    stub's prefix embeddings."""
+    if cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: attention={cfg.attention!r} block={cfg.block!r} is "
-            f"not ported: {ROADMAP['mla']}")
+            f"{cfg.name}: enc_dec is not ported: {ROADMAP['enc_dec']}")
+    if cfg.block not in ("attn", "rwkv", "hybrid") or \
+            cfg.attention not in ("gqa", "mla", "none") or \
+            cfg.frontend not in ("none", "vision_stub"):
+        raise NotImplementedError(
+            f"{cfg.name}: attention={cfg.attention!r} block={cfg.block!r} "
+            f"frontend={cfg.frontend!r} is not ported")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -146,7 +142,8 @@ def _init_layer(gen, cfg: ModelConfig, plan: ShardPlan, layer: int,
     pos = layer % cfg.layer_period
     g = {"ln1": norm_init(cfg.d_model, cfg.norm, dev)}
     if kind == "attn":
-        g["attn"] = attn.init_gqa(gen, cfg, plan, dev, dtype)
+        g["attn"] = (attn.init_mla if cfg.attention == "mla"
+                     else attn.init_gqa)(gen, cfg, plan, dev, dtype)
     elif kind == "rwkv":
         g["tm"] = rwkv_mod.init_time_mix(gen, cfg, plan, dev, dtype)
     else:
@@ -186,14 +183,19 @@ def init_params(cfg: ModelConfig, plan: ShardPlan, seed: int = 0,
 
 def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
             batch: dict, impl: str = "kernel", collect_cache: bool = False):
-    """Full-sequence forward. batch: tokens [B,S].
+    """Full-sequence forward. batch: tokens [B,S], and for the vision stub
+    (``cfg.frontend == "vision_stub"``) optionally ``prefix_embeds``
+    [B,n_img,d], which replace the embeddings of the first ``n_img``
+    positions (the reference's image-patch prefix).
 
     Returns (logits [B,S,V], aux_loss (the MoE layers' sum, float32),
     caches | None). The caches are one entry per mixer kind the model has
     (:func:`kinds_present`, in ``KINDS`` order), each a tuple stacked over
     the layers of that kind in layer order:
 
-      * ``attn``: ``(k, v)``, each ``[n_attn, B, S, Hkv, dh]``;
+      * ``attn``: ``(k, v)``, each ``[n_attn, B, S, Hkv, dh]``; for MLA
+        the absorbed form ``(latent [n_attn, B, S, kv_lora], rope key
+        [n_attn, B, S, qk_rope])`` (:func:`models.attention.mla_full`);
       * ``rwkv``: ``(x_prev of time-mix [n, B, 1, d], S [n, B, H, hs, hs]
         float32, x_prev of channel-mix [n, B, 1, d])``;
       * ``mamba``: ``(conv state [n, B, K-1, di], h [n, B, di, n_state]
@@ -207,13 +209,17 @@ def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
     s = tokens.shape[1]
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params.embed, tokens, dtype)
+    if cfg.frontend == "vision_stub" and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(dtype)
+        x = torch.cat([pre, x[:, pre.shape[1]:]], dim=1)
     positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {k: [] for k in KINDS}
 
+    full = attn.mla_full if cfg.attention == "mla" else attn.gqa_full
+
     def attend(p, h):
-        return attn.gqa_full(p, cfg, plan, h, positions, causal=True,
-                             impl=impl)
+        return full(p, cfg, plan, h, positions, causal=True, impl=impl)
 
     for li, (lp, kind) in enumerate(zip(params.layers, layer_kinds(cfg))):
         x, a, c = apply_layer(lp, cfg, plan, li, kind, x, attend, impl=impl)

@@ -1,8 +1,9 @@
 """Batched LM serving engine over the slab-paged KV cache.
 
 Counterpart of ``repro/serve/paged_lm.py::PagedLMEngine`` for the
-decoder-only models the port runs: dense GQA, RWKV6, and the hybrid
-Mamba + attention + MoE stack. Requests are admitted via prefill
+decoder-only models the port runs: dense GQA or MLA attention (MoE and
+the vision stub's prefix included), RWKV6, and the hybrid Mamba +
+attention + MoE stack. Requests are admitted via prefill
 (``admit``: one forward over the prompt, its K/V written into freshly
 allocated pages and its recurrent states into the sequence's slot),
 decoded in lockstep batches (``step``), and evicted / window-slid in O(1)
@@ -14,7 +15,9 @@ Pools, laid out as the reference engine lays them out, per layer kind:
   * attention layers: K and V pools ``[n_attn, n_pages, page, Hkv, dh]``,
     indexed by the layer's ordinal among the attention layers, so one
     layer's slice is contiguous for the paged kernel; a page id indexes
-    every layer's pool (shared block tables);
+    every layer's pool (shared block tables). MLA's are the absorbed
+    latent pages, one shared "KV head": K ``[..., 1, kv_lora + qk_rope]``
+    (latent (+) rope key) and V ``[..., 1, kv_lora]`` (the latent);
   * RWKV6 layers (``state["rwkv"]``): time-mix ``x_prev`` ``[n, max_seqs,
     1, d]``, ``S`` float32 ``[n, max_seqs, H, hs, hs]`` and channel-mix
     ``x_prev`` ``[n, max_seqs, 1, d]``;
@@ -84,10 +87,12 @@ class PagedLMEngine:
         dt = getattr(torch, cfg.dtype)
         self.kinds, self.ordinals = M.layer_kinds(cfg), M.ordinals(cfg)
         count = {k: self.kinds.count(k) for k in M.KINDS}
-        shape = (count["attn"], n_pages, page_size, plan.n_kv_heads_padded,
-                 cfg.head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dt, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dt, device=self.device)
+        hkv, dk, dv = plan.n_kv_heads_padded, cfg.head_dim, cfg.head_dim
+        if cfg.attention == "mla":
+            hkv, dk, dv = attn.mla_page_dims(cfg)
+        shape = (count["attn"], n_pages, page_size, hkv)
+        self.k_pool = torch.zeros(shape + (dk,), dtype=dt, device=self.device)
+        self.v_pool = torch.zeros(shape + (dv,), dtype=dt, device=self.device)
 
         def pools(n, states):       # [n * max_seqs, ...] -> [n, max_seqs, ...]
             return tuple(t.reshape(n, max_seqs, *t.shape[1:]) for t in states)
@@ -107,8 +112,10 @@ class PagedLMEngine:
 
     # -- request lifecycle ---------------------------------------------------
 
-    def admit(self, seq_id: int, tokens) -> bool:
-        """Prefill ``tokens`` into sequence slot ``seq_id``."""
+    def admit(self, seq_id: int, tokens, prefix_embeds=None) -> bool:
+        """Prefill ``tokens`` into sequence slot ``seq_id``; for the vision
+        stub, ``prefix_embeds`` [n_img, d] replace the embeddings of the
+        first ``n_img`` tokens."""
         cfg = self.cfg
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
                                device=self.device)[None, :]
@@ -119,14 +126,19 @@ class PagedLMEngine:
                                       int(n_pages))
         if not ok:
             return False
+        batch = {"tokens": toks}
+        if prefix_embeds is not None:
+            batch["prefix_embeds"] = torch.as_tensor(
+                prefix_embeds, device=self.device)[None]
         with torch.no_grad():
-            logits, _, caches = M.forward(self.params, cfg, self.plan,
-                                          {"tokens": toks},
+            logits, _, caches = M.forward(self.params, cfg, self.plan, batch,
                                           impl=self.attn_impl,
                                           collect_cache=True)
             caches = dict(zip(M.kinds_present(cfg), caches))
             if "attn" in caches:
                 k, v = caches["attn"]            # [n_attn, 1, S, hkv, dh]
+                if cfg.attention == "mla":       # latent [.., lat], rope
+                    k, v = attn.mla_page_rows(k, v)
                 rows = self.pages.tables[seq_id, :n_pages].long()
                 pad = n_pages * page - s
                 for arr, pool in ((k, self.k_pool), (v, self.v_pool)):
@@ -187,7 +199,9 @@ class PagedLMEngine:
         """Attention layer ``j``'s decode over its page pools (updated in
         place), for :func:`models.model.apply_layer`."""
         st = self.pages
-        o, _, _ = attn.gqa_decode_paged(
+        decode = attn.mla_decode_paged if self.cfg.attention == "mla" \
+            else attn.gqa_decode_paged
+        o, _, _ = decode(
             p, self.cfg, self.plan, h, self.k_pool[j], self.v_pool[j],
             st.tables, st.lengths, st.starts, positions, write=write,
             impl=self.attn_impl)

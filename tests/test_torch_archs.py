@@ -1,26 +1,36 @@
-"""The three GQA architectures registered beside Llama, and the MoE combine
-in a fixed order, against the JAX reference on the CPU.
+"""The decoder-only architectures registered beside Llama, and the MoE
+combine in a fixed order, against the JAX reference on the CPU.
 
 ``qwen3-14b`` (per-head QK-RMSNorm), ``phi3-medium-14b`` (4 query heads per
-KV head over an odd KV-head count) and ``granite-moe-3b-a800m`` (head dim
-64 with 3 query heads per KV head; MoE top-8 of 40) at reduced variants
-that keep each trait: ``ModelConfig.reduced()`` makes every config 4 heads
-over at most 2 KV heads and every MoE top-2 of 4, so the variants are
-``dataclasses.replace``-d back on both packages. Per architecture:
+KV head over an odd KV-head count), ``granite-moe-3b-a800m`` (head dim
+64 with 3 query heads per KV head; MoE top-8 of 40), ``minicpm3-4b``
+(MLA: latent pages whose key width, latent + rope, differs from the
+value's, the latent, and from the query/key head width that sets the
+scale), ``moonshot-v1-16b-a3b`` (MoE top-6 plus 2 shared experts) and
+``llava-next-34b`` (7 query heads per KV head; 4 image-patch prefix
+embeddings) at reduced variants that keep each trait:
+``ModelConfig.reduced()`` makes every config 4 heads over at most 2 KV
+heads, every MoE top-2 of 4 and MLA's latent as wide as its nope head, so
+the variants are ``dataclasses.replace``-d back on both packages. Per
+architecture:
 
   * the config ``==`` the reference's, full and reduced, and the port's
     ``init_params`` tree of the variant has the reference's leaf shapes;
-  * ``forward`` logits within 1e-5 on one numpy param tree;
+  * ``forward`` logits within 1e-5 on one numpy param tree (LLaVA's with
+    prefix embeddings);
   * ``PagedLMEngine`` against the reference's engine on one traffic (the
-    RWKV test's ``serve_both``: admits, teacher-forced steps, slide,
-    evict, re-admit): page state ``==`` after every operation, step
+    RWKV test's ``serve_both``: admits, LLaVA's first with its prefix,
+    teacher-forced steps, slide, evict, re-admit): page state ``==``
+    after every operation, the K/V pools (MLA's latent pages) and step
     logits within 1e-4, next tokens ``==``.
 
 The MoE combine (``models/mlp.py``'s ``combine``) adds each token's kept
 terms in ascending expert order with a rounding after each add, the order
-the reference's scatter-add takes on the CPU: held bit for bit in bf16
-against an explicit fold over the expert-sorted pairs, and against the
-reference's ``apply_moe`` in float32 at top-8 of 40.
+the reference's scatter-add takes on the CPU, and Moonlight's shared
+experts' output is added after that sum: held bit for bit in bf16
+against an explicit fold over the expert-sorted pairs, then the shared
+output, and against the reference's ``apply_moe`` in float32 at top-8 of
+40.
 """
 import dataclasses
 
@@ -45,12 +55,17 @@ from repro_torch.models import model as M
 from repro_torch.sharding import rules
 from test_torch_rwkv import check_served, close, jtree, numpy_tree, serve_both
 
-NEW = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m")
+NEW = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m",
+       "minicpm3-4b", "moonshot-v1-16b-a3b", "llava-next-34b")
 TRAITS = {
     "qwen3-14b": {},                                 # reduced() keeps qk_norm
     "phi3-medium-14b": dict(n_heads=20, n_kv_heads=5),
     "granite-moe-3b-a800m": dict(n_heads=6, n_kv_heads=2, head_dim=64,
                                  n_experts=40, moe_top_k=8),
+    # latent 32: pages of keys 32 + 8 and values 32, scale 24 ** -0.5
+    "minicpm3-4b": dict(kv_lora_rank=32),
+    "moonshot-v1-16b-a3b": dict(n_experts=12, moe_top_k=6),  # + 2 shared
+    "llava-next-34b": dict(n_heads=14, n_kv_heads=2),        # 4 prefix
 }
 
 
@@ -67,8 +82,7 @@ def t(a) -> torch.Tensor:
 
 def test_registry_holds_the_three_and_not_the_rest():
     assert set(NEW) <= set(ARCHS) and not set(NEW) & set(NOT_PORTED)
-    assert set(NOT_PORTED) == {"minicpm3-4b", "llava-next-34b",
-                               "moonshot-v1-16b-a3b", "whisper-base"}
+    assert set(NOT_PORTED) == {"whisper-base"}
     traits = {name: get_arch(name) for name in NEW}
     assert traits["qwen3-14b"].qk_norm
     assert traits["phi3-medium-14b"].n_heads // \
@@ -76,6 +90,23 @@ def test_registry_holds_the_three_and_not_the_rest():
     g = traits["granite-moe-3b-a800m"]
     assert (g.head_dim, g.n_heads // g.n_kv_heads, g.n_experts,
             g.moe_top_k, g.n_shared_experts) == (64, 3, 40, 8, 0)
+    m = traits["minicpm3-4b"]
+    assert (m.attention, m.kv_lora_rank + m.qk_rope_dim, m.kv_lora_rank,
+            m.qk_head_dim, m.v_head_dim) == ("mla", 288, 256, 96, 64)
+    k = traits["moonshot-v1-16b-a3b"]
+    assert (k.n_experts, k.moe_top_k, k.n_shared_experts) == (64, 6, 2)
+    v = traits["llava-next-34b"]
+    assert (v.frontend, v.n_prefix_embeds, v.n_heads // v.n_kv_heads) == \
+        ("vision_stub", 576, 7)
+    for name in NEW[3:]:                 # the variants keep the traits
+        jcfg, cfg = variants(name)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    m, k, v = (variants(name)[1] for name in NEW[3:])
+    assert m.kv_lora_rank + m.qk_rope_dim != m.kv_lora_rank != \
+        m.qk_head_dim != m.kv_lora_rank + m.qk_rope_dim
+    assert m.v_head_dim < m.qk_head_dim
+    assert k.moe_top_k > 2 and k.n_experts > 4 and k.n_shared_experts == 2
+    assert v.n_prefix_embeds == 4 and v.n_heads // v.n_kv_heads == 7
 
 
 @pytest.mark.parametrize("name", NEW)
@@ -86,6 +117,7 @@ def test_config_and_param_shapes_match_the_reference(name):
     jcfg, cfg = variants(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert cfg.qk_norm == (name == "qwen3-14b")
+    assert (cfg.attention == "mla") == (name == "minicpm3-4b")
     M.check_supported(get_arch(name))               # blocks all ported
     want = strip(jax.eval_shape(
         lambda k: JM.init_params(jcfg, jrules.unpadded_plan(jcfg), k),
@@ -106,15 +138,27 @@ def arch(request):
                 params=interop.params_from_numpy(cfg, tree, device="cpu"))
 
 
+def prefix_of(cfg, seed: int, batch: int | None = None):
+    """The vision stub's prefix embeddings (``[batch,] n_img, d``) from
+    ``seed``, or None for a config without them."""
+    if not cfg.n_prefix_embeds:
+        return None
+    shape = (cfg.n_prefix_embeds, cfg.d_model)
+    return np.random.default_rng(seed).normal(
+        size=shape if batch is None else (batch,) + shape).astype(np.float32)
+
+
 def test_forward_logits_match_the_reference(arch):
     jcfg, cfg = arch["jcfg"], arch["cfg"]
     toks = np.random.default_rng(5).integers(1, cfg.vocab_size,
                                              (2, 19)).astype(np.int32)
+    batch = {"tokens": toks}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = prefix_of(cfg, 8, batch=2)
     jl, jaux, _ = jax.jit(JM.forward, static_argnums=(1, 2))(
-        jtree(arch["tree"]), jcfg, jrules.unpadded_plan(jcfg),
-        {"tokens": jnp.asarray(toks)})
+        jtree(arch["tree"]), jcfg, jrules.unpadded_plan(jcfg), jtree(batch))
     logits, aux, _ = M.forward(arch["params"], cfg, rules.unpadded_plan(cfg),
-                               {"tokens": t(toks)})
+                               {k: t(a) for k, a in batch.items()})
     close(logits, jl)
     close(aux, jaux)
 
@@ -124,7 +168,7 @@ def test_engine_matches_the_reference_after_each_operation(arch):
     fkernel.launches = pkernel.launches = 0
     log = serve_both(jcfg, jrules.unpadded_plan(jcfg), cfg,
                      rules.unpadded_plan(cfg), arch["tree"], arch["params"],
-                     seed=12)
+                     seed=12, prefix=prefix_of(cfg, 9))
     check_served(log, cfg)
     assert fkernel.launches == pkernel.launches == 0      # CPU: plain
 
@@ -142,7 +186,7 @@ def moe_case(name: str, kind: str, dtype):
         JARCHS[name].reduced(), get_arch(name).reduced())
     tree = numpy_tree(jcfg, jrules.unpadded_plan(jcfg), 7)
     layer = next(ly for ly in tree["layers"] if "moe" in ly)
-    p = {k: np.array(a[0]) for k, a in layer["moe"].items()}
+    p = jax.tree.map(lambda a: np.array(a[0]), layer["moe"])
     rng = np.random.default_rng(31)
     x = rng.normal(size=(2, 11, cfg.d_model)).astype(np.float32)
     if kind == "ties":
@@ -150,8 +194,8 @@ def moe_case(name: str, kind: str, dtype):
     elif kind == "overflow":
         x = np.abs(x)
         p["router"][:, 2] = 4.0 / cfg.d_model ** 0.5
-    tp = {k: torch.nn.Parameter(t(a).to(dtype), requires_grad=False)
-          for k, a in p.items()}
+    tp = jax.tree.map(lambda a: torch.nn.Parameter(t(a).to(dtype),
+                                                   requires_grad=False), p)
     return jcfg, cfg, p, tp, t(x).to(dtype)
 
 
@@ -159,7 +203,8 @@ def fold_over_sorted_pairs(tp, cfg, x):
     """The MoE output by an explicit loop: the (token, choice) pairs
     stably sorted by expert, those ranked below capacity run through the
     expert in one buffer, then each added onto its token, pair by pair in
-    that order, a rounding to ``x.dtype`` after each add."""
+    that order, a rounding to ``x.dtype`` after each add; last the shared
+    experts' SwiGLU output, where there are shared experts."""
     plan = rules.unpadded_plan(cfg)
     n, d, k = x.shape[0] * x.shape[1], x.shape[-1], cfg.moe_top_k
     xf = x.reshape(n, d)
@@ -183,10 +228,15 @@ def fold_over_sorted_pairs(tp, cfg, x):
         if rank[i] < cap:
             term = out[e, rank[i]] * topw.reshape(-1)[i].to(x.dtype)
             y[i // k] = y[i // k] + term
-    return y.reshape(x.shape), tope, cap
+    y = y.reshape(x.shape)
+    if "shared" in tp:
+        sh = tp["shared"]
+        y = y + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
+    return y, tope, cap
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "jamba-v0.1-52b",
+                                  "moonshot-v1-16b-a3b"])
 @pytest.mark.parametrize("kind", ["random", "ties", "overflow"])
 def test_moe_combine_is_the_ascending_expert_fold(name, kind):
     _, cfg, _, tp, x = moe_case(name, kind, torch.bfloat16)
@@ -199,6 +249,7 @@ def test_moe_combine_is_the_ascending_expert_fold(name, kind):
         assert (tope == torch.arange(cfg.moe_top_k)).all()
     if kind in ("ties", "overflow"):
         assert int(load.max()) > cap          # some pairs are dropped
+    assert ("shared" in tp) == (cfg.n_shared_experts > 0)
 
 
 def test_moe_combine_folds_from_zero_in_column_order():

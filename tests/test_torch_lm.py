@@ -276,9 +276,46 @@ def test_init_params_is_seeded_and_stores_the_config_dtype():
     (dict(frontend="vision_stub"), "queue 1 item 13"),
 ])
 def test_unported_blocks_raise_naming_their_roadmap_item(change, item):
+    """The encoder-decoder still raises, naming its ROADMAP item; MLA,
+    shared experts and the vision stub's prefix are ported: their blocks
+    are made and run (``tests/test_torch_mla.py`` holds them to the
+    reference)."""
     cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match=item):
-        M.init_params(cfg, PLAN, device="cpu")
+    if cfg.enc_dec:
+        with pytest.raises(NotImplementedError, match=item):
+            M.init_params(cfg, PLAN, device="cpu")
+        return
+    if cfg.attention == "mla":
+        cfg = dataclasses.replace(cfg, q_lora_rank=32, kv_lora_rank=16,
+                                  qk_nope_dim=16, qk_rope_dim=8,
+                                  v_head_dim=16, n_kv_heads=cfg.n_heads)
+    if cfg.frontend == "vision_stub":
+        cfg = dataclasses.replace(cfg, n_prefix_embeds=3)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe_d_ff=32)
+    params = M.init_params(cfg, PLAN, seed=1, device="cpu")
+    assert sum(p.numel() for p in params.parameters()) == cfg.param_count()
+    layer = params.layers[0]
+    if cfg.attention == "mla":
+        assert set(layer["attn"]) == {"w_dq", "w_uq", "w_dkv", "w_ukv", "wo",
+                                      "q_ln", "kv_ln"}
+    if cfg.n_shared_experts:
+        assert layer["moe"]["shared"]["w_up"].shape == (cfg.d_model,
+                                                        cfg.moe_d_ff)
+    toks = torch.arange(1, 8)[None]
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = torch.ones((1, 3, cfg.d_model))
+    logits, _, caches = M.forward(params, cfg, PLAN, batch,
+                                  collect_cache=True)
+    assert logits.shape == (1, 7, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    if cfg.frontend == "vision_stub":        # the prefix is live input
+        bare, _, _ = M.forward(params, cfg, PLAN, {"tokens": toks})
+        assert not torch.equal(bare[:, :3], logits[:, :3])
+    if cfg.attention == "mla":               # latent and rope key caches
+        assert [tuple(c.shape) for c in caches[0]] == [
+            (cfg.n_layers, 1, 7, 16), (cfg.n_layers, 1, 7, 8)]
 
 
 # ---------------------------------------------------------------------------

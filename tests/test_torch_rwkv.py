@@ -402,11 +402,13 @@ def test_params_and_states_cross_both_ways_unchanged(tree, port_params):
 ENGINE = dict(page_size=8, n_pages=24, max_seqs=3, max_pages_per_seq=8)
 
 
-def serve_both(jcfg, jplan, cfg, plan, tree, port_params, seed):
+def serve_both(jcfg, jplan, cfg, plan, tree, port_params, seed,
+               prefix=None):
     """Both engines through one traffic: admit 13 and 21 tokens, five
     teacher-forced steps, slide, evict, a re-admit of 13 tokens into the
-    freed slot, three steps. Per operation: page state, recurrent states,
-    step logits and next tokens of each."""
+    freed slot, three steps. ``prefix`` ([n_img, d], for the vision stub)
+    goes with the first admit. Per operation: page state, the K/V pools,
+    recurrent states, step logits and next tokens of each."""
     rng = np.random.default_rng(seed)
     jeng = JEngine(jcfg, jplan, jtree(tree), attn_impl="pallas_interpret",
                    **ENGINE)
@@ -430,6 +432,9 @@ def serve_both(jcfg, jplan, cfg, plan, tree, port_params, seed):
                     tuple(np.asarray(a) for a in e)
                     for pos, e in enumerate(jeng.pools)],
             tstate=interop.recurrent_state_to_numpy(cfg, teng.state),
+            jkv=[tuple(np.asarray(a) for a in e) if cfg.is_attn_layer(pos)
+                 else None for pos, e in enumerate(jeng.pools)],
+            tkv=interop.kv_pools_to_numpy(cfg, teng.k_pool, teng.v_pool),
             jout=jout, tout=tout))
 
     def step(forced: bool):
@@ -444,8 +449,9 @@ def serve_both(jcfg, jplan, cfg, plan, tree, port_params, seed):
 
     for seq, n in ((0, 13), (1, 21)):
         prompt = rng.integers(1, cfg.vocab_size, n)
-        record(f"admit{seq}", jeng.admit(seq, prompt),
-               teng.admit(seq, prompt))
+        pre = prefix if seq == 0 else None
+        record(f"admit{seq}", jeng.admit(seq, prompt, prefix_embeds=pre),
+               teng.admit(seq, prompt, prefix_embeds=pre))
     for _ in range(5):
         step(forced=True)
     jeng.slide(0, keep_last=8)
@@ -462,8 +468,8 @@ def serve_both(jcfg, jplan, cfg, plan, tree, port_params, seed):
 
 
 def check_served(log, cfg) -> None:
-    """Page state ``==`` after every operation; recurrent states and step
-    logits within ENGINE_TOL, next tokens ``==``."""
+    """Page state ``==`` after every operation; K/V pools, recurrent
+    states and step logits within ENGINE_TOL, next tokens ``==``."""
     assert [e["op"] for e in log] == ["admit0", "admit1"] + ["step"] * 5 + \
         ["slide", "evict", "readmit1"] + ["step"] * 3
     for i, e in enumerate(log):
@@ -471,10 +477,13 @@ def check_served(log, cfg) -> None:
         for name, a in e["tpages"].items():
             np.testing.assert_array_equal(a, e["jpages"][name],
                                           err_msg=f"{what}: {name}")
-        for pos, (te, je) in enumerate(zip(e["tstate"], e["jstate"])):
-            assert (te is None) == (je is None), (what, pos)
-            for j, (a, b) in enumerate(zip(te or (), je or ())):
-                close_rms(t(a), b, ENGINE_TOL, f"{what}: pos {pos} pool {j}")
+        for key in ("state", "kv"):
+            for pos, (te, je) in enumerate(zip(e["t" + key], e["j" + key])):
+                assert (te is None) == (je is None), (what, key, pos)
+                for j, (a, b) in enumerate(zip(te or (), je or ())):
+                    assert a.shape == b.shape, (what, key, pos, j)
+                    close_rms(t(a), b, ENGINE_TOL,
+                              f"{what}: {key} pos {pos} pool {j}")
         if e["op"] == "step":
             (jl, jn), (tl, tn) = e["jout"], e["tout"]
             assert tl.shape == jl.shape == (ENGINE["max_seqs"], 1,
