@@ -159,6 +159,32 @@ kernel's layer-0 call timed (``kernel_times``), the traffic again through
 logits must be ``==`` the first (the MoE combine adds in a fixed
 order).
 
+Inside the ``lm``, ``rwkv``, ``hybrid`` and ``arch.minicpm3-4b`` phases,
+on the weights they already hold (RWKV6's and Jamba's float32 ones of
+their ``vs_ref`` runs), one sequence of 32 prompt tokens and 16 fed ones
+goes through ``PagedLMEngine`` and through the dense-cache
+``init_decode_cache`` + ``decode_step`` from position 0 (kernel 5 over
+each layer's cache read as one page a sequence, kernels 8 and 7 at T = 1;
+counted), the dense logits held to the engine's (``*.dense_decode``;
+within ``LM_LOGIT_RTOL`` in bf16, ``RNN_F32_RTOL`` in float32; an MoE
+model's dense decode takes the engine's experts), a shifted control
+refused. Then the ``whisper`` phase serves Whisper-base uncut in bf16
+(random weights and ``N(0, 1)`` frames from ``--seed``): 4 sequences of
+1,500 frames encoded, a decoder forward of 448 tokens over the encoding,
+64 positions decoded token by token with the cross caches filled from
+``cross_kv``; kernel 6 in the encoder (non-causal, 1,500 x 1,500), the
+decoder's self-attention (causal) and its cross-attention (non-causal,
+448 x 1,500), kernel 5 over the 448-slot self caches and the 1,500-slot
+cross caches, each counted, held to its plain version on the path's
+inputs with its control, and timed; ``impl="ref"``, the decoded
+positions against the forward, and a second run ``==`` the first are
+held, each with a control. Last the ``train`` phase runs the trainer's
+``launch.train.main`` on the card (float32 master weights, bf16
+activations, no kernel): Whisper-base uncut (4 x 448 tokens, 4 steps on
+a repeated batch, then a run stopped after 2 steps and resumed from its
+checkpoint, and two microbatches' gradient against one batch's) and
+Llama-3-8B cut to 8 layers (2 x 1,024 tokens, 3 steps).
+
 The coarse centroids are trained twice from one generator state and the
 PQ codebooks twice from one seed: k-means sums in a fixed order, so each
 pair must agree bit for bit.
@@ -178,7 +204,10 @@ path's ``mesh.pq.*`` lines and ``mesh.pq``, ``pq.persist``, ``pq.tiered`` and
 ``contiguous_ivf``, ``lsh``, ``hnsw``) and ``baselines``, the ``lm``,
 ``lm.kernels_full_width`` and ``lm.vs_ref`` lines, the same three for
 ``rwkv`` and ``hybrid`` (and ``rwkv.wkv6_float64`` before
-``rwkv.vs_ref``), the ``arch.*`` lines, the ``{"kernels": [...]}``
+``rwkv.vs_ref``), each followed by its ``*.dense_decode`` line, the
+``arch.*`` lines (``arch.minicpm3-4b.dense_decode`` after MiniCPM3's),
+``whisper``, ``train.whisper-base``, ``train.llama3-8b``, the
+``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -1060,6 +1089,18 @@ def read_counts() -> dict:
             "sivf_pq_fused_search[filtered]": pq_fused.filtered_launches,
             "reclaim": reclaim.launches, "sivf_scan": sivf_scan.launches,
             "topk": topk.launches}
+
+
+def every_launch_count() -> dict:
+    """Every kernel wrapper's launch count (:func:`read_counts` and the LM
+    kernels')."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.wkv6 import wkv6
+    return {**read_counts(), "paged_attention": paged_attention.launches,
+            "flash_attention": flash_attention.launches,
+            "mamba_scan": mamba_scan.launches, "wkv6": wkv6.launches}
 
 
 def drive(torch, index, wl: dict, path: str, out: dict) -> list[dict]:
@@ -3751,15 +3792,19 @@ def flash_edge_checks(torch, rng) -> tuple[list, dict]:
 
 class Capture:
     """While entered, record the arguments of the engine's calls of
-    ``mod.<name>`` at the given call indices (layers), cloned, and pass
-    every call through unchanged."""
+    ``mod.<name>`` at the given call indices (layers), cloned, log
+    ``key(*args, **kwargs)`` of every call where a ``key`` is given, and
+    pass every call through unchanged."""
 
-    def __init__(self, mod, name: str, calls):
+    def __init__(self, mod, name: str, calls, key=None):
         self.mod, self.name, self.calls = mod, name, set(calls)
         self.orig, self.n, self.args = getattr(mod, name), 0, {}
+        self.key, self.log = key, []
 
     def __enter__(self):
         def hook(*args, **kwargs):
+            if self.key is not None:
+                self.log.append(self.key(*args, **kwargs))
             if self.n in self.calls:
                 self.args[self.n] = (
                     [a.clone() if hasattr(a, "clone") else a for a in args],
@@ -3773,17 +3818,23 @@ class Capture:
         setattr(self.mod, self.name, self.orig)
 
 
-def control_pair(name: str, out, plain, args, kw) -> tuple:
+def control_pair(name: str, out, plain, args, kw, short: int = 1) -> tuple:
     """The kernel's output and the plain version of the same call with
-    each window one slot short, without the newest key: for the paged
-    kernel the token the step just wrote (``lengths - 1``), for the
+    each window short by its newest ``short`` keys: for the paged kernel
+    ``lengths - short`` (at 1, the token the step just wrote), for the
     causal flash kernel each row's own position (rows 1.. of the output
-    against keys 0..S-2 for queries 1..S-1)."""
+    against keys 0..S-2 for queries 1..S-1), for the non-causal one the
+    last ``short`` keys. Over Whisper's 1,500-frame windows one key of
+    1,500 moves the output by about the check's own limit, so its cross
+    and encoder calls cut the last 32-slot chunk (paged) or 64-key tile
+    (flash), the kernels' units of work."""
     if name == "paged_attention":
         q, kp, vp, tables, lengths, starts = args
-        return out, plain(q, kp, vp, tables, lengths - 1, starts, **kw)
+        return out, plain(q, kp, vp, tables, lengths - short, starts, **kw)
     q, k, v = args
-    check(kw.get("causal", True), "the flash control needs causal inputs")
+    if not kw.get("causal", True):
+        cut = min(short, k.shape[2] - 1)
+        return out, plain(q, k[:, :, :-cut], v[:, :, :-cut], **kw)
     return out[:, :, 1:], plain(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1],
                                 **kw)
 
@@ -3936,16 +3987,17 @@ def device_profile(torch, fn, reps: int = 1) -> dict:
                     for e in events[:5] if dev_us(e)]}
 
 
-def p_bf16_verdicts(F, args, want, mha_p_bf16_ref) -> dict:
+def p_bf16_verdicts(F, args, want, mha_p_bf16_ref, causal=True) -> dict:
     """What the full-width check says of P carried to ``P V`` in bf16 on
     the flash kernel's captured inputs: SDPA (one bf16 term) and the
     plain emulation with one and with two terms (the kernel's hi + lo);
     "passes", or the check's message."""
     q, k, v = args
     outs = {"sdpa": F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
-            "emulation_one_term": mha_p_bf16_ref(q, k, v, terms=1),
-            "emulation_two_terms": mha_p_bf16_ref(q, k, v, terms=2)}
+                q, k, v, is_causal=causal, enable_gqa=True),
+            "emulation_one_term": mha_p_bf16_ref(q, k, v, causal, terms=1),
+            "emulation_two_terms": mha_p_bf16_ref(q, k, v, causal,
+                                                  terms=2)}
     verdicts = {}
     for what, out in outs.items():
         try:
@@ -3997,13 +4049,15 @@ def peak_of(torch, dtype) -> float:
         else FP32_PEAK
 
 
-def full_width_checks(torch, caps: dict, layers) -> dict:
+def full_width_checks(torch, caps: dict, layers, short=None) -> dict:
     """Each attention kernel against its plain version on the inputs a
     path gave it: ``caps`` maps ``"flash_attention"`` and
     ``"paged_attention"`` to the :class:`Capture` of the engine's calls
     at ``layers``. Holds each call to the full-width :func:`attn_err`,
-    requires the short-window :func:`planted_control` to be refused, and
-    for flash reads what the check says of P carried in bf16."""
+    requires the short-window :func:`planted_control` to be refused
+    (``short`` maps a layer to the keys :func:`control_pair` cuts, 1 by
+    default), and for flash reads what the check says of P carried in
+    bf16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
@@ -4030,9 +4084,11 @@ def full_width_checks(torch, caps: dict, layers) -> dict:
             rms[li] = float(want.float().square().mean().sqrt())
             controls[li] = planted_control(
                 f"{name} layer {li}, window short by one slot",
-                *control_pair(name, k_out, plain, args, kw))
+                *control_pair(name, k_out, plain, args, kw,
+                              (short or {}).get(li, 1)))
             if name == "flash_attention":
-                p_bf16[li] = p_bf16_verdicts(F, args, want, mha_p_bf16_ref)
+                p_bf16[li] = p_bf16_verdicts(F, args, want, mha_p_bf16_ref,
+                                             kw.get("causal", True))
         full[name] = {"max_abs_err_by_layer": errs,
                       "rms_plain_by_layer": rms,
                       "limit": f"{FULL_WIDTH_RTOL}*|plain| + "
@@ -4230,9 +4286,13 @@ def phase_lm(torch, seed: int, hbm: float, dev="cuda") -> tuple[list, list]:
               "ref_admit_ms": [a["ms"] for a in ref["admit"]],
               "page_states_equal": True, "operations": len(pages_k),
               "logits_finite": True, **agree, "logit_rtol": LM_LOGIT_RTOL}
-    del ref_eng, ref, logits_k, got_k, params
+    del ref_eng, ref, logits_k, got_k
     torch.cuda.empty_cache()
-    return [lm_line, full_line, vs_ref], rows
+    dense = dense_vs_paged(torch, "lm", cfg, plan, params, seed,
+                           LM_LOGIT_RTOL, dev)
+    del params
+    torch.cuda.empty_cache()
+    return [lm_line, full_line, vs_ref, dense], rows
 
 
 # ---------------------------------------------------------------------------
@@ -4497,29 +4557,72 @@ def rec_row(name, source, replaces, launches, err, ms, plain_ms, work,
 class Router:
     """While entered, wrap ``mlp.moe_route``: engine 0's calls record
     their top-k experts; every other engine's calls record what they would
-    choose and then take engine 0's choice of the same call, their own
-    probabilities renormalised over it, so that the engines differ only by
-    the kernels' arithmetic and the share of routing decisions that
-    rounding flips is measured without its cascade."""
+    choose and then take engine 0's choice, their own probabilities
+    renormalised over it, so that the engines differ only by the kernels'
+    arithmetic and the share of routing decisions that rounding flips is
+    measured without its cascade.
+
+    A call takes engine 0's choice of the same call (its index since
+    ``begin``). Where ``begin`` is given ``pos``, the position of the
+    call's first token in one sequence, each token instead takes engine
+    0's choice at its position in the same MoE layer, and a pair that
+    engine 0's expert capacity (``mlp.capacity`` of its call's token
+    count) dropped gets weight 0: a prefill of many tokens, which may drop
+    pairs, then pins the one-token steps that decode the same positions,
+    which never drop one; ``decisions`` and ``flipped`` count those
+    steps' choices and the ones their own routing would have changed."""
 
     def __init__(self, mlp_mod, engines: int = 2):
         self.mod, self.orig = mlp_mod, mlp_mod.moe_route
-        self.engine, self.calls = 0, [[] for _ in range(engines)]
+        self.engine, self.pos, self.calls = 0, None, [
+            [] for _ in range(engines)]
+        self.pins, self.dropped, self.decisions, self.flipped = {}, 0, 0, 0
 
-    def begin(self, engine: int) -> None:
-        self.engine = engine
+    def begin(self, engine: int, pos: int | None = None) -> None:
+        self.engine, self.pos = engine, pos
         self.calls[engine].clear()
 
+    def kept(self, cfg, tope):
+        """Which of ``tope``'s [N, K] pairs ``apply_moe`` keeps: ranked in
+        token order within each expert, below the capacity."""
+        import torch
+        n, k = tope.shape
+        ek = tope.reshape(n * k)
+        order = torch.sort(ek, stable=True).indices
+        se = ek[order]
+        rank = torch.arange(n * k, device=ek.device) - torch.searchsorted(
+            se, se, side="left")
+        keep = torch.zeros(n * k, dtype=torch.bool, device=ek.device)
+        keep[order] = rank < self.mod.capacity(cfg, n)
+        return keep.reshape(n, k)
+
     def __enter__(self):
+        import torch
+
         def hook(p, cfg, plan, xf):
             probs, topw, tope = self.orig(p, cfg, plan, xf)
             mine = self.calls[self.engine]
             mine.append(tope)
+            layer, n = len(mine) - 1, tope.shape[0]
             if self.engine == 0:
+                if self.pos is not None:
+                    keep = self.kept(cfg, tope)
+                    self.dropped += int((~keep).sum())
+                    for i in range(n):
+                        self.pins[self.pos + i, layer] = (tope[i], keep[i])
                 return probs, topw, tope
-            forced = self.calls[0][len(mine) - 1]
+            keep = None
+            if self.pos is None:
+                forced = self.calls[0][layer]
+            else:
+                forced, keep = (torch.stack(t) for t in zip(*(
+                    self.pins[self.pos + i, layer] for i in range(n))))
+                self.decisions += n
+                self.flipped += int((tope.sort(-1).values != forced.sort(
+                    -1).values).any(-1).sum())
             w = probs.gather(1, forced)
-            return probs, w / w.sum(-1, keepdim=True).clamp(min=1e-9), forced
+            w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+            return probs, w if keep is None else w * keep.to(w.dtype), forced
         self.mod.moe_route = hook
         return self
 
@@ -4734,14 +4837,15 @@ def phase_rnn(torch, name: str, seed: int, hbm: float, dev="cuda"
     full_line = {"phase": f"{name}.kernels_full_width", **full}
     del caps, fa, da, eng, got, params
     torch.cuda.empty_cache()
-    vs_ref = engines_vs_ref(torch, name, cfg, plan, prompts, forced, seed,
-                            dev)
+    vs_ref, dense = engines_vs_ref(torch, name, cfg, plan, prompts, forced,
+                                   seed, dev)
     line["phase_seconds"] = time.perf_counter() - t_phase
-    return [ln for ln in (line, full_line, f64_line, vs_ref) if ln], rows
+    return [ln for ln in (line, full_line, f64_line, vs_ref, dense)
+            if ln], rows
 
 
 def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
-                   dev="cuda") -> dict:
+                   dev="cuda") -> tuple[dict, dict]:
     """The ``RNN_PHASES[name]`` traffic in float32 on a kernel engine, an
     ``attn_impl="ref"`` engine and a control (the ref engine with its plain
     recurrence's output moved by ``CONTROL_REL N(0, 1)`` relative, a
@@ -4750,7 +4854,9 @@ def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
     states of the active slots within ``RNN_F32_RTOL`` of the ref engine's;
     the control's, and the idle slots' of both, are reported. For an MoE
     model the other engines take the kernel engine's experts (:class:`Router`)
-    and the share of their own choices that differ is counted."""
+    and the share of their own choices that differ is counted. Then, on
+    the same float32 weights, :func:`dense_vs_paged` within
+    ``RNN_F32_RTOL``. Returns the two lines."""
     import dataclasses
 
     from repro_torch.interop import page_state_to_numpy
@@ -4880,9 +4986,13 @@ def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
                       / max(seen["route_total"], 1),
                       routing_share_differing_control_vs_ref=seen[
                           "route_control"] / max(seen["route_total"], 1))
-    del trio, params
+    del trio
     torch.cuda.empty_cache()
-    return vs_ref
+    dense = dense_vs_paged(torch, name, cfg32, plan, params, seed,
+                           RNN_F32_RTOL, dev)
+    del params
+    torch.cuda.empty_cache()
+    return vs_ref, dense
 
 
 # ---------------------------------------------------------------------------
@@ -4896,6 +5006,7 @@ ARCH_PHASES = ("qwen3-14b", "phi3-medium-14b", "granite-moe-3b-a800m",
                "minicpm3-4b", "moonshot-v1-16b-a3b", "llava-next-34b")
 ARCH_TRAFFIC = dict(prompts=(2048, 517), readmit=None, steps=(16,))
 ARCH_LAUNCHES: dict = {}       # kernels 5 / 6: each architecture's launches
+DENSE_ARCHS = ("minicpm3-4b",)  # MLA's dense decode beside its engine
 
 
 def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
@@ -5027,60 +5138,666 @@ def phase_arch(torch, name: str, seed: int, dev="cuda") -> list:
                    "moe_decisions": decisions},
         "repeat": repeat,
         "path_seconds": path_s}
-    del got, again, params, prefix
+    del got, again
     torch.cuda.empty_cache()
-    return [line]
+    lines = [line]
+    if name in DENSE_ARCHS:
+        lines.append(dense_vs_paged(torch, f"arch.{name}", cfg, plan, params,
+                                    seed, LM_LOGIT_RTOL, dev))
+    del params, prefix
+    torch.cuda.empty_cache()
+    return lines
 
 
-def arch_kernel_times(torch, caps: dict, dev="cuda", dv=None) -> dict:
-    """Kernels 5 and 6 on their captured layer-0 calls: the median of 20
-    launches each after a 256 MB write (the L2 flushed, as the kernels
-    line times them) and warm, the plain version's time, the bound
+def kernel_time(torch, name: str, args, kw, flush, hbm: float, dv=None
+                ) -> dict:
+    """Kernel 5 or 6 on one captured call: the median of 20 launches each
+    after ``flush`` (a 256 MB write: the L2 flushed, as the kernels line
+    times them) and warm, the plain version's time, the bound
     (:func:`row`'s: bytes over the memory rate or flops over the
     operands' :func:`peak_of`, whichever is longer) on these inputs, and
-    for flash SDPA on the same q, k, v and scale. ``dv`` is the V width
-    the architecture needs where flash is given V zero-padded (MLA)."""
+    for flash SDPA on the same q, k, v, scale and mask. ``dv`` is the V
+    width the architecture needs where flash is given V zero-padded
+    (MLA)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.paged_attention import paged_attention as pk
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    kern, plain = (pk.paged_attention_cuda, paged_attention_ref) \
+        if name == "paged_attention" else (fk.flash_attention_cuda, mha_ref)
+    peak = peak_of(torch, args[0].dtype)
+    causal = kw.get("causal", True)
+    if name == "paged_attention":
+        bytes_, flops, _ = paged_work(*args)
+    else:
+        bytes_, flops = flash_work(args[0], args[1], causal, dv=dv)
+    ms = cuda_median_ms_cold(lambda: kern(*args, **kw), 20, flush)
+    r = row(name, "", "", 0, 0.0, ms, cuda_ms(lambda: plain(*args, **kw),
+                                              reps=3),
+            bytes_, flops, hbm, peak=peak)
+    out = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
+           "scale": kw.get("scale"), "ms": ms,
+           "ms_l2_warm": cuda_median_ms(lambda: kern(*args, **kw), 20),
+           "plain_ms": r["plain_ms"], "bytes": bytes_, "flops": flops,
+           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+           "pct_of_bound": r["bound_ms"] / ms * 100,
+           "achieved_tflops": flops / ms / 1e9}
+    if name == "flash_attention":
+        q, k, v = args
+        out["causal"] = causal
+        out["sdpa_bf16_ms"] = cuda_median_ms_cold(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True,
+                scale=kw.get("scale")), 20, flush)
+        out["route"] = fk.route(q.dtype, q.shape[-1])
+    return out
+
+
+def arch_kernel_times(torch, caps: dict, dev="cuda", dv=None) -> dict:
+    """:func:`kernel_time` of kernels 5 and 6 on their captured layer-0
+    calls."""
     hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
     scratch = torch.empty(1 << 26, dtype=torch.float32, device=dev)
-    out = {}
-    for name, kern, plain in (
-            ("paged_attention", pk.paged_attention_cuda, paged_attention_ref),
-            ("flash_attention", fk.flash_attention_cuda, mha_ref)):
-        args, kw = caps[name].args[0]
-        peak = peak_of(torch, args[0].dtype)
-        if name == "paged_attention":
-            bytes_, flops, _ = paged_work(*args)
-        else:
-            bytes_, flops = flash_work(args[0], args[1], dv=dv)
-        ms = cuda_median_ms_cold(lambda: kern(*args, **kw), 20, scratch.zero_)
-        r = row(name, "", "", 0, 0.0, ms, cuda_ms(lambda: plain(*args, **kw),
-                                                  reps=3),
-                bytes_, flops, hbm, peak=peak)
-        out[name] = {"shapes": [list(a.shape) for a in args
-                                if hasattr(a, "shape")],
-                     "scale": kw.get("scale"), "ms": ms,
-                     "ms_l2_warm": cuda_median_ms(lambda: kern(*args, **kw),
-                                                  20),
-                     "plain_ms": r["plain_ms"], "bytes": bytes_,
-                     "flops": flops, "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "pct_of_bound": r["bound_ms"] / ms * 100,
-                     "achieved_tflops": flops / ms / 1e9}
-        if name == "flash_attention":
-            q, k, v = args
-            out[name]["sdpa_bf16_ms"] = cuda_median_ms_cold(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True,
-                    scale=kw.get("scale")), 20, scratch.zero_)
-            out[name]["route"] = fk.route(q.dtype, q.shape[-1])
+    out = {name: kernel_time(torch, name, *caps[name].args[0],
+                             scratch.zero_, hbm, dv=dv)
+           for name in ("paged_attention", "flash_attention")}
     del scratch
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dense-cache decode beside the paged engine (kernel 5, and kernels 8 and 7
+# at T = 1), Whisper (kernel 6 in its encoder, decoder and cross-attention
+# prefill, kernel 5 over its self and cross caches at decode), and the
+# trainer (no kernel: autograd over the plain paths)
+# ---------------------------------------------------------------------------
+
+DENSE_TRAFFIC = dict(prompt=32, steps=16)    # one sequence: prompt, then fed
+DENSE_LAUNCHES: dict = {}      # kernels 5, 7, 8: each phase's dense decode
+
+
+def dense_calls(kinds: list, positions) -> dict:
+    """Kernel 5's calls in a dense decode of one sequence (layer
+    ``kinds``) that :func:`dense_vs_paged` holds to the plain version, by
+    call index: the first and last attention layer at each of
+    ``positions`` (one call per attention layer and position)."""
+    n_attn = kinds.count("attn")
+    return {pos * n_attn + j: f"pos {pos} attn layer {j}"
+            for pos in positions for j in sorted({0, n_attn - 1})}
+
+
+def dense_vs_paged(torch, name: str, cfg, plan, params, seed: int,
+                   rtol: float, dev="cuda") -> dict:
+    """One sequence of ``DENSE_TRAFFIC`` through ``PagedLMEngine`` (admit
+    the prompt, then the fed tokens step by step) and through
+    ``init_decode_cache`` + ``decode_step`` from position 0, on the same
+    parameters; an MoE model's dense decode takes the engine's experts
+    (:class:`Router` by position). Counts the dense run's launches (kernel
+    5 on each attention layer, kernels 8 and 7 at T = 1 on each recurrent
+    one, every position; kernel 6 none), holds kernel 5 to its plain
+    version on the dense run's own inputs (:func:`full_width_checks` at
+    :func:`dense_calls`: the first and last attention layer at the first
+    position, the first fed one and the last, each with its one-slot-short
+    control), and holds the dense logits of the fed positions within
+    ``rtol`` of max |paged logit|, with a control (each dense step against
+    the engine's next one) the check must refuse."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.mamba_scan import mamba_scan as sk
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.wkv6 import wkv6 as wk
+    from repro_torch.models import mlp
+    from repro_torch.models import model as M
+    from repro_torch.serve.paged_lm import PagedLMEngine
+    n, steps = DENSE_TRAFFIC["prompt"], DENSE_TRAFFIC["steps"]
+    toks = np.random.default_rng(seed + 27).integers(
+        1, cfg.vocab_size, n + steps).astype(np.int32)
+    page = LM_ENGINE["page_size"]
+    pages = -(-(n + steps + 1) // page)
+    kinds = M.layer_kinds(cfg)
+    at = dense_calls(kinds, (0, n, n + steps - 1)) if "attn" in kinds else {}
+    cap = Capture(pops, "paged_attention", at)
+    paged, paged_ms, dense, dense_ms = [], [], [], []
+    with Router(mlp) as pins:
+        eng = PagedLMEngine(cfg, plan, params, device=dev, page_size=page,
+                            n_pages=pages, max_seqs=1,
+                            max_pages_per_seq=pages)
+        pins.begin(0, 0)
+        check(eng.admit(0, toks[:n]), f"{name}: admit of {n} refused")
+        for i in range(steps):
+            pins.begin(0, n + i)
+            eng.last_tokens[0, 0] = int(toks[n + i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            paged_ms.append((time.perf_counter() - t0) * 1e3)
+            paged.append(eng.logits[0, 0].float().clone())
+        del eng
+        caches = M.init_decode_cache(cfg, plan, 1, n + steps, device=dev)
+        zero_counts()                           # counts of the dense run
+        with cap:
+            for pos, tok in enumerate(toks):
+                pins.begin(1, pos)
+                x = torch.tensor([[int(tok)]], dtype=torch.int32, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = M.decode_step(params, cfg, plan, x, caches,
+                                               pos)
+                torch.cuda.synchronize()
+                dense_ms.append((time.perf_counter() - t0) * 1e3)
+                if pos >= n:
+                    dense.append(logits[0, 0].float().clone())
+    launches = {"paged_attention": pk.launches, "wkv6": wk.launches,
+                "mamba_scan": sk.launches, "flash_attention": fk.launches}
+    want = {"paged_attention": kinds.count("attn") * (n + steps),
+            "wkv6": kinds.count("rwkv") * (n + steps),
+            "mamba_scan": kinds.count("mamba") * (n + steps),
+            "flash_attention": 0}
+    check(launches == want, f"{name}: dense decode launches {launches}, "
+          f"want {want}")
+    DENSE_LAUNCHES[name] = {k: v for k, v in launches.items() if v}
+    full = full_width_checks(torch, {"paged_attention": cap}, tuple(at)
+                             )["paged_attention"] if at else None
+    rel = [float((d - p).abs().max() / p.abs().max())
+           for d, p in zip(dense, paged)]
+    check(all(np.isfinite(rel)) and max(rel) <= rtol,
+          f"{name}: dense vs paged logits {max(rel)} of max |paged|, above "
+          f"{rtol}")
+    shifted = max(float((d - p).abs().max() / p.abs().max())
+                  for d, p in zip(dense[:-1], paged[1:]))
+    check(shifted > rtol, f"{name}: the check passed each dense step "
+          f"against the engine's next ({shifted} <= {rtol})")
+    top1 = sum(int(d.argmax() == p.argmax()) for d, p in zip(dense, paged))
+    del caches, paged, dense, cap
+    return {"phase": f"{name}.dense_decode", "arch": cfg.name,
+            "dtype": cfg.dtype, "traffic": DENSE_TRAFFIC,
+            "cache_bytes_per_token": int(sum(
+                t[0, 0, 0].numel() * t.element_size() * t.shape[0]
+                for t in M.init_decode_cache(cfg, plan, 1, 1, device=dev).get(
+                    "attn", ()))),
+            "launches": DENSE_LAUNCHES[name],
+            "paged_attention_full_width": full, "paged_calls_checked": at,
+            "dense_step_ms": dense_ms,
+            "dense_step_ms_median": float(np.median(dense_ms)),
+            "paged_step_ms_median": float(np.median(paged_ms)),
+            "max_rel_logit_err_vs_paged": max(rel), "rtol": rtol,
+            "top1_agreement": top1 / steps,
+            "control_next_step_rel_err": shifted, "control_refused": True,
+            **({"moe_decisions": pins.decisions,
+                "moe_decisions_dense_would_change": pins.flipped,
+                "moe_pairs_the_prefill_capacity_dropped": pins.dropped}
+               if cfg.moe else {})}
+
+
+WHISPER_ARCH = "whisper-base"
+WHISPER_TRAFFIC = dict(batch=4, dec_tokens=448, decode=64)
+WHISPER_LAUNCHES: dict = {}    # kernels 5 and 6 on the Whisper path
+
+
+def whisper_calls(cfg, n_dec: int) -> tuple[dict, dict]:
+    """The calls the Whisper phase holds to the plain versions, by call
+    index in a run: flash in the forward over the frames (its encoder's
+    layers first and last, then each decoder layer's self- and
+    cross-attention; first and last layer), paged in the last of
+    ``n_dec`` decode steps (each layer's self, then cross; first and last
+    layer)."""
+    e, last = cfg.n_enc_layers, cfg.n_layers - 1
+    step = 2 * cfg.n_layers * (n_dec - 1)
+    return ({0: "encoder L0", e - 1: f"encoder L{e - 1}", e: "self L0",
+             e + 1: "cross L0", e + 2 * last: f"self L{last}",
+             e + 2 * last + 1: f"cross L{last}"},
+            {step: "self L0", step + 1: "cross L0",
+             step + 2 * last: f"self L{last}",
+             step + 2 * last + 1: f"cross L{last}"})
+
+
+def rel_logits(a, b) -> float:
+    """max |a - b| / max |b| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_whisper(torch, seed: int, dev="cuda") -> list:
+    """Whisper-base uncut in bf16 (random weights and ``N(0, 1)`` frames
+    from ``seed``), through both entry points: ``forward`` over
+    ``WHISPER_TRAFFIC["batch"]`` sequences of ``enc_seq`` frames and
+    ``dec_tokens`` tokens (its own encode, then the decoder), and serving:
+    ``encode``, the cross caches filled by ``fill_cross_cache``, then
+    ``decode`` positions token by token from 0 through
+    ``init_decode_cache`` + ``decode_step``. A counted kernel run (flash:
+    the forward's 6 encoder calls at 1,500 x 1,500 and 12 decoder calls, 6
+    causal self and 6 cross at 448 x 1,500, then the serving encode's 6,
+    all ``tensor_core``; paged: 2 x 6 a position, self over 448 slots and
+    cross over 1,500), an ``impl="ref"`` run held to it, the
+    decoded logits held to the forward's at the same positions, and a
+    second kernel run ``==`` the first, each check with a planted
+    control it must refuse; kernels 5 and 6 held to their plain versions
+    on the path's own inputs and timed at Whisper's shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import unpadded_plan
+    cfg = get_arch(WHISPER_ARCH)
+    plan = unpadded_plan(cfg)
+    b, s_dec, n_dec = (WHISPER_TRAFFIC[k] for k in
+                       ("batch", "dec_tokens", "decode"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, init_ms = timed(lambda: M.init_params(cfg, plan, seed=seed,
+                                                  device=dev, max_seq=s_dec))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    frames = torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (b, s_dec)).astype(np.int32)).to(dev)
+
+    def run(impl):
+        def ms_of(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+        out = {}
+        (logits, _, _), out["forward_ms"] = ms_of(lambda: M.forward(
+            params, cfg, plan, {"tokens": tokens, "enc_frames": frames},
+            impl=impl))
+        out["forward_launches"] = launch_snapshot()
+        enc, out["encode_ms"] = ms_of(
+            lambda: M.encode(params, cfg, plan, frames, impl))
+        caches = M.init_decode_cache(cfg, plan, b, s_dec, device=dev)
+        M.fill_cross_cache(params, cfg, plan, caches, enc)
+        dec, out["step_ms"] = [], []
+        for pos in range(n_dec):
+            (lg, caches), ms = ms_of(lambda: M.decode_step(
+                params, cfg, plan, tokens[:, pos:pos + 1], caches, pos,
+                impl=impl))
+            dec.append(lg[:, 0])
+            out["step_ms"].append(ms)
+        out.update(logits=logits, decoded=torch.stack(dec, 1),
+                   caches=caches, enc=enc)
+        return out
+
+    def launch_snapshot():
+        return {"flash_attention": fk.launches,
+                "flash_attention[tensor_core]": fk.launches_tensor_core,
+                "flash_attention[simt]": fk.launches_simt,
+                "paged_attention": pk.launches}
+
+    flash_at, paged_at = whisper_calls(cfg, n_dec)
+    caps = {"flash_attention": Capture(
+                fops, "flash_attention", flash_at,
+                key=lambda q, k, v, causal=True, scale=None:
+                (bool(causal), q.shape[2], k.shape[2])),
+            "paged_attention": Capture(
+                pops, "paged_attention", paged_at,
+                key=lambda q, kp, *a, **kw: kp.shape[1])}
+    t_path = time.perf_counter()
+    zero_counts()                                # counts of this path
+    with caps["flash_attention"], caps["paged_attention"]:
+        got = run("kernel")
+    path_s = time.perf_counter() - t_path
+    launches = launch_snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    n_l, n_e = cfg.n_layers, cfg.n_enc_layers
+    flog, plog = caps["flash_attention"].log, caps["paged_attention"].log
+    flash_calls = {str(k): flog.count(k) for k in sorted(set(flog))}
+    want_flash = {}
+    for key, n in (((False, cfg.enc_seq, cfg.enc_seq), 2 * n_e),
+                   ((True, s_dec, s_dec), n_l),
+                   ((False, s_dec, cfg.enc_seq), n_l)):
+        want_flash[str(key)] = want_flash.get(str(key), 0) + n
+    check(flash_calls == want_flash, f"whisper: flash calls (causal, Sq, "
+          f"Sk) {flash_calls}, want {want_flash}")
+    fwd = got["forward_launches"]
+    check(fwd["flash_attention"] == n_e + 2 * n_l
+          == fwd["flash_attention[tensor_core]"]
+          and fwd["paged_attention"] == 0,
+          f"whisper: the forward's launches {fwd}, want {n_e} encoder + "
+          f"{2 * n_l} decoder flash, all tensor_core, and no paged")
+    check(launches["flash_attention"] == 2 * n_e + 2 * n_l
+          == launches["flash_attention[tensor_core]"],
+          f"whisper: flash launches {launches}, want the forward's "
+          f"{n_e + 2 * n_l} and the serving encode's {n_e}, all "
+          "tensor_core")
+    paged_calls = {str(k): plog.count(k) for k in sorted(set(plog))}
+    want_paged = {str(s_dec): n_l * n_dec}
+    want_paged[str(cfg.enc_seq)] = want_paged.get(str(cfg.enc_seq), 0) + \
+        n_l * n_dec
+    check(paged_calls == want_paged and launches["paged_attention"]
+          == 2 * n_l * n_dec, f"whisper: paged calls by slots "
+          f"{paged_calls} ({launches['paged_attention']} launches), want "
+          f"{want_paged}")
+    WHISPER_LAUNCHES.update(launches)
+    # the controls over 1,500-frame windows cut a 64-key tile (flash) or a
+    # 32-slot chunk (paged): see control_pair
+    flash_full = full_width_checks(
+        torch, {"flash_attention": caps["flash_attention"]},
+        tuple(flash_at), {i: 64 for i, what in flash_at.items()
+                          if not what.startswith("self")}
+    )["flash_attention"]
+    paged_full = full_width_checks(
+        torch, {"paged_attention": caps["paged_attention"]},
+        tuple(paged_at), {i: 32 for i, what in paged_at.items()
+                          if what.startswith("cross")})["paged_attention"]
+    hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
+    scratch = torch.empty(1 << 26, dtype=torch.float32, device=dev)
+    times = {f"flash_attention {flash_at[i]}": kernel_time(
+        torch, "flash_attention", *caps["flash_attention"].args[i],
+        scratch.zero_, hbm) for i in (0, n_e, n_e + 1)}
+    first = min(paged_at)                        # the last step's layer 0
+    times.update({f"paged_attention {paged_at[i]}": kernel_time(
+        torch, "paged_attention", *caps["paged_attention"].args[i],
+        scratch.zero_, hbm) for i in (first, first + 1)})
+    del scratch, caps
+    # the device's share of one decode step (positions past the checked)
+    idle = device_profile(torch, lambda: M.decode_step(
+        params, cfg, plan, tokens[:, n_dec:n_dec + 1], got["caches"],
+        n_dec), reps=1)
+    step_med = float(np.median(got["step_ms"]))
+    if idle["device_ms_per_call"] is not None:
+        idle["idle_share"] = 1 - idle["device_ms_per_call"] / step_med
+
+    # the plain versions named explicitly; they launch no kernel
+    zero_counts()
+    ref = run("ref")
+    check(fk.launches == 0 and pk.launches == 0,
+          f"whisper: impl='ref' launched {fk.launches} flash and "
+          f"{pk.launches} paged kernels")
+    vs_ref = {}
+    for what in ("logits", "decoded"):
+        k_, r_ = got[what], ref[what]
+        check(bool(torch.isfinite(k_).all() and torch.isfinite(r_).all()),
+              f"whisper: non-finite {what}")
+        err = rel_logits(k_, r_)
+        control = rel_logits(k_[:, :-1], r_[:, 1:])    # the next position's
+        check(err <= LM_LOGIT_RTOL < control,
+              f"whisper {what}: kernel vs ref {err} of max |ref| (control "
+              f"{control}), bound {LM_LOGIT_RTOL}")
+        vs_ref[what] = {
+            "max_rel_logit_err": err, "control_next_position": control,
+            "top1_agreement": float((k_.argmax(-1) == r_.argmax(-1)
+                                     ).float().mean())}
+    dec_vs_fwd = {}
+    for impl, out in (("kernel", got), ("ref", ref)):
+        err = rel_logits(out["decoded"], out["logits"][:, :n_dec])
+        control = rel_logits(out["decoded"][:, :-1],
+                             out["logits"][:, 1:n_dec])
+        check(err <= LM_LOGIT_RTOL < control,
+              f"whisper {impl}: decoded vs forward logits {err} of max "
+              f"|forward| (control {control}), bound {LM_LOGIT_RTOL}")
+        dec_vs_fwd[impl] = {
+            "max_rel_logit_err": err, "control_next_position": control,
+            "top1_agreement": float((out["decoded"].argmax(-1) == out[
+                "logits"][:, :n_dec].argmax(-1)).float().mean())}
+    ref_ms = {k: ref[k] for k in ("forward_ms", "encode_ms")}
+    ref_ms["step_ms_median"] = float(np.median(ref["step_ms"]))
+    del ref
+    again = run("kernel")
+    for what in ("logits", "decoded"):
+        check(torch.equal(got[what], again[what]),
+              f"whisper: a second run gave other {what}")
+    moved = got["logits"].clone()
+    first = moved.view(-1)[:1]                   # one step of its dtype
+    first.copy_(torch.nextafter(first, torch.full_like(first, float("inf"))))
+    check(not torch.equal(moved, again["logits"]),
+          "whisper: the == check passed logits moved by one step")
+    line = {
+        "phase": "whisper", "arch": cfg.name, "reduced": None,
+        "n_layers": [n_e, n_l], "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+        "enc_seq": cfg.enc_seq, "dtype": cfg.dtype,
+        "params": cfg.param_count(),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+        "traffic": WHISPER_TRAFFIC, "init_params_ms": init_ms,
+        "forward_ms": again["forward_ms"], "encode_ms": again["encode_ms"],
+        "step_ms_median": float(np.median(again["step_ms"])),
+        "first_run": {"forward_ms": got["forward_ms"],
+                      "encode_ms": got["encode_ms"],
+                      "step_ms_median": step_med},
+        "ref_run": ref_ms,
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in got["caches"]["attn"]),
+        "peak_device_bytes": peak, "profile_decode_step": idle,
+        "launches": launches, "forward_launches": got["forward_launches"],
+        "flash_calls": flash_calls,
+        "paged_calls_by_slots": paged_calls,
+        "kernels_full_width": {"flash_attention": flash_full,
+                               "paged_attention": paged_full,
+                               "flash_calls": flash_at,
+                               "paged_calls": paged_at},
+        "kernel_times": times,
+        "vs_ref": {**vs_ref, "logit_rtol": LM_LOGIT_RTOL},
+        "decoded_vs_forward": dec_vs_fwd,
+        "repeat": {"logits_equal": True, "decoded_equal": True,
+                   "control_one_step_refused": True},
+        "path_seconds": path_s}
+    del got, again, params, frames, tokens
+    torch.cuda.empty_cache()
+    return [line]
+
+
+# the trainer's runs: the launcher's flags (float32 master weights, bf16
+# activations; TokenStream batches from --seed). "falls": the loss must
+# fall at every step (the repeated batch); "grads": the microbatch
+# gradient check; "resume": the stop-and-resume check; "first_order": the
+# first step's change of the loss held to its first-order prediction
+LLAMA_TRAIN = ["--arch", "llama3-8b", "--batch", "2", "--seq", "1024",
+               "--steps", "3", "--n-layers", "8"]
+TRAIN_FIRST_ORDER = (0.5, 1.5)   # observed / predicted first-step change
+TRAIN_RUNS = {
+    "whisper-base": dict(flags=["--arch", "whisper-base", "--batch", "4",
+                                "--seq", "448", "--steps", "4", "--lr",
+                                "1e-3", "--repeat-batch"],
+                         falls=True, grads=True, resume=True),
+    # 8 of 32 layers: 2,795,573,248 parameters, 16 bytes each with the
+    # gradient and the two moments (44.7 GB); the whole model's would not
+    # fit in 80 GB. The stream at the launcher's lr, then one batch
+    # repeated at that lr and below it: AdamW's first step moves every
+    # weight by about lr in the sign of its gradient, so to first order it
+    # changes the loss by -lr * sum |g| (microbatch_check's
+    # adamw_first_step_slope), which 2.8 B parameters make large. At a
+    # small enough lr the change must match it; at 3e-4 the loss rises
+    "llama3-8b": dict(flags=LLAMA_TRAIN, falls=False, grads=True),
+    **{f"llama3-8b.repeat-lr{lr}": dict(
+        flags=LLAMA_TRAIN + ["--repeat-batch", "--lr", lr], falls=False,
+        first_order=lr == "3e-7") for lr in ("3e-4", "3e-5", "3e-6", "3e-7")},
+}
+TRAIN_RESUME_TOL = 1e-4          # tests/test_system.py:101
+TRAIN_MICROBATCH_RTOL = 2.0 ** -6   # |mb - full| / |full|, bf16 activations
+
+
+def phase_train(torch, seed: int, dev="cuda") -> list:
+    """The launcher's ``main`` on the card for each of ``TRAIN_RUNS`` (no
+    kernel may launch: training runs the plain paths under autograd).
+    Where a run says so: the loss falls at every step on its repeated
+    batch; two microbatches' accumulated float32 gradient is held to the
+    full batch's (norm-wise, within ``TRAIN_MICROBATCH_RTOL``; a control,
+    the gradient of the batch with its labels rolled by one, must be
+    refused); an interrupted run (``--stop-after 2``) resumed from its
+    checkpoint reaches the uninterrupted run's last loss within
+    ``TRAIN_RESUME_TOL``; the first step on a repeated batch at a small lr
+    changes the loss by ``TRAIN_FIRST_ORDER`` times its first-order
+    prediction (``-lr`` times the ``adamw_first_step_slope`` of the same
+    model's microbatch check, which starts from the same weights and
+    batch) and lowers it. The other losses are readings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    lines, slopes = [], {}
+    ckpt = ROOT / "build" / "train_ckpt"
+    for name, spec in TRAIN_RUNS.items():
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        flags = launcher.parse(spec["flags"])
+        cfg = get_arch(flags.arch)
+        if flags.reduced:
+            cfg = cfg.reduced()
+        if flags.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=flags.n_layers)
+        args = ["--seed", str(seed), "--log-every", "1", "--device",
+                dev] + spec["flags"]
+        resume = spec.get("resume", False)
+        zero_counts()
+        t0 = time.perf_counter()
+        r = launcher.main(args + (["--ckpt-dir", str(ckpt / "a"),
+                                   "--ckpt-every", "2"] if resume else []))
+        run_s = time.perf_counter() - t0
+        counts = every_launch_count()
+        check(sum(counts.values()) == 0,
+              f"train {name}: kernels launched {counts}")
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = r["losses"]
+        check(all(np.isfinite(losses)), f"train {name}: losses {losses}")
+        if spec["falls"]:
+            check(all(b < a for a, b in zip(losses, losses[1:])),
+                  f"train {name}: the loss did not fall at every step on "
+                  f"the repeated batch: {losses}")
+        b, s = flags.batch, flags.seq
+        steady = r["step_s"][1:] or r["step_s"]
+        full_layers = get_arch(flags.arch).n_layers
+        line = {"phase": f"train.{name}", "arch": flags.arch,
+                "reduced": None if cfg.n_layers == full_layers else {
+                    "n_layers": f"{cfg.n_layers} of {full_layers}: the "
+                                "weights, gradients and two moments in "
+                                "float32 of the whole model would not fit "
+                                "one card"},
+                "flags": spec["flags"], "lr": flags.lr,
+                "repeat_batch": flags.repeat_batch, "params": r["params"],
+                "master_dtype": "float32", "activation_dtype": cfg.dtype,
+                "losses": losses, "loss_falls_checked": spec["falls"],
+                "step_ms": [x * 1e3 for x in r["step_s"]],
+                "step_ms_median_after_first": float(np.median(steady)) * 1e3,
+                "tokens_per_s": b * s / float(np.median(steady)),
+                "optimizer_ms": [x * 1e3 for x in r["opt_s"]],
+                "optimizer_share_median": float(np.median(
+                    np.array(r["opt_s"][1:] or r["opt_s"])
+                    / np.array(steady))),
+                "peak_device_bytes": peak, "run_seconds": run_s,
+                "kernel_launches": 0}
+        if flags.repeat_batch and flags.arch in slopes:
+            obs = losses[1] - losses[0]
+            pred = -flags.lr * slopes[flags.arch]    # warmup: step 0 at lr
+            line["first_step"] = {"observed": obs, "first_order": pred,
+                                  "ratio": obs / pred}
+            if spec.get("first_order"):
+                lo, hi = TRAIN_FIRST_ORDER
+                check(obs < 0 and lo <= obs / pred <= hi,
+                      f"train {name}: the first step changed the loss by "
+                      f"{obs}, its first-order prediction {pred}")
+                line["first_step"]["bounds"] = TRAIN_FIRST_ORDER
+        if resume:
+            stopped = launcher.main(args + ["--ckpt-dir", str(ckpt / "b"),
+                                            "--ckpt-every", "2",
+                                            "--stop-after", "2"])
+            resumed = launcher.main(args + ["--ckpt-dir", str(ckpt / "b"),
+                                            "--ckpt-every", "2"])
+            gap = abs(resumed["last_loss"] - losses[-1])
+            check(stopped["final_step"] == 2 and resumed["steps_run"] == 2
+                  and resumed["final_step"] == r["final_step"]
+                  and gap < TRAIN_RESUME_TOL,
+                  f"train {name}: resume {resumed['losses']} after "
+                  f"{stopped['losses']} vs {losses}: gap {gap}")
+            line["stop_and_resume"] = {
+                "stopped_losses": stopped["losses"],
+                "resumed_losses": resumed["losses"], "last_loss_gap": gap,
+                "tol": TRAIN_RESUME_TOL,
+                "checkpoint_bytes": dir_bytes(ckpt / "b" / "latest")}
+        if spec.get("grads"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            line["microbatches"] = microbatch_check(torch, cfg, b, s, seed,
+                                                    dev)
+            line["microbatches"]["peak_device_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+            slopes[flags.arch] = line["microbatches"]["adamw_first_step_slope"]
+        shutil.rmtree(ckpt, ignore_errors=True)
+        lines.append(line)
+        torch.cuda.empty_cache()
+    return lines
+
+
+def microbatch_check(torch, cfg, b: int, s: int, seed: int,
+                     dev="cuda") -> dict:
+    """Two microbatches' accumulated float32 gradient against the full
+    batch's on ``cfg``'s first batch of ``b`` x ``s`` tokens, norm-wise
+    over every parameter, with a control (the full batch's labels rolled
+    by one). Also the slope of AdamW's first step from these weights
+    (``adamw_first_step_slope``): the update is ``lr * (s g / (|s g| +
+    eps) + wd p)`` (``s`` the clipping scale, ``wd`` on leaves of
+    ``ndim >= 2``), so the loss changes to first order by ``-lr`` times
+    the sum over every weight of ``g`` times that bracket. At most three
+    gradients are held at once (no optimizer state): Llama's 8 layers
+    take 11.2 GB each."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import unpadded_plan
+    from repro_torch.train import train_step as ts
+    plan = unpadded_plan(cfg)
+    params = M.init_params(cfg, plan, seed=seed, device=dev, max_seq=s,
+                           dtype=torch.float32)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    host = TokenStream(DataConfig(seed=seed, vocab_size=cfg.vocab_size,
+                                  seq_len=s, global_batch=b)).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.zeros((b, cfg.enc_seq, cfg.d_model),
+                                          dtype=getattr(torch, cfg.dtype),
+                                          device=dev)
+
+    def norm_of(g: dict) -> float:
+        return float(sum(float(x.float().square().sum()) for x in g.values())
+                     ) ** 0.5
+
+    def rel_to_full(g: dict) -> float:
+        return float(sum(float((g[n] - full[n]).square().sum())
+                         for n in full)) ** 0.5 / ref
+
+    full, _ = ts.make_grad_fn(cfg, plan, ts.TrainConfig())(params, batch)
+    ref = norm_of(full)
+    opt = ts.TrainConfig().opt
+    clip = min(1.0, opt.clip_norm / max(ref, 1e-9))
+    slope = 0.0
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            g = full[n].float()
+            sg = g * clip
+            term = g * sg / (sg.abs() + opt.eps)
+            if p.dim() >= 2:
+                term += opt.weight_decay * p.float() * g
+            slope += float(term.sum(dtype=torch.float64))
+            del g, sg, term
+    mb, _ = ts.make_grad_fn(cfg, plan, ts.TrainConfig(microbatches=2))(
+        params, {k: v.reshape(2, b // 2, *v.shape[1:])
+                 for k, v in batch.items()})
+    check(all(g.dtype == torch.float32 for g in mb.values()),
+          "the accumulated gradient is not float32")
+    err = rel_to_full(mb)
+    worst = max(float((mb[n] - full[n]).abs().max()
+                      / full[n].abs().max().clamp(min=1e-30)) for n in full)
+    del mb
+    rolled, _ = ts.make_grad_fn(cfg, plan, ts.TrainConfig())(
+        params, {**batch, "labels": batch["labels"].roll(1, dims=1)})
+    control = rel_to_full(rolled)
+    del params, full, rolled
+    check(err <= TRAIN_MICROBATCH_RTOL < control,
+          f"train {cfg.name}: microbatch gradient |mb - full| / |full| = "
+          f"{err} (control {control}), bound {TRAIN_MICROBATCH_RTOL}")
+    return {"norm_rel_err": err, "rtol": TRAIN_MICROBATCH_RTOL,
+            "grad_norm": ref, "adamw_first_step_slope": slope,
+            "worst_leaf_max_rel_err": worst,
+            "control_rolled_labels": control, "control_refused": True}
 
 
 # ---------------------------------------------------------------------------
@@ -5462,6 +6179,9 @@ def main(argv=None) -> int:
         for ln in run(f"arch.{name}",
                       lambda: phase_arch(torch, name, args.seed)) or []:
             emit(ln)
+    for name, fn in (("whisper", phase_whisper), ("train", phase_train)):
+        for ln in run(name, lambda: fn(torch, args.seed)) or []:
+            emit(ln)
     for name, by_route in SERVE_LAUNCHES.items():
         if name in rows:
             rows[name]["serve_launches"] = by_route
@@ -5477,6 +6197,13 @@ def main(argv=None) -> int:
         if name in rows and ARCH_LAUNCHES:
             rows[name]["arch_launches"] = {
                 arch: n[name] for arch, n in ARCH_LAUNCHES.items()}
+        if name in rows and WHISPER_LAUNCHES:
+            rows[name]["whisper_launches"] = WHISPER_LAUNCHES[name]
+    for name in ("paged_attention", "wkv6", "mamba_scan"):
+        if name in rows:                # each phase's dense decode
+            rows[name]["dense_decode_launches"] = {
+                phase: n[name] for phase, n in DENSE_LAUNCHES.items()
+                if name in n}
     for name, by_route in MESH_LAUNCHES.items():
         if name in rows:                # four virtual shards on one card
             rows[name]["mesh_launches"] = by_route

@@ -6,11 +6,10 @@
 ``phi3-medium-14b``, the GQA + MoE decoder ``granite-moe-3b-a800m``, the
 MLA decoder ``minicpm3-4b`` (absorbed latent pages), the MoE decoder with
 shared experts ``moonshot-v1-16b-a3b``, the VLM backbone
-``llava-next-34b`` (image-patch prefix embeddings), the RNN ``rwkv6-3b``
-and the hybrid Mamba + attention + MoE ``jamba-v0.1-52b``. The
-reference's encoder-decoder ``whisper-base`` raises
-``NotImplementedError`` from :func:`get_arch`, naming the ROADMAP item
-that ports its path; an unknown name raises ``KeyError``.
+``llava-next-34b`` (image-patch prefix embeddings), the RNN ``rwkv6-3b``,
+the hybrid Mamba + attention + MoE ``jamba-v0.1-52b`` and the audio
+encoder-decoder ``whisper-base``: every architecture of the reference's
+registry. An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ from repro_torch.configs import (
     phi3_medium_14b,
     qwen3_14b,
     rwkv6_3b,
+    whisper_base,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -31,19 +31,10 @@ ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
     llama3_8b.CONFIG, qwen3_14b.CONFIG, phi3_medium_14b.CONFIG,
     granite_moe_3b_a800m.CONFIG, minicpm3_4b.CONFIG,
     moonshot_v1_16b_a3b.CONFIG, llava_next_34b.CONFIG, rwkv6_3b.CONFIG,
-    jamba_v0_1_52b.CONFIG]}
-
-# the reference's other architectures, and the ROADMAP item that ports them
-NOT_PORTED: dict[str, str] = {
-    "whisper-base": "ROADMAP.md queue 1 item 13d (the Whisper "
-                    "encoder-decoder)",
-}
+    jamba_v0_1_52b.CONFIG, whisper_base.CONFIG]}
 
 
 def get_arch(name: str) -> ModelConfig:
     if name in ARCHS:
         return ARCHS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: {NOT_PORTED[name]}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")

@@ -12,9 +12,15 @@ plane (int32) cross as they are, checked against the config.
 LM parameters cross as the reference's stripped param tree with numpy
 leaves (``{"embed": {"table": a}, "final_norm": ..., "layers": [{name:
 {leaf: a[n_per, ...]}}, ...]}``, one stacked dict per period position);
-the port's layer ``l`` is position ``l % period``, entry ``l // period``.
+the port's layer ``l`` is position ``l % period``, entry ``l // period``;
+an encoder-decoder adds ``{"encoder": {"layers": {name: {leaf:
+a[n_enc, ...]}}, "ln_post": ...}, "dec_pos": {"table": a}}``.
 Weights keep their ``[d_in, d_out]`` layout: a crossing only stacks and
-splits, never transposes. KV page state crosses as ``{plane: array}`` of
+splits, never transposes. The dense decode caches
+(``models.model.init_decode_cache``) cross as the reference's
+``init_decode_cache`` list, one tuple per period position stacked over
+the periods (MLA's latent pages as the reference's ``(latent, rope)``
+pair). KV page state crosses as ``{plane: array}`` of
 its seven planes, and the engine's K/V pools (MLA's latent pages
 included) and recurrent-state pools (RWKV6, Mamba) as the reference
 engine's per-position pools. A baseline's state crosses
@@ -126,7 +132,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
     ``d``, the attention's ``q_norm``/``k_norm`` and MLA's ``q_ln``/
     ``kv_ln``) stay float32. Every group of a layer crosses: ``ln1``,
     ``attn`` (GQA or MLA) | ``tm`` | ``mamba``, ``ln2``, ``mlp`` | ``cm`` |
-    ``moe`` (with its nested ``shared`` group)."""
+    ``moe`` (with its nested ``shared`` group), and Whisper's ``ln_x``,
+    ``xattn``, ``encoder`` and ``dec_pos``."""
     M.check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.layer_period
@@ -149,8 +156,18 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
             name: group(name, lt[name], lambda a: np.asarray(a)[p])
             for name in lt}))
     head = group("head", tree["head"]) if "head" in tree else None
+    encoder = dec_pos = None
+    if cfg.enc_dec:
+        et = tree["encoder"]
+        n_enc = len(next(iter(et["layers"]["ln1"].values())))
+        encoder = {"layers": [M.layer_module(**{
+            name: group(name, g, lambda a, i=i: np.asarray(a)[i])
+            for name, g in et["layers"].items()}) for i in range(n_enc)],
+            "ln_post": group("ln_post", et["ln_post"])}
+        dec_pos = group("dec_pos", tree["dec_pos"])
     return M.DecoderLM(group("embed", tree["embed"]),
-                       group("final_norm", tree["final_norm"]), layers, head)
+                       group("final_norm", tree["final_norm"]), layers, head,
+                       encoder, dec_pos)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -181,6 +198,13 @@ def params_to_numpy(cfg: ModelConfig, params: M.DecoderLM) -> dict:
         stack = [params.layers[li] for li in range(pos, cfg.n_layers, period)]
         tree["layers"].append({name: stacked([lp[name] for lp in stack])
                                for name in stack[0].keys()})
+    if cfg.enc_dec:
+        enc = params.encoder
+        tree["encoder"] = {
+            "layers": {name: stacked([lp[name] for lp in enc["layers"]])
+                       for name in enc["layers"][0].keys()},
+            "ln_post": {k: _host(t) for k, t in enc["ln_post"].items()}}
+        tree["dec_pos"] = {k: _host(t) for k, t in params.dec_pos.items()}
     return tree
 
 
@@ -204,20 +228,37 @@ def recurrent_state_to_numpy(cfg: ModelConfig, pools: dict) -> list:
     return out
 
 
-def kv_pools_to_numpy(cfg: ModelConfig, k_pool: torch.Tensor,
-                      v_pool: torch.Tensor) -> list:
+def kv_pools_to_numpy(cfg: ModelConfig, *pools: torch.Tensor) -> list:
     """The engine's K and V pools (``[n_attn, n_pages, page, Hkv, d]``) in
     the reference engine's layout: one entry per period position, ``None``
     where the position is no attention layer, else ``(k, v)`` stacked over
     the periods, ``[n_per, n_pages, page, Hkv, d]``. MLA's latent pages
     cross the same way (``Hkv = 1``, K ``latent (+) rope``, V ``latent``).
-    bfloat16 comes back as float32."""
+    Any stacks over the attention layers cross so (the dense decode's
+    caches, Whisper's cross caches among them). bfloat16 comes back as
+    float32."""
     kinds, ords, period = M.layer_kinds(cfg), M.ordinals(cfg), \
         cfg.layer_period
     return [None if kinds[pos] != "attn" else tuple(
         np.stack([_host(pool[ords[li]])
                   for li in range(pos, cfg.n_layers, period)])
-        for pool in (k_pool, v_pool)) for pos in range(period)]
+        for pool in pools) for pos in range(period)]
+
+
+def decode_cache_to_numpy(cfg: ModelConfig, caches: dict) -> list:
+    """The port's dense decode caches (``models.model.init_decode_cache``)
+    in the reference's ``init_decode_cache`` layout: one tuple per period
+    position, each array stacked over the periods ``[n_per, B, ...]``
+    (:func:`kv_pools_to_numpy`, :func:`recurrent_state_to_numpy`). MLA's
+    latent-page K ``latent (+) rope`` becomes the reference's ``(latent,
+    rope)``. bfloat16 comes back as float32."""
+    parts = caches.get("attn", ())
+    if parts and cfg.attention == "mla":
+        lat = cfg.kv_lora_rank
+        parts = (parts[0][..., 0, :lat], parts[0][..., 0, lat:])
+    return [a if a is not None else r for a, r in zip(
+        kv_pools_to_numpy(cfg, *parts), recurrent_state_to_numpy(cfg,
+                                                                  caches))]
 
 
 def recurrent_state_from_numpy(cfg: ModelConfig, entries: list,

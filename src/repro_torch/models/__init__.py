@@ -1,2 +1,4 @@
-"""Model blocks of the port (counterpart of ``repro/models``): the dense
-GQA decoder path that ``serve.paged_lm`` runs."""
+"""Model blocks of the port (counterpart of ``repro/models``): every
+architecture of the reference's registry, served through
+``serve.paged_lm`` or the dense-cache ``model.decode_step``, and trained
+through ``train``."""

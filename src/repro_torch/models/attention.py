@@ -5,8 +5,19 @@ Counterpart of ``repro/models/attention.py``'s GQA (``init_gqa``,
 ``_head_mask``, ``_gqa_qkv`` with qk-norm, ``gqa_full``,
 ``gqa_decode_paged``) and MLA (``init_mla``, ``_mla_qkv``, ``mla_full``,
 ``mla_absorbed_parts``, ``mla_absorbed_out``, and the latent-page decode of
-``repro/serve/paged_lm.py::_mla_paged``). Cross-attention and the
-dense-cache ``gqa_decode`` are not ported.
+``repro/serve/paged_lm.py::_mla_paged``), and Whisper's cross-attention
+(``cross_kv``, ``cross_full``).
+
+Decode has one body per mixer, the paged one. The reference's dense-cache
+decode (``gqa_decode``, ``decode_attn_stacked``,
+``mla_decode_absorbed_stacked``: ``_sdpa`` over the whole cache masked to
+``kpos <= pos``) runs here through the same paged kernel with no copy: a
+layer's dense cache ``[B, Smax, Hkv, d]`` is already paged, one page of
+``Smax`` slots a sequence, block table ``[[0], [1], ..., [B-1]]`` and the
+window ``0 <= slot <= pos`` (:func:`dense_window`). Whisper's
+cross-attention at decode reads its ``[B, enc_seq, Hkv, dh]`` cross cache
+the same way with the window ``0 <= slot < enc_seq``
+(:func:`cross_decode`).
 
 MLA caches the absorbed form: per token one latent ``[kv_lora]`` and one
 roped key ``[qk_rope]`` shared by every head, so its pages hold one "KV
@@ -319,3 +330,77 @@ def mla_decode_paged(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
     o = o * _head_mask(plan, cfg.n_heads, x.device)[None, None, :, None].to(
         o.dtype)
     return dense(p["wo"], o.reshape(b, 1, -1)), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# dense-cache decode: one page a sequence
+# ---------------------------------------------------------------------------
+
+def dense_window(batch: int, pos: int, device) -> tuple:
+    """The paged decode's arguments that make a dense cache
+    ``[B, Smax, Hkv, d]`` its page pool at absolute position ``pos``:
+    ``(tables [B, 1] = [[0], ..., [B-1]], lengths [B] = pos, starts [B] =
+    0, positions [B] = pos, write)``, ``write`` putting row b's new token
+    into page b, slot ``pos`` (:func:`paged_write_rows`'s form). The
+    decode functions attend over ``starts <= slot < lengths + 1``. Same for
+    every layer: compute it once per decode step."""
+    rows = torch.arange(batch, device=device)
+    full = torch.full((batch,), pos, dtype=torch.int32, device=device)
+    return (rows.to(torch.int32)[:, None], full, torch.zeros_like(full),
+            full, (rows, rows, full.long()))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p, cfg: ModelConfig, plan: ShardPlan, enc_out: torch.Tensor):
+    """The encoder side's K, V once per sequence: enc_out [B,T,d] -> k, v
+    [B,T,Hkv,dh], no RoPE and no qk-norm."""
+    b, t, _ = enc_out.shape
+    hkv, dh = plan.n_kv_heads_padded, cfg.head_dim
+    return (dense(p["wk"], enc_out).reshape(b, t, hkv, dh),
+            dense(p["wv"], enc_out).reshape(b, t, hkv, dh))
+
+
+def _cross_out(p, cfg: ModelConfig, plan: ShardPlan, o: torch.Tensor
+               ) -> torch.Tensor:
+    """[B,S,Hq,dh] attention output -> head mask, ``wo`` -> [B,S,d]."""
+    b, s = o.shape[:2]
+    o = o * _head_mask(plan, cfg.n_heads, o.device)[None, None, :, None].to(
+        o.dtype)
+    return dense(p["wo"], o.reshape(b, s, -1))
+
+
+def cross_full(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+               enc_kv: tuple, impl: str = "kernel") -> torch.Tensor:
+    """Decoder queries x [B,S,d] over the encoder's precomputed (k, v)
+    [B,T,Hkv,dh] (:func:`cross_kv`), non-causal, scale ``dh ** -0.5``, no
+    RoPE. The reference computes it with its XLA ``_sdpa`` whatever its
+    ``impl``; here ``"kernel"`` runs the flash kernel (TPU kernel 6) with
+    ``Sq = S``, ``Sk = T``, and ``"ref"`` ``mha_ref``."""
+    check_impl(impl)
+    b, s, _ = x.shape
+    q = dense(p["wq"], x).reshape(b, s, plan.n_heads_padded, cfg.head_dim)
+    k, v = (a.to(q.dtype).transpose(1, 2).contiguous() for a in enc_kv)
+    attend = flash_ops.flash_attention if impl == "kernel" else mha_ref
+    o = attend(q.transpose(1, 2).contiguous(), k, v, causal=False)
+    return _cross_out(p, cfg, plan, o.transpose(1, 2))
+
+
+def cross_decode(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
+                 cross_k: torch.Tensor, cross_v: torch.Tensor,
+                 impl: str = "kernel") -> torch.Tensor:
+    """:func:`cross_full` for one decoder token x [B,1,d] over the read-only
+    cross cache [B,T,Hkv,dh]: the paged kernel (TPU kernel 5) reads it as
+    one page of T slots a sequence, the window ``0 <= slot < T``."""
+    check_impl(impl)
+    b, t = cross_k.shape[:2]
+    q = dense(p["wq"], x).reshape(b, plan.n_heads_padded, cfg.head_dim)
+    tables, _, starts, _, _ = dense_window(b, 0, x.device)
+    lengths = torch.full_like(starts, t)
+    attend = paged_ops.paged_attention if impl == "kernel" \
+        else paged_attention_ref
+    o = attend(q, cross_k.to(q.dtype), cross_v.to(q.dtype), tables, lengths,
+               starts)
+    return _cross_out(p, cfg, plan, o[:, None])

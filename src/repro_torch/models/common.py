@@ -107,6 +107,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoid_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal positional table [seq, d] in float32: the
+    sines of ``pos * 10000^(-2i/d)`` in the first half, their cosines in
+    the second."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) / d * torch.log(
+        torch.tensor(10000.0)))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # -- embeddings --------------------------------------------------------------
 
 def embed_init(gen: torch.Generator, vocab_padded: int, d: int, device,

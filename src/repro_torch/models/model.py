@@ -1,11 +1,14 @@
-"""Model assembly for decoder-only LMs: dense GQA or MLA attention (with
-MoE, shared experts included, and an image-patch prefix), RWKV6, and the
-hybrid Mamba + attention + MoE stack.
+"""Model assembly: decoder LMs (dense GQA or MLA attention, with MoE,
+shared experts included, and an image-patch prefix; RWKV6; the hybrid
+Mamba + attention + MoE stack) and the Whisper encoder-decoder.
 
 Counterpart of ``repro/models/model.py``: ``init_params``,
-``forward(..., collect_cache=True)`` (the prefill of the paged engine) and
-``apply_layer``, the layer body that prefill and the engine's decode
-share.
+``forward(..., collect_cache=True)`` (the prefill of the paged engine),
+``encode`` (the reference's ``_encode``), the dense-cache
+``init_decode_cache`` / ``decode_step``, ``lm_loss``, and
+``apply_layer``, the one layer body that prefill, the paged engine's
+decode and the dense decode share (Whisper's decoder layer included: its
+cross-attention sits between the self-attention and the MLP).
 The parameters are a :class:`DecoderLM` module: ``embed``, ``final_norm``
 (and ``head`` unless embeddings are tied) as parameter groups, and an
 ``nn.ModuleList`` of layers, each an ``nn.ModuleDict`` named as in the
@@ -18,19 +21,41 @@ reference's period position ``l % period``, entry ``l // period`` of its
 stack, and its kinds come from ``cfg.is_attn_layer`` / ``cfg.block`` /
 ``cfg.is_moe_layer`` at that position. A Python loop over the layers, in
 order, takes the place of the reference's ``lax.scan`` over the period
-stack.
+stack. Whisper's decoder layers add ``ln_x`` and ``xattn`` (the
+cross-attention's GQA group) after ``attn``; its module also holds
+``encoder`` (``layers``, each ``ln1, attn, ln2, mlp``, and the group
+``ln_post``) and ``dec_pos`` (the learned decoder positions ``table``).
 
 Storage dtype: every use of a weight casts it to the activation dtype
 (``common.dense``), as the reference does. So ``init_params`` stores the
-matrices and embeddings in ``cfg.dtype`` (bf16 at full width) and the
-leaves the reference uses in float32 (norm scales, RWKV's decay base,
-bonus and group-norm, Mamba's ``a_log``, ``dt_bias`` and ``d``) in
-float32, with the numbers a float32 store would give after the cast.
+matrices and embeddings in ``cfg.dtype`` (bf16 at full width) unless the
+caller names another storage dtype (the trainer's float32 master
+weights), and the leaves the reference uses in float32 (norm scales,
+RWKV's decay base, bonus and group-norm, Mamba's ``a_log``, ``dt_bias``
+and ``d``) in float32, with the numbers a float32 store would give after
+the cast.
 
-The encoder-decoder (Whisper) is not ported: it raises
-``NotImplementedError`` naming its ROADMAP item.
+The dense decode cache (:func:`init_decode_cache`) is a dict by mixer
+kind, each entry a tuple of stacks over that kind's layers in layer
+order, as ``forward``'s caches and the paged engine's pools are:
+
+  * ``attn``: ``(k, v)`` ``[n_attn, B, Smax, Hkv, dh]``; MLA in its
+    latent pages' layout, K ``[.., Smax, 1, kv_lora + qk_rope]`` (latent
+    (+) rope key) and V ``[.., Smax, 1, kv_lora]`` (1,088 bytes a token
+    and layer in bf16 at MiniCPM3's widths, where the reference's two
+    arrays hold 576: the paged kernel reads K and V as two pools);
+    Whisper adds the read-only cross caches ``(xk, xv)`` ``[n, B,
+    enc_seq, Hkv, dh]``, filled by :func:`fill_cross_cache`;
+  * ``rwkv``: ``(x_prev [n, B, 1, d], S float32 [n, B, H, hs, hs],
+    channel-mix x_prev [n, B, 1, d])``;
+  * ``mamba``: ``(conv state [n, B, K-1, di], h float32 [n, B, di, N])``.
+
+``interop.decode_cache_to_numpy`` crosses it to the reference's list per
+period position.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -46,34 +71,38 @@ from repro_torch.models.common import (
     embed_lookup,
     lm_head,
     norm_init,
+    normal,
     param_group,
+    sinusoid_positions,
 )
 from repro_torch.sharding.rules import ShardPlan
 from repro_torch.utils import resolve_device
 
-ROADMAP = {
-    "enc_dec": "ROADMAP.md queue 1 item 13d (whisper encoder-decoder)",
-}
 # the mixer kinds, in the order ``forward`` returns their caches
 KINDS = ("attn", "rwkv", "mamba")
 # parameter groups stored in float32 whatever cfg.dtype (see above)
-FLOAT32_LEAVES = {"ln1": None, "ln2": None, "final_norm": None,
+FLOAT32_LEAVES = {"ln1": None, "ln2": None, "ln_x": None, "final_norm": None,
+                  "ln_post": None,
                   "attn": {"q_norm", "k_norm", "q_ln", "kv_ln"},
+                  "xattn": {"q_norm", "k_norm"},
                   "tm": rwkv_mod.FLOAT32_LEAVES,
                   "mamba": mamba_mod.FLOAT32_LEAVES}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
-    whose blocks are ported: GQA or MLA attention, RWKV6, Mamba, dense
-    MLPs, MoE (shared experts included), no frontend or the vision
-    stub's prefix embeddings."""
+    """Raise ``NotImplementedError`` unless ``cfg``'s blocks are ported: a
+    decoder-only LM (GQA or MLA attention, RWKV6, Mamba, dense MLPs, MoE
+    with shared experts included; no frontend or the vision stub's
+    prefix embeddings), or the GQA encoder-decoder over the audio stub's
+    frames."""
     if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: enc_dec is not ported: {ROADMAP['enc_dec']}")
-    if cfg.block not in ("attn", "rwkv", "hybrid") or \
-            cfg.attention not in ("gqa", "mla", "none") or \
-            cfg.frontend not in ("none", "vision_stub"):
+        ok = cfg.block == "attn" and cfg.attention == "gqa" and \
+            cfg.frontend == "audio_stub" and not cfg.moe
+    else:
+        ok = cfg.block in ("attn", "rwkv", "hybrid") and \
+            cfg.attention in ("gqa", "mla", "none") and \
+            cfg.frontend in ("none", "vision_stub")
+    if not ok:
         raise NotImplementedError(
             f"{cfg.name}: attention={cfg.attention!r} block={cfg.block!r} "
             f"frontend={cfg.frontend!r} is not ported")
@@ -106,16 +135,24 @@ def kinds_present(cfg: ModelConfig) -> list[str]:
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a decoder-only LM, named as the reference's tree."""
+    """Parameters of an LM, named as the reference's tree; an
+    encoder-decoder also has ``encoder`` (``layers``, ``ln_post``) and
+    ``dec_pos``."""
 
     def __init__(self, embed: dict, final_norm: dict, layers: list,
-                 head: dict | None = None):
+                 head: dict | None = None, encoder: dict | None = None,
+                 dec_pos: dict | None = None):
         super().__init__()
         self.embed = param_group(**embed)
         self.final_norm = param_group(**final_norm)
         if head is not None:
             self.head = param_group(**head)
         self.layers = nn.ModuleList(layers)
+        if encoder is not None:
+            self.encoder = nn.ModuleDict({
+                "layers": nn.ModuleList(encoder["layers"]),
+                "ln_post": param_group(**encoder["ln_post"])})
+            self.dec_pos = param_group(**dec_pos)
 
     @property
     def lm_head_params(self):
@@ -137,13 +174,17 @@ def layer_module(**groups) -> nn.ModuleDict:
 
 def _init_layer(gen, cfg: ModelConfig, plan: ShardPlan, layer: int,
                 kind: str, dev, dtype) -> nn.ModuleDict:
-    """Layer ``layer``'s parameters (the reference's ``_init_layer``);
-    ``kind`` is its mixer."""
+    """Layer ``layer``'s parameters (the reference's ``_init_layer``, and
+    its ``_init_dec_layer`` for an encoder-decoder); ``kind`` is its
+    mixer."""
     pos = layer % cfg.layer_period
     g = {"ln1": norm_init(cfg.d_model, cfg.norm, dev)}
     if kind == "attn":
         g["attn"] = (attn.init_mla if cfg.attention == "mla"
                      else attn.init_gqa)(gen, cfg, plan, dev, dtype)
+        if cfg.enc_dec:
+            g["ln_x"] = norm_init(cfg.d_model, cfg.norm, dev)
+            g["xattn"] = attn.init_gqa(gen, cfg, plan, dev, dtype)
     elif kind == "rwkv":
         g["tm"] = rwkv_mod.init_time_mix(gen, cfg, plan, dev, dtype)
     else:
@@ -159,17 +200,32 @@ def _init_layer(gen, cfg: ModelConfig, plan: ShardPlan, layer: int,
     return layer_module(**g)
 
 
+def _init_enc_layer(gen, cfg: ModelConfig, plan: ShardPlan, dev, dtype
+                    ) -> nn.ModuleDict:
+    """An encoder layer (the reference's ``_init_enc_layer``)."""
+    return layer_module(
+        ln1=norm_init(cfg.d_model, cfg.norm, dev),
+        attn=attn.init_gqa(gen, cfg, plan, dev, dtype),
+        ln2=norm_init(cfg.d_model, cfg.norm, dev),
+        mlp=mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dev,
+                             dtype))
+
+
 def init_params(cfg: ModelConfig, plan: ShardPlan, seed: int = 0,
-                device="cuda") -> DecoderLM:
+                device="cuda", max_seq: int = 4096, dtype=None
+                ) -> DecoderLM:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (default the card). Matrices and embeddings are stored in
-    ``cfg.dtype``; the float32 leaves stay float32."""
+    ``dtype`` (default ``cfg.dtype``; the trainer's master weights pass
+    ``torch.float32``); the float32 leaves stay float32. An
+    encoder-decoder's learned decoder positions hold ``max_seq`` rows, as
+    the reference's do."""
     check_supported(cfg)
     if cfg.n_layers % cfg.layer_period:
         raise ValueError(f"{cfg.n_layers} layers is not a whole number of "
                          f"periods of {cfg.layer_period}")
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     embed = embed_init(gen, plan.vocab_padded, cfg.d_model, dev, dtype)
@@ -177,25 +233,58 @@ def init_params(cfg: ModelConfig, plan: ShardPlan, seed: int = 0,
               for li, kind in enumerate(layer_kinds(cfg))]
     head = None if cfg.tie_embeddings else embed_init(
         gen, plan.vocab_padded, cfg.d_model, dev, dtype)
+    encoder = dec_pos = None
+    if cfg.enc_dec:
+        encoder = {"layers": [_init_enc_layer(gen, cfg, plan, dev, dtype)
+                              for _ in range(cfg.n_enc_layers)],
+                   "ln_post": norm_init(cfg.d_model, cfg.norm, dev)}
+        dec_pos = {"table": normal(gen, (max_seq, cfg.d_model), 0.01, dev,
+                                   dtype)}
     return DecoderLM(embed, norm_init(cfg.d_model, cfg.norm, dev), layers,
-                     head)
+                     head, encoder, dec_pos)
+
+
+def encode(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
+           frames: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """Whisper's encoder (the reference's ``_encode``) over the stub's
+    frame embeddings [B, T, d]: sinusoid positions added, then each layer
+    (``ln1``, non-causal ``gqa_full`` with RoPE as the reference applies
+    it, ``ln2``, MLP), then ``ln_post``. Returns [B, T, d] in
+    ``cfg.dtype``."""
+    dtype = getattr(torch, cfg.dtype)
+    _, t, _ = frames.shape
+    x = frames.to(dtype) + sinusoid_positions(
+        t, cfg.d_model, frames.device).to(dtype)[None]
+    positions = torch.arange(t, device=x.device)
+
+    def attend(p, h):
+        return attn.gqa_full(p, cfg, plan, h, positions, causal=False,
+                             impl=impl)
+
+    for lp in params.encoder["layers"]:
+        x, _, _ = apply_layer(lp, cfg, plan, 0, "attn", x, attend, impl=impl)
+    return apply_norm(params.encoder["ln_post"], x)
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
             batch: dict, impl: str = "kernel", collect_cache: bool = False):
-    """Full-sequence forward. batch: tokens [B,S], and for the vision stub
+    """Full-sequence forward. batch: tokens [B,S]; for the vision stub
     (``cfg.frontend == "vision_stub"``) optionally ``prefix_embeds``
     [B,n_img,d], which replace the embeddings of the first ``n_img``
-    positions (the reference's image-patch prefix).
+    positions (the reference's image-patch prefix); for the
+    encoder-decoder ``enc_frames`` [B,T,d], which :func:`encode` turns
+    into the cross-attention's keys and values, and the learned
+    ``dec_pos`` rows ``0..S-1`` are added to the token embeddings.
 
     Returns (logits [B,S,V], aux_loss (the MoE layers' sum, float32),
     caches | None). The caches are one entry per mixer kind the model has
     (:func:`kinds_present`, in ``KINDS`` order), each a tuple stacked over
     the layers of that kind in layer order:
 
-      * ``attn``: ``(k, v)``, each ``[n_attn, B, S, Hkv, dh]``; for MLA
-        the absorbed form ``(latent [n_attn, B, S, kv_lora], rope key
-        [n_attn, B, S, qk_rope])`` (:func:`models.attention.mla_full`);
+      * ``attn``: ``(k, v)``, each ``[n_attn, B, S, Hkv, dh]`` (Whisper's
+        self-attention only, as the reference's); for MLA the absorbed
+        form ``(latent [n_attn, B, S, kv_lora], rope key [n_attn, B, S,
+        qk_rope])`` (:func:`models.attention.mla_full`);
       * ``rwkv``: ``(x_prev of time-mix [n, B, 1, d], S [n, B, H, hs, hs]
         float32, x_prev of channel-mix [n, B, 1, d])``;
       * ``mamba``: ``(conv state [n, B, K-1, di], h [n, B, di, n_state]
@@ -212,6 +301,15 @@ def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
     if cfg.frontend == "vision_stub" and "prefix_embeds" in batch:
         pre = batch["prefix_embeds"].to(dtype)
         x = torch.cat([pre, x[:, pre.shape[1]:]], dim=1)
+    cross = None
+    if cfg.enc_dec:
+        enc_out = encode(params, cfg, plan, batch["enc_frames"], impl)
+        x = x + params.dec_pos["table"][:s].to(dtype)[None]
+
+        def cross(p, h):
+            return attn.cross_full(p, cfg, plan, h,
+                                   attn.cross_kv(p, cfg, plan, enc_out),
+                                   impl=impl)
     positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {k: [] for k in KINDS}
@@ -222,7 +320,8 @@ def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
         return full(p, cfg, plan, h, positions, causal=True, impl=impl)
 
     for li, (lp, kind) in enumerate(zip(params.layers, layer_kinds(cfg))):
-        x, a, c = apply_layer(lp, cfg, plan, li, kind, x, attend, impl=impl)
+        x, a, c = apply_layer(lp, cfg, plan, li, kind, x, attend, impl=impl,
+                              cross=cross)
         if a is not None:
             aux = aux + a
         if collect_cache:
@@ -236,12 +335,16 @@ def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
 
 
 def apply_layer(lp, cfg: ModelConfig, plan: ShardPlan, li: int, kind: str,
-                x: torch.Tensor, attend, state=None, impl: str = "kernel"):
+                x: torch.Tensor, attend, state=None, impl: str = "kernel",
+                cross=None):
     """Layer ``li`` (mixer ``kind``) on x [B,T,d], for prefill and decode
-    alike (the reference's ``_apply_layer_full`` and the layer body of its
-    engine's ``_decode``). ``attend(p, h)`` runs the layer's attention
-    mixer and returns ``(out, cache)``: the one step in which prefill and
-    decode differ. ``state`` is the layer's recurrent
+    alike (the reference's ``_apply_layer_full``, its
+    ``_apply_dec_layer_full`` and the layer bodies of its engine's
+    ``_decode`` and of its ``decode_step``). ``attend(p, h)`` runs the
+    layer's attention mixer and returns ``(out, cache)``: the one step in
+    which prefill and decode differ. A layer with a cross-attention group
+    (``xattn``) then adds ``cross(p, ln_x(x))``, the attention over the
+    encoder's keys and values. ``state`` is the layer's recurrent
     state as ``forward`` returns it among its caches (``None``: the zero
     state). Returns ``(x, aux, cache)``: aux is the MoE loss (``None``
     without MoE), cache the attention mixer's or the new recurrent
@@ -260,6 +363,8 @@ def apply_layer(lp, cfg: ModelConfig, plan: ShardPlan, li: int, kind: str,
         o, c = mamba_mod.mamba_block(lp["mamba"], cfg, plan, h, st,
                                      impl=impl)
     x = x + o
+    if "xattn" in lp:
+        x = x + cross(lp["xattn"], apply_norm(lp["ln_x"], x))
     h = apply_norm(lp["ln2"], x)
     aux = None
     if cfg.is_moe_layer(li % cfg.layer_period):
@@ -271,3 +376,124 @@ def apply_layer(lp, cfg: ModelConfig, plan: ShardPlan, li: int, kind: str,
     else:
         o = mlp_mod.apply_mlp(lp["mlp"], h, cfg.mlp_act)
     return x + o, aux, c
+
+
+# ---------------------------------------------------------------------------
+# dense-cache decode (one token, caches updated in place)
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, plan: ShardPlan, batch: int,
+                      max_seq: int, dtype=None, device="cuda") -> dict:
+    """Zero caches for :func:`decode_step` of ``batch`` sequences of up to
+    ``max_seq`` positions on ``device`` (default the card), in the layout
+    the module docstring gives; ``dtype`` (default ``cfg.dtype``) for all
+    but RWKV's ``S`` and Mamba's ``h``, which are float32 as the
+    reference's."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    n = {k: layer_kinds(cfg).count(k) for k in KINDS}
+    caches = {}
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if n["attn"]:
+        hkv, dk, dv = plan.n_kv_heads_padded, cfg.head_dim, cfg.head_dim
+        if cfg.attention == "mla":
+            hkv, dk, dv = attn.mla_page_dims(cfg)
+        a = n["attn"]
+        caches["attn"] = (z(a, batch, max_seq, hkv, dk),
+                          z(a, batch, max_seq, hkv, dv))
+        if cfg.enc_dec:
+            caches["attn"] += (z(a, batch, cfg.enc_seq, hkv, dk),
+                               z(a, batch, cfg.enc_seq, hkv, dv))
+    if n["rwkv"]:
+        r, hs = n["rwkv"], cfg.rwkv_head_size
+        caches["rwkv"] = (z(r, batch, 1, cfg.d_model),
+                          z(r, batch, plan.n_heads_padded, hs, hs,
+                            dt=torch.float32),
+                          z(r, batch, 1, cfg.d_model))
+    if n["mamba"]:
+        m, di = n["mamba"], cfg.mamba_d_inner
+        caches["mamba"] = (z(m, batch, cfg.mamba_d_conv - 1, di),
+                           z(m, batch, di, cfg.mamba_d_state,
+                             dt=torch.float32))
+    return caches
+
+
+def fill_cross_cache(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
+                     caches: dict, enc_out: torch.Tensor) -> dict:
+    """Write each decoder layer's cross-attention K, V of ``enc_out``
+    [B, enc_seq, d] (:func:`encode`'s output, through
+    ``attention.cross_kv``) into Whisper's read-only cross caches, in
+    place; returns ``caches``."""
+    xk, xv = caches["attn"][2:]
+    with torch.no_grad():
+        for li, lp in enumerate(params.layers):
+            k, v = attn.cross_kv(lp["xattn"], cfg, plan, enc_out)
+            xk[li] = k.to(xk.dtype)
+            xv[li] = v.to(xv.dtype)
+    return caches
+
+
+def decode_step(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
+                tokens: torch.Tensor, caches: dict, pos: int,
+                impl: str = "kernel", embeds: torch.Tensor | None = None):
+    """One decode step at absolute position ``pos`` (a Python int, the same
+    for every sequence, as the reference's scalar). tokens [B,1];
+    ``embeds`` [B,1,d] replaces the token embedding (the VLM's image
+    prefix). Each layer runs :func:`apply_layer`: an attention layer
+    writes its new K/V into slot ``pos`` of its cache and attends over
+    slots ``0..pos`` through the paged decode (TPU kernel 5 for
+    ``impl="kernel"``, ``attention.dense_window``); Whisper's layers then
+    attend over their cross caches (kernel 5 over ``enc_seq`` slots); an
+    RWKV6 or Mamba layer runs its recurrence at T = 1 (kernels 8 and 7)
+    from the carried state, which is written back. Returns (logits
+    [B,1,V], caches), the caches updated in place."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    b = tokens.shape[0]
+    with torch.no_grad():
+        x = embed_lookup(params.embed, tokens, dtype) if embeds is None \
+            else embeds.to(dtype)
+        if cfg.enc_dec:
+            x = x + params.dec_pos["table"][pos:pos + 1].to(dtype)[None]
+        window = attn.dense_window(b, pos, x.device)
+        decode = attn.mla_decode_paged if cfg.attention == "mla" \
+            else attn.gqa_decode_paged
+        ords = ordinals(cfg)
+
+        def attend(j, p, h):
+            kc, vc = caches["attn"][0][j], caches["attn"][1][j]
+            o, _, _ = decode(p, cfg, plan, h, kc, vc, *window[:4],
+                             write=window[4], impl=impl)
+            return o, None
+
+        def cross(j, p, h):
+            return attn.cross_decode(p, cfg, plan, h, caches["attn"][2][j],
+                                     caches["attn"][3][j], impl=impl)
+
+        for li, (lp, kind) in enumerate(zip(params.layers,
+                                            layer_kinds(cfg))):
+            j = ords[li]
+            pools = caches.get(kind, ()) if kind != "attn" else ()
+            x, _, new = apply_layer(
+                lp, cfg, plan, li, kind, x, functools.partial(attend, j),
+                tuple(pool[j] for pool in pools) or None, impl=impl,
+                cross=functools.partial(cross, j))
+            for pool, c in zip(pools, new or ()):
+                pool[j] = c
+        x = apply_norm(params.final_norm, x)
+        logits = lm_head(params.lm_head_params, x, cfg.vocab_size)
+    return logits, caches
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux=0.0,
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """Cross-entropy over the labels ``>= 0`` (``-1`` masks a position),
+    in float32, plus ``aux_coef * aux`` (the MoE load-balance loss)."""
+    mask = labels >= 0
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    loss = (nll * mask).sum() / mask.sum().clamp(min=1)
+    return loss + aux_coef * aux

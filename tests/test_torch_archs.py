@@ -47,7 +47,7 @@ from repro.models import model as JM
 from repro.sharding import rules as jrules
 from repro.sharding.axes import strip
 from repro_torch import interop
-from repro_torch.configs import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
 from repro_torch.kernels.paged_attention import paged_attention as pkernel
 from repro_torch.models import mlp
@@ -81,8 +81,9 @@ def t(a) -> torch.Tensor:
 
 
 def test_registry_holds_the_three_and_not_the_rest():
-    assert set(NEW) <= set(ARCHS) and not set(NEW) & set(NOT_PORTED)
-    assert set(NOT_PORTED) == {"whisper-base"}
+    # whisper-base, the last, is registered too (tests/test_torch_whisper.py):
+    # the port's registry is the reference's
+    assert set(NEW) <= set(ARCHS) and set(ARCHS) == set(JARCHS)
     traits = {name: get_arch(name) for name in NEW}
     assert traits["qwen3-14b"].qk_norm
     assert traits["phi3-medium-14b"].n_heads // \

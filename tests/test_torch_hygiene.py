@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import sivf_torch
-from repro_torch.configs import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
@@ -66,6 +66,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.obs, repro_torch.serve.sivf_engine; "
             "import sivf_torch.telemetry; "
             "import repro_torch.baselines; "
+            "import repro_torch.data.pipeline, repro_torch.launch.train; "
+            "import repro_torch.train.train_step; "
+            "import repro_torch.train.grad_compress; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -126,17 +129,25 @@ def test_recurrent_paths_default_to_the_card(arch):
 @pytest.mark.parametrize("name", ["llava-next-34b", "minicpm3-4b",
                                   "moonshot-v1-16b-a3b", "whisper-base"])
 def test_unported_archs_raise_naming_their_roadmap_item(name):
-    """Whisper still raises, naming its ROADMAP item; the other three are
-    registered and their blocks all ported."""
-    if name in NOT_PORTED:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 13d"):
-            get_arch(name)
-        return
+    """All four are registered and their blocks ported (Whisper last), so
+    nothing is left to raise; the encoder-decoder's init, dense decode
+    cache and the trainer default to the card."""
     cfg = get_arch(name)
     assert cfg.name == name and name in ARCHS
     model.check_supported(cfg)
-    assert sorted(NOT_PORTED) == ["whisper-base"]
+    with pytest.raises(KeyError):
+        get_arch(name + "-unknown")
+    if cfg.enc_dec:
+        small = cfg.reduced()
+        plan = unpadded_plan(small)
+        if not torch.cuda.is_available():
+            for call in (lambda: model.init_params(small, plan),
+                         lambda: model.init_decode_cache(small, plan, 1, 8)):
+                with pytest.raises(RuntimeError, match="device='cpu'"):
+                    call()
+        assert model.init_decode_cache(small, plan, 1, 8, device="cpu")[
+            "attn"][2].shape == (small.n_layers, 1, small.enc_seq,
+                                 small.n_kv_heads, small.head_dim)
 
 
 @pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
@@ -315,7 +326,12 @@ def test_slice_modules_import_nothing_of_the_jax_package():
         for name in ("__init__", "metrics", "trace", "export")] + [
         port / "serve" / f"{name}.py"
         for name in ("quota", "session", "sivf_engine")] + [
-        REPO / "src" / "sivf_torch" / "telemetry.py"]
+        REPO / "src" / "sivf_torch" / "telemetry.py"] + [
+        port / "configs" / "whisper_base.py",
+        port / "data" / "pipeline.py", port / "launch" / "train.py"] + [
+        port / "train" / f"{name}.py"
+        for name in ("__init__", "optimizer", "grad_compress",
+                     "train_step")]
     for path in new:
         assert path in PORT_FILES
         assert not imported_roots(path) & FORBIDDEN, path
@@ -361,3 +377,17 @@ def test_kernel_list_names_every_source():
     assert {"paged_attention", "flash_attention"} <= set(_build.KERNELS)
     assert {"mamba_scan", "wkv6"} <= set(_build.KERNELS)
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)
+
+
+def test_trainer_defaults_to_the_card(tmp_path):
+    """The launcher runs on the card unless asked for the CPU: where none
+    is visible it raises before it builds anything, and writes no
+    checkpoint."""
+    from repro_torch.launch import train as launcher
+    assert launcher.parse([]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--arch", "llama3-8b", "--reduced", "--steps", "1",
+                       "--ckpt-dir", str(tmp_path / "c")])
+    assert not (tmp_path / "c").exists()
