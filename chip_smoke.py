@@ -185,6 +185,23 @@ a repeated batch, then a run stopped after 2 steps and resumed from its
 checkpoint, and two microbatches' gradient against one batch's) and
 Llama-3-8B cut to 8 layers (2 x 1,024 tokens, 3 steps).
 
+Then the model-axis plan runs on virtual model meshes of the one card
+(``launch.mesh.ModelMesh.virtual``): Granite-MoE-3B on (data 1, model
+16) and (data 2, model 8) and Phi-3-medium-14B on (data 1, model 16), at
+full width in bf16 with weights padded by ``make_plan`` (random, from
+``--seed``), each through the ``arch.*`` traffic one sequence at a time
+(prefill with ``forward(mesh=)``, the K, V into the mesh's decode cache,
+16 steps of ``decode_step(mesh=)``): kernel 6 launched per shard,
+kernel 5 per shard where KV heads shard (else the ``head_dim`` decode,
+plain torch), the first and last layer's calls at the first and last
+shard held to the plain versions; the logits held to the unsharded
+padded model's within ``LM_LOGIT_RTOL`` (with the mesh's per-shard MoE
+dispatch where the prefill takes the shard map), beside the plain
+``apply_moe``'s drops and choices; prefill and step ms sharded,
+unsharded padded and unpadded (views of the padded weights). Last,
+Granite's two ZeRO-1 train steps on (data 2, model 8) (float32 master
+weights, no kernel), with the moments' bytes per shard.
+
 The coarse centroids are trained twice from one generator state and the
 PQ codebooks twice from one seed: k-means sums in a fixed order, so each
 pair must agree bit for bit.
@@ -206,8 +223,9 @@ path's ``mesh.pq.*`` lines and ``mesh.pq``, ``pq.persist``, ``pq.tiered`` and
 ``rwkv`` and ``hybrid`` (and ``rwkv.wkv6_float64`` before
 ``rwkv.vs_ref``), each followed by its ``*.dense_decode`` line, the
 ``arch.*`` lines (``arch.minicpm3-4b.dense_decode`` after MiniCPM3's),
-``whisper``, ``train.whisper-base``, ``train.llama3-8b``, the
-``{"kernels": [...]}``
+``whisper``, ``train.whisper-base``, ``train.llama3-8b``, the three
+``model_axis.<arch>.<data>x<model>`` lines and
+``model_axis.train.granite-moe-3b-a800m``, the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check makes the exit code 1
 and suppresses the last line. Without a GPU it exits 2 and prints no
@@ -6080,6 +6098,428 @@ def phase_baselines(torch, wl: dict, dev="cuda") -> list:
     return lines
 
 
+# the model-axis plan (PR 28): (arch, mesh) cells served at full width in
+# bf16 on virtual meshes of one card, then one ZeRO-1 train step
+MODEL_AXIS_CELLS = (("granite-moe-3b-a800m", {"data": 1, "model": 16}),
+                    ("granite-moe-3b-a800m", {"data": 2, "model": 8}),
+                    ("phi3-medium-14b", {"data": 1, "model": 16}))
+# cut to 16 of 32 layers: at 32 the float32 weights, their gradients, the
+# moments and the steps' bf16 copies of the weights did not fit 80 GB
+MODEL_AXIS_TRAIN = dict(arch="granite-moe-3b-a800m", n_layers=16,
+                        mesh={"data": 2, "model": 8}, batch=2, seq=512,
+                        lr=3e-4, steps=2)
+MODEL_AXIS_LAUNCHES: dict = {}  # kernels 5 / 6 per cell of the sharded run
+
+
+def unpadded_view(torch, params, cfg, plan):
+    """The unpadded model's parameters as views of the padded ones: each
+    dim on ``heads``, ``kv_heads``, ``vocab`` or ``expert`` cut to the
+    real count (nothing copied). Under candidate B of the head padding
+    the real q heads regroup over the KV heads, so it is another function
+    of the same weights: it is timed, not compared."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.axes import logical_axes
+    real = {"heads": (cfg.n_heads, plan.n_heads_padded),
+            "kv_heads": (cfg.n_kv_heads, plan.n_kv_heads_padded),
+            "vocab": (cfg.vocab_size, plan.vocab_padded),
+            "expert": (cfg.n_experts, plan.n_experts_padded)}
+    tree: dict = {}
+    for name, ax in logical_axes(params).items():
+        t = params.get_parameter(name)
+        for d, a in enumerate(ax):
+            if a in real and real[a][1]:
+                t = t.narrow(d, 0, t.shape[d] // real[a][1] * real[a][0])
+        node, *path = tree, *name.split(".")[:-1]
+        for key in path:
+            node = node.setdefault(key, {})
+        node[name.rsplit(".", 1)[1]] = t
+    layers = [M.layer_module(**tree["layers"][str(i)])
+              for i in range(cfg.n_layers)]
+    return M.DecoderLM(tree["embed"], tree["final_norm"], layers,
+                       tree.get("head"))
+
+
+def tensor_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def axis_traffic(torch, cfg, plans, params, prompts, forced, mesh=None,
+                 caps=None, dev="cuda") -> dict:
+    """``ARCH_TRAFFIC`` through the dense entry points, one sequence at a
+    time: each prompt prefilled (``forward(collect_cache=True)``), its
+    K, V written into a dense decode cache (on ``mesh``: each shard's
+    block, ``fill_decode_cache``), then the steps' teacher-forced tokens
+    decoded (``decode_step``). ``caps`` maps ``("prefill", i)`` or
+    ``("step", i, t)`` to a :class:`Capture` entered around that call.
+    Returns each call's ms and the logits of each prompt's last position
+    and of each step."""
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    pp, pd = plans
+    n_steps = sum(ARCH_TRAFFIC["steps"])
+    caps = caps or {}
+    out = {"prefill_ms": [], "step_ms": [], "logits": []}
+    for i, prompt in enumerate(prompts):
+        toks = torch.from_numpy(prompt)[None].to(dev)
+        s = len(prompt)
+        with caps.get(("prefill", i), contextlib.nullcontext()), \
+                torch.no_grad():
+            (lg, _, kvs), ms = timed(lambda: M.forward(
+                params, cfg, pp, {"tokens": toks}, collect_cache=True,
+                mesh=mesh))
+        out["prefill_ms"].append(ms)
+        out["logits"].append(lg[0, -1].float())
+        del lg
+        if mesh is None:
+            caches = M.init_decode_cache(cfg, pd, 1, s + n_steps, device=dev)
+            for c, kv in zip(caches["attn"], kvs[0]):
+                c[:, :, :s] = kv.to(c.dtype)
+        else:
+            caches = parallel.fill_decode_cache(M.init_decode_cache(
+                cfg, pd, 1, s + n_steps, mesh=mesh), kvs, cfg, pd, mesh)
+        del kvs
+        for t in range(n_steps):
+            tok = torch.from_numpy(forced[t, i:i + 1, None]).to(dev)
+            with caps.get(("step", i, t), contextlib.nullcontext()):
+                (lg, caches), ms = timed(lambda: M.decode_step(
+                    params, cfg, pd, tok, caches, s + t, mesh=mesh))
+            out["step_ms"].append(ms)
+            out["logits"].append(lg[0, -1].float())
+        del caches
+        torch.cuda.empty_cache()
+    return out
+
+
+def axis_logits_vs(torch, got: dict, ref: dict) -> dict:
+    """max and mean |d| / max |ref| over each compared row's finite
+    logits (the padded vocab's ``-1e30`` excluded, and required in the
+    same columns), and top-1 agreement."""
+    worst, means, top1 = 0.0, [], 0
+    for a, b in zip(got["logits"], ref["logits"]):
+        fin = b > -1e29
+        check(torch.equal(fin, a > -1e29), "padded vocab columns differ")
+        a, b = a[fin], b[fin]
+        check(bool(torch.isfinite(a).all()), "non-finite sharded logits")
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        means.append(float((a - b).abs().mean() / b.abs().mean()))
+        top1 += int(a.argmax() == b.argmax())
+    return {"max_rel_logit_err": worst,
+            "mean_rel_logit_err": float(np.mean(means)),
+            "top1_agreement": top1 / len(ref["logits"]),
+            "rows_compared": len(ref["logits"])}
+
+
+class MoeTally:
+    """While entered, wrap ``mlp.moe_route`` and ``mlp.moe_dispatch``:
+    record each routing call's top-k experts and each dispatch's pairs
+    and kept pairs, in call order."""
+
+    def __init__(self, mlp):
+        self.mlp, self.routes, self.dispatches = mlp, [], []
+
+    def __enter__(self):
+        route, dispatch = self.mlp.moe_route, self.mlp.moe_dispatch
+
+        def moe_route(*a, **k):
+            out = route(*a, **k)
+            self.routes.append(out[2].clone())
+            return out
+
+        def moe_dispatch(xf, topw, tope, cap, e_pad):
+            buf, r = dispatch(xf, topw, tope, cap, e_pad)
+            self.dispatches.append((tope.numel(), r[0].numel()))
+            return buf, r
+        self.saved = (route, dispatch)
+        self.mlp.moe_route, self.mlp.moe_dispatch = moe_route, moe_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp.moe_route, self.mlp.moe_dispatch = self.saved
+
+
+@contextlib.contextmanager
+def both(*managers):
+    """Enter ``managers`` together."""
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+@contextlib.contextmanager
+def same_dispatch_moe(torch, mlp, plan, shape):
+    """Off the mesh, the MoE of a prefill that the mesh dispatches by
+    ``apply_moe_shardmap`` takes ``apply_moe`` over each (data, model)
+    shard's tokens in turn (the local capacity, choices and drops), the
+    aux averaged; every other call is ``moe``'s own."""
+    orig = mlp.moe
+    m, dp = shape["model"], shape["data"]
+
+    def moe(p, cfg, pl, x):
+        b, s, _ = x.shape
+        if plan.rules_dict["seq_sp"] != "model" or s % m or b % dp:
+            return orig(p, cfg, pl, x)
+        outs = [[mlp.apply_moe(p, cfg, pl, c) for c in r.chunk(m, 1)]
+                for r in x.chunk(dp, 0)]
+        y = torch.cat([torch.cat([o for o, _ in r], 1) for r in outs], 0)
+        return y, sum(a for r in outs for _, a in r) / (m * dp)
+    mlp.moe = moe
+    try:
+        yield
+    finally:
+        mlp.moe = orig
+
+
+def moe_summary(torch, tally, cfg, mesh_size: int, shardmap: bool) -> dict:
+    """One prefill's MoE (``tally`` entered around it): pairs and kept
+    pairs over its layers (a dispatch of all tokens that several shards
+    ran counted once) and its first layer's top-k experts, concatenated
+    over the shards of a shard map."""
+    dup = 1 if shardmap else len(tally.dispatches) // cfg.n_layers
+    pairs = sum(p for p, _ in tally.dispatches) // dup
+    kept = sum(k for _, k in tally.dispatches) // dup
+    first = tally.routes[:mesh_size if shardmap else 1]
+    return {"pairs": pairs, "kept": kept,
+            "layer0_topk": torch.cat(first, 0)}
+
+
+def choices_differ(a, b) -> int:
+    """(token, expert) pairs chosen in one ``[N, K]`` top-k and not the
+    other."""
+    sa, sb = a.sort(-1).values, b.sort(-1).values
+    return int((sa != sb).sum())
+
+
+def phase_model_axis(torch, name: str, shape: dict, seed: int,
+                     dev="cuda") -> list:
+    """One cell of the model-axis plan: ``name`` at full width in bf16
+    (random weights from ``seed``, padded by ``make_plan(cfg, shape,
+    ...)`` with a global batch of 1) on ``ModelMesh.virtual(shape)``,
+    through ``ARCH_TRAFFIC`` one sequence at a time (:func:`axis_traffic`):
+    counted; kernel 6's calls of the first prefill and kernel 5's of the
+    first sequence's last step (where KV heads shard), first and last
+    layer at the first and last shard, held to the plain versions by
+    :func:`full_width_checks`. Then the same padded weights off the mesh
+    (logits bounded by ``LM_LOGIT_RTOL``; where the mesh's prefill
+    dispatches the MoE by shard map, the bound is on a run whose MoE takes
+    the same per-shard dispatch, :func:`same_dispatch_moe`, and the plain
+    ``apply_moe`` run's drops and choices are reported beside it), and
+    the unpadded model (views of the padded weights) for time."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.models import mlp
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import make_plan, unpadded_plan
+    t_phase = time.perf_counter()
+    cfg = get_arch(name)
+    mesh = ModelMesh.virtual(shape, dev)
+    plans = tuple(make_plan(cfg, shape, k, 1) for k in ("prefill", "decode"))
+    prompts, forced = lm_traffic(seed, cfg.vocab_size, ARCH_TRAFFIC)
+    n_steps, size = sum(ARCH_TRAFFIC["steps"]), mesh.size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, init_ms = timed(lambda: init_params(cfg, plans[0], seed=seed,
+                                                device=dev))
+    flat = unpadded_view(torch, params, cfg, plans[0])
+    by_heads = plans[1].kv_sharded
+    ends = [li * size + s for li in (0, cfg.n_layers - 1)
+            for s in (0, size - 1)]
+    tally, tally_off = MoeTally(mlp), MoeTally(mlp)
+    flash_cap = Capture(fops, "flash_attention", ends)
+    caps = {("prefill", 0): both(flash_cap, tally)}
+    if by_heads:
+        caps[("step", 0, n_steps - 1)] = Capture(pops, "paged_attention",
+                                                  ends)
+    collectives: dict = {}
+    orig = mesh_mod.collective
+
+    def counted(op, *a, **k):
+        collectives[op] = collectives.get(op, 0) + 1
+        return orig(op, *a, **k)
+    shardmap = cfg.moe and len(prompts[0]) % shape["model"] == 0 and \
+        shape["data"] == 1
+    zero_counts()                                 # counts of this path
+    mesh_mod.collective = counted
+    try:
+        sharded = axis_traffic(torch, cfg, plans, params, prompts, forced,
+                               mesh, caps, dev)
+    finally:
+        mesh_mod.collective = orig
+    launches = {"flash_attention": fk.launches,
+                "flash_attention[tensor_core]": fk.launches_tensor_core,
+                "paged_attention": pk.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches["flash_attention"] == cfg.n_layers * size * len(prompts)
+          == launches["flash_attention[tensor_core]"],
+          f"{name} {shape}: flash launches {launches} != {cfg.n_layers} "
+          f"layers x {size} shards x {len(prompts)} prefills, on "
+          "tensor_core")
+    want_paged = cfg.n_layers * size * n_steps * len(prompts) \
+        if by_heads else 0
+    check(launches["paged_attention"] == want_paged,
+          f"{name} {shape}: paged launches {launches['paged_attention']} "
+          f"!= {want_paged}")
+    MODEL_AXIS_LAUNCHES[f"{name} {shape['data']}x{shape['model']}"] = {
+        "flash_attention": launches["flash_attention"],
+        "paged_attention": launches["paged_attention"],
+        "per_shard": {"flash_attention": launches["flash_attention"] // size,
+                      "paged_attention": launches["paged_attention"]
+                      // size}}
+    # a shard's call holds few heads: its paged control drops a 32-slot
+    # chunk (the kernel's unit of work), not one key of some 2,000
+    kernel_caps = {"flash_attention": flash_cap}
+    if by_heads:
+        kernel_caps["paged_attention"] = caps[("step", 0, n_steps - 1)]
+    full = full_width_checks(torch, kernel_caps, ends,
+                             short=dict.fromkeys(ends, 32))
+    for c in kernel_caps.values():
+        check(c.n == (cfg.n_layers * size), f"{name}: captured call count "
+              f"{c.n} != {cfg.n_layers} x {size}")
+    del caps, kernel_caps, flash_cap
+    unsharded = axis_traffic(torch, cfg, plans, params, prompts, forced,
+                             caps={("prefill", 0): tally_off}, dev=dev)
+    vs = axis_logits_vs(torch, sharded, unsharded)
+    moe = None
+    bounded = vs
+    if cfg.moe:
+        mine = moe_summary(torch, tally, cfg, size, shardmap)
+        theirs = moe_summary(torch, tally_off, cfg, 0, False)
+        moe = {"first_prefill_tokens": len(prompts[0]),
+               "dispatch": "apply_moe_shardmap" if shardmap else
+               "apply_moe over the batch",
+               "pairs": mine["pairs"], "kept_sharded": mine["kept"],
+               "kept_unsharded_apply_moe": theirs["kept"],
+               "layer0_choices_differ": choices_differ(
+                   mine["layer0_topk"], theirs["layer0_topk"])}
+        check(mine["pairs"] == theirs["pairs"] == cfg.n_layers * len(
+            prompts[0]) * cfg.moe_top_k, f"MoE pairs {moe}")
+        if shardmap:
+            with same_dispatch_moe(torch, mlp, plans[0], shape):
+                same = axis_traffic(torch, cfg, plans, params, prompts,
+                                    forced, dev=dev)
+            bounded = axis_logits_vs(torch, sharded, same)
+            moe["vs_unsharded_same_dispatch"] = bounded
+            del same
+    check(bounded["max_rel_logit_err"] <= LM_LOGIT_RTOL,
+          f"{name} {shape}: sharded logits {bounded} beyond "
+          f"{LM_LOGIT_RTOL} of the unsharded padded model's")
+    flat_plans = (unpadded_plan(cfg),) * 2
+    unpadded = axis_traffic(torch, cfg, flat_plans, flat, prompts, forced,
+                            dev=dev)
+    line = {
+        "phase": f"model_axis.{name}.{shape['data']}x{shape['model']}",
+        "arch": name, "mesh": shape, "virtual_shards": size,
+        "dtype": cfg.dtype, "reduced": None,
+        "plans": {k: dataclasses.asdict(p) for k, p in
+                  zip(("prefill", "decode"), plans)},
+        "head_padding": {"q": [cfg.n_heads, plans[0].n_heads_padded],
+                         "kv": [cfg.n_kv_heads, plans[0].n_kv_heads_padded],
+                         "kv_sharded": plans[0].kv_sharded,
+                         "decode_cache": "kv_heads" if by_heads else
+                         "kv_dh"},
+        "param_bytes_padded": tensor_bytes(params),
+        "param_bytes_unpadded": tensor_bytes(flat),
+        "peak_device_bytes": peak, "init_params_ms": init_ms,
+        "traffic": ARCH_TRAFFIC,
+        "prefill_ms": {"sharded": sharded["prefill_ms"],
+                       "unsharded_padded": unsharded["prefill_ms"],
+                       "unpadded": unpadded["prefill_ms"]},
+        "step_ms_median": {k: float(np.median(r["step_ms"])) for k, r in
+                           (("sharded", sharded),
+                            ("unsharded_padded", unsharded),
+                            ("unpadded", unpadded))},
+        "launches": launches, "collectives": collectives,
+        "kernels_full_width": full,
+        "vs_unsharded_padded": vs, "logit_rtol": LM_LOGIT_RTOL,
+        "moe": moe, "phase_seconds": time.perf_counter() - t_phase}
+    del params, flat, sharded, unsharded, unpadded
+    torch.cuda.empty_cache()
+    return [line]
+
+
+def phase_model_axis_train(torch, seed: int, dev="cuda") -> list:
+    """``MODEL_AXIS_TRAIN``: Granite's train steps on the (data 2, model
+    8) virtual mesh at full width, cut to ``n_layers`` (float32 master
+    weights, bf16
+    activations, the plain paths under autograd: no kernel) with ZeRO-1
+    moments (``state_specs(zero1=True)``, held as each shard's blocks),
+    on one ``TokenStream`` batch. Reads each step's ms, loss and gradient
+    norm, the moments' bytes per shard beside the unsharded moments', and
+    the peak."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import make_plan
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    t_phase = time.perf_counter()
+    run = MODEL_AXIS_TRAIN
+    cfg = dataclasses.replace(get_arch(run["arch"]), n_layers=run["n_layers"])
+    shape = run["mesh"]
+    mesh = ModelMesh.virtual(shape, dev)
+    plan = make_plan(cfg, shape, "train", run["batch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, plan, seed=seed, device=dev,
+                         dtype=torch.float32)
+    specs = ts.mesh_state_specs(params, plan, mesh, zero1=True)
+    state = ts.init_train_state(params, mesh, specs["opt"]["mu"])
+    step = ts.make_train_step(cfg, plan, ts.TrainConfig(opt=opt.OptConfig(
+        lr=run["lr"], warmup_steps=1)), mesh=mesh)
+    data = pipe.TokenStream(pipe.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq"],
+        global_batch=run["batch"]))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0).items()}
+    zero_counts()
+    steps = []
+    for _ in range(run["steps"]):
+        (state, met), ms = timed(lambda: step(state, batch))
+        steps.append({"ms": ms, "loss": float(met["loss"]),
+                      "aux": float(met["aux"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "opt_ms": met["opt_s"] * 1e3})
+        check(np.isfinite(steps[-1]["loss"]) and
+              np.isfinite(steps[-1]["grad_norm"]), f"train step {steps}")
+    check(fk.launches == pk.launches == 0,
+          f"a train step launched kernels ({fk.launches}, {pk.launches})")
+    mu, nu = state["opt"]["mu"], state["opt"]["nu"]
+    per_shard = [mu.shard_bytes(s) + nu.shard_bytes(s)
+                 for s in range(mesh.size)]
+    whole = 2 * tensor_bytes(state["params"])
+    check(max(per_shard) < whole / mesh.shape["model"],
+          f"ZeRO-1 moments per shard {per_shard} not below "
+          f"{whole} / {mesh.shape['model']}")
+    line = {"phase": f"model_axis.train.{run['arch']}", "mesh": shape,
+            "plan": dataclasses.asdict(plan), "batch": run["batch"],
+            "reduced": f"{cfg.n_layers} of {get_arch(run['arch']).n_layers}"
+                       " layers", "params": cfg.param_count(),
+            "seq": run["seq"], "lr": run["lr"], "steps": steps,
+            "tokens_per_s": run["batch"] * run["seq"] / steps[-1]["ms"]
+            * 1e3,
+            "moment_bytes_per_shard": per_shard,
+            "moment_bytes_unsharded": whole,
+            "moment_spec_examples": {
+                n: specs["opt"]["mu"][n] for n in (
+                    "embed.table", "layers.0.attn.wq",
+                    "layers.0.moe.w_up", "layers.0.ln1.scale")},
+            "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+            "phase_seconds": time.perf_counter() - t_phase}
+    del state, params
+    torch.cuda.empty_cache()
+    return [line]
+
+
 KERNEL_ORDER = ("sivf_fused_search", "sivf_fused_search[filtered]",
                 "sivf_pq_fused_search", "sivf_pq_fused_search[filtered]",
                 "reclaim", "sivf_scan", "topk", "paged_attention",
@@ -6182,6 +6622,14 @@ def main(argv=None) -> int:
     for name, fn in (("whisper", phase_whisper), ("train", phase_train)):
         for ln in run(name, lambda: fn(torch, args.seed)) or []:
             emit(ln)
+    for name, shape in MODEL_AXIS_CELLS:
+        for ln in run(f"model_axis.{name}.{shape['data']}x{shape['model']}",
+                      lambda: phase_model_axis(torch, name, shape,
+                                               args.seed)) or []:
+            emit(ln)
+    for ln in run("model_axis.train",
+                  lambda: phase_model_axis_train(torch, args.seed)) or []:
+        emit(ln)
     for name, by_route in SERVE_LAUNCHES.items():
         if name in rows:
             rows[name]["serve_launches"] = by_route
@@ -6199,6 +6647,10 @@ def main(argv=None) -> int:
                 arch: n[name] for arch, n in ARCH_LAUNCHES.items()}
         if name in rows and WHISPER_LAUNCHES:
             rows[name]["whisper_launches"] = WHISPER_LAUNCHES[name]
+        if name in rows and MODEL_AXIS_LAUNCHES:   # virtual model meshes
+            rows[name]["model_axis_launches"] = {
+                cell: {"total": n[name], "per_shard": n["per_shard"][name]}
+                for cell, n in MODEL_AXIS_LAUNCHES.items()}
     for name in ("paged_attention", "wkv6", "mamba_scan"):
         if name in rows:                # each phase's dense decode
             rows[name]["dense_decode_launches"] = {

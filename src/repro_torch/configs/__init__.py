@@ -9,9 +9,13 @@ shared experts ``moonshot-v1-16b-a3b``, the VLM backbone
 ``llava-next-34b`` (image-patch prefix embeddings), the RNN ``rwkv6-3b``,
 the hybrid Mamba + attention + MoE ``jamba-v0.1-52b`` and the audio
 encoder-decoder ``whisper-base``: every architecture of the reference's
-registry. An unknown name raises ``KeyError``.
+registry. An unknown name raises ``KeyError``. ``SHAPES`` holds the
+reference's four input shapes (``ShapeConfig``), which a mesh plan and
+``launch.specs`` read.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs import (
     granite_moe_3b_a800m,
@@ -32,6 +36,24 @@ ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
     granite_moe_3b_a800m.CONFIG, minicpm3_4b.CONFIG,
     moonshot_v1_16b_a3b.CONFIG, llava_next_34b.CONFIG, rwkv6_3b.CONFIG,
     jamba_v0_1_52b.CONFIG, whisper_base.CONFIG]}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the reference's cells (the same four for every
+    LM arch)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def get_arch(name: str) -> ModelConfig:

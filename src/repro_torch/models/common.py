@@ -17,6 +17,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+_NORM = {"scale": ("embed",), "bias": ("embed",)}
+# logical axes of each group's leaves (``sharding.axes.logical_axes``), as
+# the reference's ``embed_init`` / ``norm_init`` annotate them; ``dec_pos``
+# is Whisper's learned decoder positions
+AXES = {"embed": {"table": ("vocab", "embed")},
+        "head": {"table": ("vocab", "embed")},
+        "dec_pos": {"table": (None, "embed")},
+        **{g: _NORM for g in ("ln1", "ln2", "ln_x", "final_norm",
+                              "ln_post")}}
+
 
 def param_group(**tensors) -> nn.ParameterDict:
     """An ``nn.ParameterDict`` of frozen parameters (inference only). A
@@ -132,13 +142,16 @@ def embed_lookup(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["table"][tokens.long()].to(dtype)
 
 
-def lm_head(params, x: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Project to logits; padded vocab rows masked to ``-1e30``."""
+def lm_head(params, x: torch.Tensor, vocab_size: int, row0: int = 0
+            ) -> torch.Tensor:
+    """Project to logits; padded vocab rows masked to ``-1e30``. A model
+    shard passes its block of the table and the block's first row
+    ``row0``: its logits are columns ``row0 ..`` of the whole."""
     table = params["table"]
     logits = torch.matmul(x, table.to(x.dtype).t())
     vp = table.shape[0]
-    if vp != vocab_size:
-        pad = torch.arange(vp, device=x.device) >= vocab_size
+    if row0 + vp > vocab_size:
+        pad = torch.arange(row0, row0 + vp, device=x.device) >= vocab_size
         logits = torch.where(pad, torch.full((), -1e30, device=x.device),
                              logits.float()).to(logits.dtype)
     return logits

@@ -28,6 +28,13 @@ from repro_torch.sharding.rules import ShardPlan
 # leaves the reference uses in float32 whatever the activation dtype; the
 # port stores them in float32 too (the others are cast at each use)
 FLOAT32_LEAVES = frozenset({"dt_bias", "a_log", "d"})
+# logical axes of the group's leaves (``sharding.axes.logical_axes``), as
+# the reference's ``init_mamba`` annotates them
+AXES = {"mamba": {"w_in": ("embed", "mlp"), "conv_w": (None, "mlp"),
+                  "conv_b": ("mlp",), "w_x": ("mlp", None),
+                  "w_dt": (None, "mlp"), "dt_bias": ("mlp",),
+                  "a_log": ("mlp", None), "d": ("mlp",),
+                  "w_out": ("mlp", "embed")}}
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, plan: ShardPlan,

@@ -52,6 +52,11 @@ order, as ``forward``'s caches and the paged engine's pools are:
 
 ``interop.decode_cache_to_numpy`` crosses it to the reference's list per
 period position.
+
+``forward``, ``init_decode_cache`` and ``decode_step`` take ``mesh=`` (a
+``launch.mesh.ModelMesh``) with a plan made for it: the model then runs
+tensor-parallel on the mesh's shards (``models.parallel``), and its
+caches are per shard.
 """
 from __future__ import annotations
 
@@ -226,7 +231,8 @@ def init_params(cfg: ModelConfig, plan: ShardPlan, seed: int = 0,
                          f"periods of {cfg.layer_period}")
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
-    gen = torch.Generator(device=dev)
+    # the meta device (shapes only) draws nothing: any generator will do
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     embed = embed_init(gen, plan.vocab_padded, cfg.d_model, dev, dtype)
     layers = [_init_layer(gen, cfg, plan, li, kind, dev, dtype)
@@ -267,7 +273,8 @@ def encode(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
-            batch: dict, impl: str = "kernel", collect_cache: bool = False):
+            batch: dict, impl: str = "kernel", collect_cache: bool = False,
+            mesh=None):
     """Full-sequence forward. batch: tokens [B,S]; for the vision stub
     (``cfg.frontend == "vision_stub"``) optionally ``prefix_embeds``
     [B,n_img,d], which replace the embeddings of the first ``n_img``
@@ -292,8 +299,16 @@ def forward(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
 
     For a dense GQA model that is ``[(k, v)]``, as before. ``impl`` as in
     ``models.attention`` (``"kernel"``: the hand-written kernels on the
-    card; ``"ref"``: the plain versions)."""
+    card; ``"ref"``: the plain versions).
+
+    With ``mesh`` (a ``launch.mesh.ModelMesh``) and the plan made for it,
+    the model runs tensor-parallel on the mesh's shards
+    (``models.parallel.forward``; its caches are per shard)."""
     check_supported(cfg)
+    if mesh is not None:
+        from repro_torch.models import parallel
+        return parallel.forward(params, cfg, plan, batch, mesh, impl,
+                                collect_cache)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     dtype = getattr(torch, cfg.dtype)
@@ -383,13 +398,19 @@ def apply_layer(lp, cfg: ModelConfig, plan: ShardPlan, li: int, kind: str,
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, plan: ShardPlan, batch: int,
-                      max_seq: int, dtype=None, device="cuda") -> dict:
+                      max_seq: int, dtype=None, device="cuda", mesh=None):
     """Zero caches for :func:`decode_step` of ``batch`` sequences of up to
     ``max_seq`` positions on ``device`` (default the card), in the layout
     the module docstring gives; ``dtype`` (default ``cfg.dtype``) for all
     but RWKV's ``S`` and Mamba's ``h``, which are float32 as the
-    reference's."""
+    reference's. With ``mesh``, each shard's block of the attention
+    caches on the shard's device (``models.parallel.init_decode_cache``),
+    and ``device`` is not read."""
     check_supported(cfg)
+    if mesh is not None:
+        from repro_torch.models import parallel
+        return parallel.init_decode_cache(cfg, plan, batch, max_seq, mesh,
+                                          dtype)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     n = {k: layer_kinds(cfg).count(k) for k in KINDS}
@@ -438,7 +459,8 @@ def fill_cross_cache(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
                 tokens: torch.Tensor, caches: dict, pos: int,
-                impl: str = "kernel", embeds: torch.Tensor | None = None):
+                impl: str = "kernel", embeds: torch.Tensor | None = None,
+                mesh=None):
     """One decode step at absolute position ``pos`` (a Python int, the same
     for every sequence, as the reference's scalar). tokens [B,1];
     ``embeds`` [B,1,d] replaces the token embedding (the VLM's image
@@ -449,8 +471,14 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
     attend over their cross caches (kernel 5 over ``enc_seq`` slots); an
     RWKV6 or Mamba layer runs its recurrence at T = 1 (kernels 8 and 7)
     from the carried state, which is written back. Returns (logits
-    [B,1,V], caches), the caches updated in place."""
+    [B,1,V], caches), the caches updated in place. With ``mesh``, the
+    step runs tensor-parallel over :func:`init_decode_cache`'s per-shard
+    blocks (``models.parallel.decode_step``)."""
     check_supported(cfg)
+    if mesh is not None:
+        from repro_torch.models import parallel
+        return parallel.decode_step(params, cfg, plan, tokens, caches, pos,
+                                    mesh, impl, embeds)
     dtype = getattr(torch, cfg.dtype)
     b = tokens.shape[0]
     with torch.no_grad():

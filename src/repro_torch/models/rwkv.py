@@ -32,6 +32,16 @@ _LORA_RANK = 64
 # port stores them in float32 too (the other leaves are cast to the
 # activation dtype at each use, so they are stored in it)
 FLOAT32_LEAVES = frozenset({"w0", "u", "ln_scale", "ln_bias"})
+# logical axes of each group's leaves (``sharding.axes.logical_axes``), as
+# the reference's ``init_time_mix`` / ``init_channel_mix`` annotate them
+AXES = {"tm": {"mu": (None, "embed"), "w_r": ("embed", "heads"),
+               "w_k": ("embed", "heads"), "w_v": ("embed", "heads"),
+               "w_g": ("embed", "heads"), "w0": ("heads",),
+               "w_lora_a": ("embed", None), "w_lora_b": (None, "heads"),
+               "u": ("heads", None), "ln_scale": ("heads",),
+               "ln_bias": ("heads",), "w_o": ("heads", "embed")},
+        "cm": {"mu": (None, "embed"), "w_k": ("embed", "mlp"),
+               "w_v": ("mlp", "embed"), "w_r": ("embed", None)}}
 
 
 def _uniform(gen, shape, device) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Sharding plans of the port: one device, no mesh (``rules.py``)."""
+"""Sharding of the LM over a model mesh: logical axes (``axes.py``) and
+the per-(arch, mesh, shape) plan with its padding (``rules.py``)."""

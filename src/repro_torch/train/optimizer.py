@@ -63,33 +63,54 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict
-                 ) -> tuple[dict, dict, dict]:
-    """One AdamW step, in place (see the module docstring). The gradients
-    are scaled by ``min(1, clip_norm / max(global_norm, 1e-9))``;
-    decoupled weight decay applies to leaves with ``ndim >= 2`` only.
-    Returns (params, opt_state, {"grad_norm", "lr"})."""
-    step = opt_state["step"]
+def step_scalars(cfg: OptConfig, grads: dict, step: torch.Tensor) -> tuple:
+    """One step's scalars: (global norm, clip scale ``min(1, clip_norm /
+    max(norm, 1e-9))``, learning rate, the bias corrections ``1 - b1^t``,
+    ``1 - b2^t``)."""
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule(cfg, step).to(gn.device)
-    b1, b2 = cfg.b1, cfg.b2
     sf = step.to(torch.float32) + 1
-    c1 = 1.0 - torch.pow(torch.tensor(b1, device=sf.device), sf)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, device=sf.device), sf)
+    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=sf.device), sf)
+    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=sf.device), sf)
+    return gn, scale, lr, c1, c2
+
+
+def update_leaf(cfg: OptConfig, p: torch.Tensor, g: torch.Tensor,
+                mu: torch.Tensor, nu: torch.Tensor, scalars: tuple,
+                ndim: int | None = None) -> None:
+    """AdamW on one leaf (or one block of it), in place on ``p``, ``mu``,
+    ``nu``; decay where the whole leaf has ``ndim >= 2`` (default
+    ``p``'s)."""
+    _, scale, lr, c1, c2 = scalars
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    m = b1 * mu.float() + (1 - b1) * g
+    v = b2 * nu.float() + (1 - b2) * g * g
+    p32 = p.float()
+    wd = cfg.weight_decay if (p.dim() if ndim is None else ndim) >= 2 \
+        else 0.0
+    new = p32 - lr * ((m / c1) / (torch.sqrt(v / c2) + cfg.eps) + wd * p32)
+    del g, p32
+    mu.copy_(m)
+    nu.copy_(v)
+    p.copy_(new)
+
+
+def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
+                 ndims: dict | None = None) -> tuple[dict, dict, dict]:
+    """One AdamW step, in place (see the module docstring). The gradients
+    are scaled by ``min(1, clip_norm / max(global_norm, 1e-9))``;
+    decoupled weight decay applies to leaves with ``ndim >= 2`` only
+    (``ndims`` may give a leaf's rank by name: the trainer passes the
+    rank in the reference's stacked tree). Returns (params, opt_state,
+    {"grad_norm", "lr"})."""
+    step = opt_state["step"]
+    scalars = step_scalars(cfg, grads, step)
     with torch.no_grad():
         for name, p in params.items():
-            mu, nu = opt_state["mu"][name], opt_state["nu"][name]
-            g = grads[name].float() * scale
-            m = b1 * mu.float() + (1 - b1) * g
-            v = b2 * nu.float() + (1 - b2) * g * g
-            p32 = p.float()
-            wd = cfg.weight_decay if p.dim() >= 2 else 0.0
-            new = p32 - lr * ((m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-                              + wd * p32)
-            del g, p32
-            mu.copy_(m)
-            nu.copy_(v)
-            p.copy_(new)
+            update_leaf(cfg, p, grads[name], opt_state["mu"][name],
+                        opt_state["nu"][name], scalars,
+                        None if ndims is None else ndims[name])
         step += 1
-    return params, opt_state, {"grad_norm": gn, "lr": lr}
+    return params, opt_state, {"grad_norm": scalars[0], "lr": scalars[2]}

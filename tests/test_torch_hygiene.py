@@ -69,6 +69,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.data.pipeline, repro_torch.launch.train; "
             "import repro_torch.train.train_step; "
             "import repro_torch.train.grad_compress; "
+            "import repro_torch.sharding.axes, repro_torch.sharding.rules; "
+            "import repro_torch.launch.mesh, repro_torch.launch.specs; "
+            "import repro_torch.models.parallel; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -331,7 +334,11 @@ def test_slice_modules_import_nothing_of_the_jax_package():
         port / "data" / "pipeline.py", port / "launch" / "train.py"] + [
         port / "train" / f"{name}.py"
         for name in ("__init__", "optimizer", "grad_compress",
-                     "train_step")]
+                     "train_step")] + [
+        port / "sharding" / f"{name}.py"
+        for name in ("__init__", "axes", "rules")] + [
+        port / "launch" / "mesh.py", port / "launch" / "specs.py",
+        port / "models" / "parallel.py"]
     for path in new:
         assert path in PORT_FILES
         assert not imported_roots(path) & FORBIDDEN, path
@@ -391,3 +398,28 @@ def test_trainer_defaults_to_the_card(tmp_path):
         launcher.main(["--arch", "llama3-8b", "--reduced", "--steps", "1",
                        "--ckpt-dir", str(tmp_path / "c")])
     assert not (tmp_path / "c").exists()
+
+
+def test_model_mesh_defaults_to_the_card():
+    """``ModelMesh.virtual`` puts its shards on the card unless asked for
+    another device; without one, placing parameters or a decode cache on
+    it raises, as every entry point of the port does."""
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.sharding.rules import make_plan
+    mesh = ModelMesh.virtual({"data": 1, "model": 2})
+    assert {d.type for d in mesh.devices} == {"cuda"}
+    cfg = get_arch("llama3-8b").reduced()
+    plan = make_plan(cfg, mesh.shape, "decode", 1)
+    if torch.cuda.is_available():
+        assert model.init_decode_cache(cfg, plan, 1, 8, mesh=mesh)[0][
+            "attn"][0].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_decode_cache(cfg, plan, 1, 8, mesh=mesh)
+    params = model.init_params(cfg, plan, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.forward(params, cfg, plan, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)}, mesh=mesh)
+    cpu = ModelMesh.virtual({"data": 1, "model": 2}, "cpu")
+    assert model.init_decode_cache(cfg, plan, 1, 8, mesh=cpu)[1][
+        "attn"][0].device.type == "cpu"

@@ -141,8 +141,10 @@ def test_llama_config_and_plan_match_the_reference():
         == dataclasses.asdict(jrules.make_plan(JCFG, {"data": 4, "model": 1}))
     with pytest.raises(KeyError):
         get_arch("llama3-70b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-        rules.make_plan(CFG, {"data": 2, "model": 2})
+    for kind in ("train", "prefill", "decode"):    # the mesh plan (10b)
+        assert dataclasses.asdict(rules.make_plan(
+            CFG, {"data": 2, "model": 2}, kind)) == dataclasses.asdict(
+            jrules.make_plan(JCFG, {"data": 2, "model": 2}, kind))
 
 
 # ---------------------------------------------------------------------------

@@ -324,8 +324,24 @@ def test_loss_falls_on_a_repeated_batch(arch):
 
 
 def test_state_specs_names_the_mesh_plan():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
-        ts.state_specs({})
+    """The train state's specs under a (data 2, model 2) plan: the
+    moments shard as the parameters do, and ZeRO-1 adds ``data`` on each
+    moment's first dim that no axis shards and 2 divides."""
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.models import model as M
+    cfg = get_arch("llama3-8b").reduced()
+    mesh = ModelMesh.virtual({"data": 2, "model": 2}, "meta")
+    plan = rules.make_plan(cfg, mesh.shape, "train", 4)
+    params = M.init_params(cfg, plan, device="meta")
+    plain = ts.mesh_state_specs(params, plan, mesh)
+    z1 = ts.mesh_state_specs(params, plan, mesh, zero1=True)
+    assert plain["params"] == z1["params"] == plain["opt"]["mu"]
+    assert plain["params"]["layers.0.attn.wq"] == (None, "model")
+    assert z1["opt"]["mu"]["layers.0.attn.wq"] == ("data", "model")
+    assert z1["opt"]["nu"]["layers.0.attn.wo"] == ("model", "data")
+    assert z1["opt"]["mu"]["final_norm.scale"] == ("data",)
+    assert z1["opt"]["mu"]["embed.table"] == ("model", "data")
+    assert z1["opt"]["step"] == ()
 
 
 # ---------------------------------------------------------------------------
