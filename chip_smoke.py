@@ -186,21 +186,27 @@ checkpoint, and two microbatches' gradient against one batch's) and
 Llama-3-8B cut to 8 layers (2 x 1,024 tokens, 3 steps).
 
 Then the model-axis plan runs on virtual model meshes of the one card
-(``launch.mesh.ModelMesh.virtual``): Granite-MoE-3B on (data 1, model
-16) and (data 2, model 8) and Phi-3-medium-14B on (data 1, model 16), at
-full width in bf16 with weights padded by ``make_plan`` (random, from
-``--seed``), each through the ``arch.*`` traffic one sequence at a time
-(prefill with ``forward(mesh=)``, the K, V into the mesh's decode cache,
-16 steps of ``decode_step(mesh=)``): kernel 6 launched per shard,
-kernel 5 per shard where KV heads shard (else the ``head_dim`` decode,
-plain torch), the first and last layer's calls at the first and last
-shard held to the plain versions; the logits held to the unsharded
-padded model's within ``LM_LOGIT_RTOL`` (with the mesh's per-shard MoE
-dispatch where the prefill takes the shard map), beside the plain
-``apply_moe``'s drops and choices; prefill and step ms sharded,
-unsharded padded and unpadded (views of the padded weights). Last,
-Granite's two ZeRO-1 train steps on (data 2, model 8) (float32 master
-weights, no kernel), with the moments' bytes per shard.
+(``launch.mesh.ModelMesh.virtual``), one ``phase_model_axis`` a cell of
+``MODEL_AXIS_CELLS``: Granite-MoE-3B on (data 1, model 16) and (data 2,
+model 8), Phi-3-medium-14B and RWKV6-3B on (data 1, model 16), Jamba
+cut to one 8-layer period on (data 2, model 8) and Whisper-base on (data
+1, model 16) (its 1,500 frames a sequence), at full width in bf16 with
+weights padded by ``make_plan`` (random, from ``--seed``), each through
+the ``arch.*`` traffic one sequence at a time (prefill with
+``forward(mesh=)``, the caches into the mesh's decode cache, steps of
+``decode_step(mesh=)``): kernels 6, 8 and 7 launched per shard, kernel 5
+per shard where KV heads shard (else the ``head_dim`` decode, plain
+torch), the first and last layer's calls at the first and last shard
+held to the plain versions with their controls; the logits held to the
+unsharded padded model's within ``LM_LOGIT_RTOL`` (with the mesh's
+per-shard MoE dispatch where the prefill takes the shard map), beside
+the plain ``apply_moe``'s drops and choices; RWKV6's and Jamba's bf16
+logits within ``AXIS_WITNESS_FACTOR`` of the unsharded model's own gap
+to its plain versions, and in float32 within ``RNN_F32_RTOL``; prefill
+and step ms sharded, unsharded padded and unpadded (views of the padded
+weights). Last, Granite's two ZeRO-1 train steps on (data 2, model 8)
+(float32 master weights, no kernel), with the moments' bytes per
+shard.
 
 The coarse centroids are trained twice from one generator state and the
 PQ codebooks twice from one seed: k-means sums in a fixed order, so each
@@ -223,7 +229,7 @@ path's ``mesh.pq.*`` lines and ``mesh.pq``, ``pq.persist``, ``pq.tiered`` and
 ``rwkv`` and ``hybrid`` (and ``rwkv.wkv6_float64`` before
 ``rwkv.vs_ref``), each followed by its ``*.dense_decode`` line, the
 ``arch.*`` lines (``arch.minicpm3-4b.dense_decode`` after MiniCPM3's),
-``whisper``, ``train.whisper-base``, ``train.llama3-8b``, the three
+``whisper``, ``train.whisper-base``, ``train.llama3-8b``, the six
 ``model_axis.<arch>.<data>x<model>`` lines and
 ``model_axis.train.granite-moe-3b-a800m``, the ``{"kernels": [...]}``
 summary, the card's ``nvidia-smi`` name and power limit, and last
@@ -4027,37 +4033,25 @@ def p_bf16_verdicts(F, args, want, mha_p_bf16_ref, causal=True) -> dict:
 
 
 def paged_work(q, k_pages, v_pages, tables, lengths, starts) -> tuple:
-    """(bytes, flops) one paged call must move and do on these inputs:
-    each live K/V row of every window read once (a slot whose table entry
-    is -1 is no work), q, the tables and the output once."""
-    page, hkv, dk = k_pages.shape[1:]
-    dv = v_pages.shape[-1]
-    b, hq, _ = q.shape
+    """(bytes, flops, live slots) one paged call must move and do on these
+    inputs: ``ops.work`` (the kernel's ``meta`` route's formula) over the
+    slots this call's windows hold (a slot whose table entry is -1 is no
+    work)."""
+    from repro_torch.kernels.paged_attention.ops import work
+    page = k_pages.shape[1]
     tab = tables.cpu().numpy()
     ln, st = lengths.cpu().numpy(), starts.cpu().numpy()
     slot = np.arange(tab.shape[1] * page)
-    live = ((slot[None] < ln[:, None]) & (slot[None] >= st[:, None])
-            & np.repeat(tab >= 0, page, axis=1)).sum()
-    es = q.element_size()
-    bytes_ = int(live) * hkv * (dk + dv) * es + 2 * b * hq * max(dk, dv) \
-        * es + tab.size * 4 + 2 * b * 4
-    flops = int(live) * hq * 2 * (dk + dv)
-    return bytes_, flops, int(live)
+    live = int(((slot[None] < ln[:, None]) & (slot[None] >= st[:, None])
+                & np.repeat(tab >= 0, page, axis=1)).sum())
+    return (*work(q, k_pages, v_pages, tables, live), live)
 
 
 def flash_work(q, k, causal=True, dv=None) -> tuple:
-    """(bytes, flops) of one flash call: q, k, v and the output once;
-    ``q k`` of dh and ``P v`` of ``dv`` (the V width the function needs,
-    dh unless given: MLA pads V from 64 to 96 and needs only 64) per
-    visible (q row, k column) pair and q head."""
-    b, hq, sq, dh = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    dv = dh if dv is None else dv
-    rows = np.arange(sq) + (sk - sq)
-    visible = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
-    es = q.element_size()
-    return ((b * hq * sq * (dh + dv) + b * hkv * sk * (dh + dv)) * es,
-            2 * b * hq * (dh + dv) * visible)
+    """(bytes, flops) of one flash call: ``ops.work``, the formula of the
+    kernel's ``meta`` route."""
+    from repro_torch.kernels.flash_attention.ops import work
+    return work(q, k, causal, dv)
 
 
 def peak_of(torch, dtype) -> float:
@@ -4346,6 +4340,12 @@ REC_RTOL = REC_ATOL = 1e-4
 # kernel check holds it to its own limit on the path's inputs
 RNN_F32_RTOL = 1e-3
 CONTROL_REL = 2.0 ** -23
+# the three float32 engines in lockstep take the first half of each prompt
+# and decode 32 steps before the slide, not LM_TRAFFIC's 64 (cut: the two
+# plain engines' admits, a Python loop a token, took most of the phase);
+# the kernel engine's own run keeps the whole traffic
+RNN_VS_REF_TRAFFIC = dict(prompts=tuple(n // 2 for n in LM_PROMPTS),
+                          readmit=LM_READMIT // 2, steps=(32, LM_STEPS[1]))
 SFU_RATE = SM_COUNT * 16 * BOOST_HZ   # ex2 results/s (16 a clock per SM)
 
 
@@ -4538,25 +4538,17 @@ def wkv6_float64(torch, name: str, caps: dict, active: list, kern, plain
 
 
 def wkv6_work(r, k, v, w, u, s0) -> tuple:
-    """(bytes, flops, 0) of one WKV6 call: r, k, v, w, y once, u, s0 and
-    s_T once; per (step, head) 5 flops a state element (2 for r . S, 3 for
-    S = w S + k v) and the bonus as a scalar times v (3 a row of k, 2 a
-    column)."""
-    b, t, h, dk = r.shape
-    dv = v.shape[-1]
-    bytes_ = 4 * (b * t * h * (3 * dk + 2 * dv) + h * dk + 2 * b * h * dk * dv)
-    return bytes_, b * t * h * (5 * dk * dv + 3 * dk + 2 * dv), 0
+    """(bytes, flops, 0) of one WKV6 call: ``ops.work``, the formula of the
+    kernel's ``meta`` route."""
+    from repro_torch.kernels.wkv6.ops import work
+    return work(r, k, v, w, u, s0)
 
 
 def mamba_work(u, delta, a, b, c, d, h0) -> tuple:
-    """(bytes, flops, exps) of one selective-scan call: u, delta, y once,
-    a, b, c, d once, h0 and h_T once; per (step, channel, state element)
-    6 flops and one exp, per (step, channel) 3 flops."""
-    bsz, t, di = u.shape
-    n = a.shape[1]
-    bytes_ = 4 * (3 * bsz * t * di + di * n + 2 * bsz * t * n + di
-                  + 2 * bsz * di * n)
-    return bytes_, bsz * t * di * (6 * n + 3), bsz * t * di * n
+    """(bytes, flops, exps) of one selective-scan call: ``ops.work``, the
+    formula of the kernel's ``meta`` route."""
+    from repro_torch.kernels.mamba_scan.ops import work
+    return work(u, delta, a, b, c, d, h0)
 
 
 def rec_row(name, source, replaces, launches, err, ms, plain_ms, work,
@@ -4662,13 +4654,14 @@ class Router:
 
 
 def serve_lockstep(torch, engines, prompts, forced, on_op, begin,
-                   dev="cuda") -> dict:
-    """Drive ``engines`` through the LM traffic (:func:`lm_operations`)
+                   dev="cuda", traffic: dict = LM_TRAFFIC) -> dict:
+    """Drive ``engines`` through ``traffic`` (:func:`lm_operations`)
     together, one operation on each in turn, calling ``begin(i)`` before
     engine i's share and ``on_op(op)`` after each operation. Returns each
     engine's ``(op, ms)`` list."""
     ms = {i: [] for i in range(len(engines))}
-    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev)):
+    for op, call in lm_operations(prompts, torch.from_numpy(forced).to(dev),
+                                  traffic):
         for i, eng in enumerate(engines):
             begin(i)
             torch.cuda.synchronize()
@@ -4864,7 +4857,7 @@ def phase_rnn(torch, name: str, seed: int, hbm: float, dev="cuda"
 
 def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
                    dev="cuda") -> tuple[dict, dict]:
-    """The ``RNN_PHASES[name]`` traffic in float32 on a kernel engine, an
+    """``RNN_VS_REF_TRAFFIC`` in float32 on a kernel engine, an
     ``attn_impl="ref"`` engine and a control (the ref engine with its plain
     recurrence's output moved by ``CONTROL_REL N(0, 1)`` relative, a
     rounding-level change) side by side. After every operation the page
@@ -4969,11 +4962,14 @@ def engines_vs_ref(torch, name: str, cfg, plan, prompts, forced, seed: int,
     t0 = time.perf_counter()
     try:
         with router or contextlib.nullcontext():
-            ms = serve_lockstep(torch, trio, prompts, forced, on_op, begin,
-                                dev)
+            ms = serve_lockstep(torch, trio, [
+                p[:n] for p, n in zip(prompts, RNN_VS_REF_TRAFFIC["prompts"]
+                                      + (RNN_VS_REF_TRAFFIC["readmit"],))],
+                forced, on_op, begin, dev, RNN_VS_REF_TRAFFIC)
     finally:
         setattr(rec_mod, rec_attr, rec_plain)
     vs_ref = {"phase": f"{name}.vs_ref", "dtype": "float32",
+              "lockstep_traffic": RNN_VS_REF_TRAFFIC,
               "lockstep_seconds": time.perf_counter() - t0,
               "kernel_step_ms_median": float(np.median(
                   [m for op, m in ms[0] if op.startswith("step")])),
@@ -6098,17 +6094,40 @@ def phase_baselines(torch, wl: dict, dev="cuda") -> list:
     return lines
 
 
-# the model-axis plan (PR 28): (arch, mesh) cells served at full width in
-# bf16 on virtual meshes of one card, then one ZeRO-1 train step
-MODEL_AXIS_CELLS = (("granite-moe-3b-a800m", {"data": 1, "model": 16}),
-                    ("granite-moe-3b-a800m", {"data": 2, "model": 8}),
-                    ("phi3-medium-14b", {"data": 1, "model": 16}))
+# the model-axis plan: (arch, mesh, decode steps of each sequence) cells
+# served at full width in bf16 on virtual meshes of one card, then one
+# ZeRO-1 train step. PR 28's attention LMs decode ARCH_TRAFFIC's prompts,
+# cut from 16 steps each (the 16 shards of a layer run in turn, so a
+# sharded step takes about a second): Granite (2, 8), whose decode runs
+# kernel 5 a shard, 16 and 2, its kernel held on the first sequence's
+# 16th step (at 4 or 8 its 32-slot paged control at the last layer came
+# near its limit); the (1, 16) cells, whose decode shards head_dim and
+# runs no kernel, 4 and 2. The three families decode 2 steps a sequence;
+# Jamba is cut to one 8-layer period as in the hybrid phase (the whole
+# model is 103.1 GB in bf16); Whisper takes WHISPER_AXIS_PROMPTS.
+MODEL_AXIS_CELLS = (
+    ("granite-moe-3b-a800m", {"data": 1, "model": 16}, (4, 2)),
+    ("granite-moe-3b-a800m", {"data": 2, "model": 8}, (16, 2)),
+    ("phi3-medium-14b", {"data": 1, "model": 16}, (4, 2)),
+    ("rwkv6-3b", {"data": 1, "model": 16}, (2, 2)),
+    ("jamba-v0.1-52b", {"data": 2, "model": 8}, (2, 2)),
+    ("whisper-base", {"data": 1, "model": 16}, (2, 2, 2, 2)))
+MODEL_AXIS_CUT = {"jamba-v0.1-52b": 8}
+MODEL_AXIS_TRAFFIC = ARCH_TRAFFIC
+# Whisper: one sequence at a time over WHISPER_TRAFFIC's 4 x 1,500 frames,
+# decoder prompts within its 448 learned positions
+WHISPER_AXIS_PROMPTS = (432, 200, 64, 17)
+# a recurrent model's bf16 sharded logits against the unsharded padded
+# model's: within this factor of the unsharded model's own gap between
+# its kernels and their plain versions (impl="ref"), both one bf16
+# rounding amplified over random full-width layers
+AXIS_WITNESS_FACTOR = 2.0
 # cut to 16 of 32 layers: at 32 the float32 weights, their gradients, the
 # moments and the steps' bf16 copies of the weights did not fit 80 GB
 MODEL_AXIS_TRAIN = dict(arch="granite-moe-3b-a800m", n_layers=16,
                         mesh={"data": 2, "model": 8}, batch=2, seq=512,
                         lr=3e-4, steps=2)
-MODEL_AXIS_LAUNCHES: dict = {}  # kernels 5 / 6 per cell of the sharded run
+MODEL_AXIS_LAUNCHES: dict = {}  # kernels 5-8 per cell of the sharded run
 
 
 def unpadded_view(torch, params, cfg, plan):
@@ -6135,54 +6154,77 @@ def unpadded_view(torch, params, cfg, plan):
         node[name.rsplit(".", 1)[1]] = t
     layers = [M.layer_module(**tree["layers"][str(i)])
               for i in range(cfg.n_layers)]
+    encoder = None
+    if cfg.enc_dec:
+        enc = tree["encoder"]
+        encoder = {"layers": [M.layer_module(**enc["layers"][str(i)])
+                              for i in range(cfg.n_enc_layers)],
+                   "ln_post": enc["ln_post"]}
     return M.DecoderLM(tree["embed"], tree["final_norm"], layers,
-                       tree.get("head"))
+                       tree.get("head"), encoder, tree.get("dec_pos"))
 
 
 def tensor_bytes(params) -> int:
     return sum(p.numel() * p.element_size() for p in params.parameters())
 
 
-def axis_traffic(torch, cfg, plans, params, prompts, forced, mesh=None,
-                 caps=None, dev="cuda") -> dict:
-    """``ARCH_TRAFFIC`` through the dense entry points, one sequence at a
-    time: each prompt prefilled (``forward(collect_cache=True)``), its
-    K, V written into a dense decode cache (on ``mesh``: each shard's
-    block, ``fill_decode_cache``), then the steps' teacher-forced tokens
-    decoded (``decode_step``). ``caps`` maps ``("prefill", i)`` or
-    ``("step", i, t)`` to a :class:`Capture` entered around that call.
-    Returns each call's ms and the logits of each prompt's last position
-    and of each step."""
+def axis_traffic(torch, cfg, plans, params, prompts, forced, steps,
+                 mesh=None, caps=None, dev="cuda", frames=None,
+                 impl="kernel") -> dict:
+    """The prompts through the dense entry points, one sequence at a time:
+    each prompt prefilled (``forward(collect_cache=True)``), its caches
+    (K, V, recurrent states) written into a dense decode cache (on
+    ``mesh``: each shard's block, ``fill_decode_cache``), then
+    ``steps[i]`` teacher-forced tokens decoded (``decode_step``). An encoder-decoder takes sequence ``i``'s
+    ``frames[i]``: its forward encodes them, and before the steps
+    ``encode`` and ``fill_cross_cache`` fill the cross caches. ``caps``
+    maps ``("prefill", i)`` or ``("step", i, t)`` to a :class:`Capture`
+    entered around that call. ``impl`` as ``forward``'s. Returns each
+    call's ms and the logits of each prompt's last position and of each
+    step."""
     from repro_torch.models import model as M
     from repro_torch.models import parallel
     pp, pd = plans
-    n_steps = sum(ARCH_TRAFFIC["steps"])
     caps = caps or {}
     out = {"prefill_ms": [], "step_ms": [], "logits": []}
     for i, prompt in enumerate(prompts):
         toks = torch.from_numpy(prompt)[None].to(dev)
         s = len(prompt)
+        batch = {"tokens": toks}
+        if cfg.enc_dec:
+            batch["enc_frames"] = frames[i:i + 1]
         with caps.get(("prefill", i), contextlib.nullcontext()), \
                 torch.no_grad():
             (lg, _, kvs), ms = timed(lambda: M.forward(
-                params, cfg, pp, {"tokens": toks}, collect_cache=True,
+                params, cfg, pp, batch, impl, collect_cache=True,
                 mesh=mesh))
         out["prefill_ms"].append(ms)
         out["logits"].append(lg[0, -1].float())
         del lg
         if mesh is None:
-            caches = M.init_decode_cache(cfg, pd, 1, s + n_steps, device=dev)
-            for c, kv in zip(caches["attn"], kvs[0]):
-                c[:, :, :s] = kv.to(c.dtype)
+            caches = M.init_decode_cache(cfg, pd, 1, s + steps[i],
+                                         device=dev)
+            for kind, stacks in zip(M.kinds_present(cfg), kvs):
+                for c, t in zip(caches[kind], stacks):
+                    if kind == "attn":
+                        c[:, :, :s] = t.to(c.dtype)
+                    else:
+                        c.copy_(t)
         else:
             caches = parallel.fill_decode_cache(M.init_decode_cache(
-                cfg, pd, 1, s + n_steps, mesh=mesh), kvs, cfg, pd, mesh)
+                cfg, pd, 1, s + steps[i], mesh=mesh), kvs, cfg, pd, mesh)
         del kvs
-        for t in range(n_steps):
+        if cfg.enc_dec:
+            with torch.no_grad():
+                enc = M.encode(params, cfg, pd, batch["enc_frames"],
+                               impl, mesh=mesh)
+            M.fill_cross_cache(params, cfg, pd, caches, enc, mesh=mesh)
+            del enc
+        for t in range(steps[i]):
             tok = torch.from_numpy(forced[t, i:i + 1, None]).to(dev)
             with caps.get(("step", i, t), contextlib.nullcontext()):
                 (lg, caches), ms = timed(lambda: M.decode_step(
-                    params, cfg, pd, tok, caches, s + t, mesh=mesh))
+                    params, cfg, pd, tok, caches, s + t, impl, mesh=mesh))
             out["step_ms"].append(ms)
             out["logits"].append(lg[0, -1].float())
         del caches
@@ -6270,12 +6312,13 @@ def same_dispatch_moe(torch, mlp, plan, shape):
         mlp.moe = orig
 
 
-def moe_summary(torch, tally, cfg, mesh_size: int, shardmap: bool) -> dict:
+def moe_summary(torch, tally, n_moe: int, mesh_size: int, shardmap: bool
+                ) -> dict:
     """One prefill's MoE (``tally`` entered around it): pairs and kept
-    pairs over its layers (a dispatch of all tokens that several shards
-    ran counted once) and its first layer's top-k experts, concatenated
-    over the shards of a shard map."""
-    dup = 1 if shardmap else len(tally.dispatches) // cfg.n_layers
+    pairs over its ``n_moe`` MoE layers (a dispatch of all tokens that
+    several shards ran counted once) and its first MoE layer's top-k
+    experts, concatenated over the shards of a shard map."""
+    dup = 1 if shardmap else len(tally.dispatches) // n_moe
     pairs = sum(p for p, _ in tally.dispatches) // dup
     kept = sum(k for _, k in tally.dispatches) // dup
     first = tally.routes[:mesh_size if shardmap else 1]
@@ -6290,52 +6333,173 @@ def choices_differ(a, b) -> int:
     return int((sa != sb).sum())
 
 
-def phase_model_axis(torch, name: str, shape: dict, seed: int,
+def axis_calls(cfg, size: int, steps) -> tuple[dict, dict]:
+    """Each kernel's launches on one cell's sharded run (sequence ``i``
+    decoded ``steps[i]`` steps), and in one prefill's forward or one
+    step, by the program's order (a layer's shards in turn): kernel 8 / 7
+    on each recurrent layer in every prefill and step; kernel 6 on each
+    attention layer in every prefill (Whisper: its encoder layers, then
+    each decoder layer's self- and cross-attention, then the encoder
+    layers again in the ``encode`` that fills the cross caches); kernel 5
+    on each attention layer in every step (Whisper: self and cross)."""
+    from repro_torch.models.model import layer_kinds
+    kinds = layer_kinds(cfg)
+    rec = kinds.count("rwkv") + kinds.count("mamba")
+    attn = kinds.count("attn") * (2 if cfg.enc_dec else 1)
+    one = {"flash_attention": (attn + cfg.n_enc_layers) * size,
+           "paged_attention": attn * size}
+    total = {"flash_attention": (attn + 2 * cfg.n_enc_layers) * size
+             * len(steps),
+             "paged_attention": attn * size * sum(steps)}
+    if rec:
+        op = "wkv6" if cfg.block == "rwkv" else "mamba_scan"
+        one[op] = rec * size
+        total[op] = rec * size * (len(steps) + sum(steps))
+    return total, one
+
+
+def axis_capture_indices(cfg, size: int) -> dict:
+    """The call indices (within one prefill, or one step) of the first and
+    last layer at the first and last shard, by kernel: a layer's calls
+    are its shards' in order; Whisper's flash calls are its encoder
+    layers' and then, per decoder layer, the self- and cross-attention's,
+    its paged calls per decoder layer self then cross."""
+    from repro_torch.models.model import layer_kinds
+    kinds = layer_kinds(cfg)
+    ends = (0, size - 1)
+
+    def at(firsts):
+        return sorted({f + s for f in firsts for s in ends})
+    out = {}
+    n_rec = kinds.count("rwkv") + kinds.count("mamba")
+    if n_rec:
+        out["wkv6" if cfg.block == "rwkv" else "mamba_scan"] = \
+            at((0, (n_rec - 1) * size))
+    n_attn = kinds.count("attn")
+    if cfg.enc_dec:
+        enc, per = cfg.n_enc_layers * size, 2 * size
+        out["flash_attention"] = at((0, enc - size, enc, enc + size,
+                                     enc + (n_attn - 1) * per,
+                                     enc + (n_attn - 1) * per + size))
+        out["paged_attention"] = at((0, size, (n_attn - 1) * per,
+                                     (n_attn - 1) * per + size))
+    elif n_attn:
+        out["flash_attention"] = out["paged_attention"] = \
+            at((0, (n_attn - 1) * size))
+    return out
+
+
+def rec_full_width(torch, cap, kern, plain, what: str) -> dict:
+    """A recurrence kernel against its plain version on the captured calls
+    (:func:`rec_err`); each call's control runs the plain version from a
+    wrong state (the step's state zeroed; a prefill's zero state planted
+    at 0.1) and must be refused (:func:`rec_control`)."""
+    entry = {"limit": f"{REC_RTOL}*|plain| + {REC_ATOL}*RMS(plain) over "
+                      "each sequence", "shapes": None,
+             "max_abs_err_by_call": {}, "control_wrong_state_by_call": {}}
+    for n, (args, _) in cap.args.items():
+        entry["shapes"] = [list(a.shape) for a in args]
+        k_out = kern(*args)
+        torch.cuda.synchronize()
+        entry["max_abs_err_by_call"][n] = rec_err(
+            f"{what} call {n} at full width", k_out, plain(*args))
+        s0 = args[-1]
+        wrong = torch.zeros_like(s0) if bool(s0.abs().max() > 0) \
+            else torch.full_like(s0, 0.1)
+        entry["control_wrong_state_by_call"][n] = rec_control(
+            f"{what} call {n} from a wrong state", k_out,
+            plain(*args[:-1], wrong))
+    return entry
+
+
+def phase_model_axis(torch, name: str, shape: dict, steps: tuple, seed: int,
                      dev="cuda") -> list:
-    """One cell of the model-axis plan: ``name`` at full width in bf16
-    (random weights from ``seed``, padded by ``make_plan(cfg, shape,
-    ...)`` with a global batch of 1) on ``ModelMesh.virtual(shape)``,
-    through ``ARCH_TRAFFIC`` one sequence at a time (:func:`axis_traffic`):
-    counted; kernel 6's calls of the first prefill and kernel 5's of the
-    first sequence's last step (where KV heads shard), first and last
-    layer at the first and last shard, held to the plain versions by
-    :func:`full_width_checks`. Then the same padded weights off the mesh
-    (logits bounded by ``LM_LOGIT_RTOL``; where the mesh's prefill
-    dispatches the MoE by shard map, the bound is on a run whose MoE takes
-    the same per-shard dispatch, :func:`same_dispatch_moe`, and the plain
-    ``apply_moe`` run's drops and choices are reported beside it), and
-    the unpadded model (views of the padded weights) for time."""
+    """One of ``MODEL_AXIS_CELLS``: ``name`` at full width in bf16 (random
+    weights from ``seed``, padded by ``make_plan(cfg, shape, ...)`` with a
+    global batch of 1; Jamba cut to one period) on
+    ``ModelMesh.virtual(shape)``, through ``MODEL_AXIS_TRAFFIC`` one
+    sequence at a time, sequence ``i`` decoded ``steps[i]`` steps
+    (:func:`axis_traffic`; Whisper: ``WHISPER_AXIS_PROMPTS``, each over
+    its own 1,500 frames ``N(0, 1)``). Counted: every kernel's launches
+    against :func:`axis_calls`. Held at the first and last layer and
+    shard of the first prefill and the first sequence's last step:
+    kernels 6 and 5 by :func:`full_width_checks` (a shard's call holds few
+    heads, so its short-window control drops a 32-slot chunk, the
+    kernel's unit of work, not one key of some 2,000), 8 and 7 by
+    :func:`rec_full_width` (a wrong state refused). Then the same padded
+    weights off the mesh, the logits within ``LM_LOGIT_RTOL`` (where the
+    mesh's prefill dispatches the MoE by shard map, of a run whose MoE
+    takes the same per-shard dispatch, :func:`same_dispatch_moe`, the
+    plain ``apply_moe`` run's drops and choices reported beside it). A
+    recurrent model's bf16 logits, where random weights at full width
+    amplify one rounding over the layers, are held within
+    ``AXIS_WITNESS_FACTOR`` of the unsharded model's own gap to its plain
+    versions (``impl="ref"``), and in float32 within ``RNN_F32_RTOL`` over
+    the whole traffic. The unpadded model (views of the padded weights)
+    runs for time."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ops as mops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention import paged_attention as pk
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import wkv6 as wk
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.mesh import ModelMesh
     from repro_torch.models import mlp
     from repro_torch.models.model import init_params
     from repro_torch.sharding.rules import make_plan, unpadded_plan
     t_phase = time.perf_counter()
-    cfg = get_arch(name)
+    full_cfg = get_arch(name)
+    cfg = full_cfg if name not in MODEL_AXIS_CUT else dataclasses.replace(
+        full_cfg, n_layers=MODEL_AXIS_CUT[name])
     mesh = ModelMesh.virtual(shape, dev)
+    size = mesh.size
     plans = tuple(make_plan(cfg, shape, k, 1) for k in ("prefill", "decode"))
-    prompts, forced = lm_traffic(seed, cfg.vocab_size, ARCH_TRAFFIC)
-    n_steps, size = sum(ARCH_TRAFFIC["steps"]), mesh.size
+    traffic = MODEL_AXIS_TRAFFIC if not cfg.enc_dec else dict(
+        MODEL_AXIS_TRAFFIC, prompts=WHISPER_AXIS_PROMPTS)
+    prompts, forced = lm_traffic(seed, cfg.vocab_size, traffic)
+    check(len(steps) == len(prompts),
+          f"{name}: steps {steps} for {len(prompts)} sequences")
+    frames = None
+    if cfg.enc_dec:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        frames = torch.randn((len(prompts), cfg.enc_seq, cfg.d_model),
+                             generator=g, device=dev)
+    max_seq = 448 if cfg.enc_dec else 4096
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    params, init_ms = timed(lambda: init_params(cfg, plans[0], seed=seed,
-                                                device=dev))
+    params, init_ms = timed(lambda: init_params(
+        cfg, plans[0], seed=seed, device=dev, max_seq=max_seq))
     flat = unpadded_view(torch, params, cfg, plans[0])
+    pbytes = {"param_bytes_padded": tensor_bytes(params),
+              "param_bytes_unpadded": tensor_bytes(flat)}
+    idx = axis_capture_indices(cfg, size)
+    rec_op = {"rwkv": "wkv6", "hybrid": "mamba_scan"}.get(cfg.block)
     by_heads = plans[1].kv_sharded
-    ends = [li * size + s for li in (0, cfg.n_layers - 1)
-            for s in (0, size - 1)]
+    last = ("step", 0, steps[0] - 1)
+    held = {}                       # kernel: its (prefill, step) captures
+    if rec_op:
+        mod = wops if rec_op == "wkv6" else mops
+        held[rec_op] = (Capture(mod, rec_op, idx[rec_op]),
+                        Capture(mod, rec_op, idx[rec_op]))
+    if "flash_attention" in idx:
+        held["flash_attention"] = (Capture(fops, "flash_attention",
+                                           idx["flash_attention"]), None)
+        if by_heads:
+            held["paged_attention"] = (None, Capture(
+                pops, "paged_attention", idx["paged_attention"]))
     tally, tally_off = MoeTally(mlp), MoeTally(mlp)
-    flash_cap = Capture(fops, "flash_attention", ends)
-    caps = {("prefill", 0): both(flash_cap, tally)}
-    if by_heads:
-        caps[("step", 0, n_steps - 1)] = Capture(pops, "paged_attention",
-                                                  ends)
+    caps = {("prefill", 0): [tally] if cfg.moe else [], last: []}
+    for pre, step in held.values():
+        caps[("prefill", 0)] += [] if pre is None else [pre]
+        caps[last] += [] if step is None else [step]
+    caps = {k: both(*v) for k, v in caps.items() if v}
     collectives: dict = {}
     orig = mesh_mod.collective
 
@@ -6348,85 +6512,123 @@ def phase_model_axis(torch, name: str, shape: dict, seed: int,
     mesh_mod.collective = counted
     try:
         sharded = axis_traffic(torch, cfg, plans, params, prompts, forced,
-                               mesh, caps, dev)
+                               steps, mesh, caps, dev, frames)
     finally:
         mesh_mod.collective = orig
     launches = {"flash_attention": fk.launches,
                 "flash_attention[tensor_core]": fk.launches_tensor_core,
-                "paged_attention": pk.launches}
+                "paged_attention": pk.launches, "wkv6": wk.launches,
+                "mamba_scan": mk.launches}
     peak = torch.cuda.max_memory_allocated() - base
-    check(launches["flash_attention"] == cfg.n_layers * size * len(prompts)
-          == launches["flash_attention[tensor_core]"],
-          f"{name} {shape}: flash launches {launches} != {cfg.n_layers} "
-          f"layers x {size} shards x {len(prompts)} prefills, on "
-          "tensor_core")
-    want_paged = cfg.n_layers * size * n_steps * len(prompts) \
-        if by_heads else 0
-    check(launches["paged_attention"] == want_paged,
-          f"{name} {shape}: paged launches {launches['paged_attention']} "
-          f"!= {want_paged}")
-    MODEL_AXIS_LAUNCHES[f"{name} {shape['data']}x{shape['model']}"] = {
-        "flash_attention": launches["flash_attention"],
-        "paged_attention": launches["paged_attention"],
-        "per_shard": {"flash_attention": launches["flash_attention"] // size,
-                      "paged_attention": launches["paged_attention"]
-                      // size}}
-    # a shard's call holds few heads: its paged control drops a 32-slot
-    # chunk (the kernel's unit of work), not one key of some 2,000
-    kernel_caps = {"flash_attention": flash_cap}
-    if by_heads:
-        kernel_caps["paged_attention"] = caps[("step", 0, n_steps - 1)]
-    full = full_width_checks(torch, kernel_caps, ends,
-                             short=dict.fromkeys(ends, 32))
-    for c in kernel_caps.values():
-        check(c.n == (cfg.n_layers * size), f"{name}: captured call count "
-              f"{c.n} != {cfg.n_layers} x {size}")
-    del caps, kernel_caps, flash_cap
+    want, per_call = axis_calls(cfg, size, steps)
+    if not by_heads:
+        want["paged_attention"] = 0
+    for op in ("flash_attention", "paged_attention", "wkv6", "mamba_scan"):
+        check(launches[op] == want.get(op, 0), f"{name} {shape}: {op} "
+              f"launches {launches[op]} != {want.get(op, 0)} "
+              f"({axis_calls.__doc__.split(':')[0]})")
+    check(launches["flash_attention[tensor_core]"] ==
+          launches["flash_attention"], f"{name}: flash off tensor_core")
+    cell = f"{name} {shape['data']}x{shape['model']}"
+    MODEL_AXIS_LAUNCHES[cell] = {
+        **{op: launches[op] for op in want},
+        "per_shard": {op: launches[op] // size for op in want}}
+    full = {}
+    for op, pair in held.items():
+        for when, cap in zip(("prefill", "step"), pair):
+            if cap is None:
+                continue
+            check(cap.n == per_call[op] and set(cap.args) == set(idx[op]),
+                  f"{name} {op} {when}: {cap.n} calls (want "
+                  f"{per_call[op]}), captured {sorted(cap.args)}")
+            if op == rec_op:
+                kern = wk.wkv6_cuda if op == "wkv6" else mk.mamba_scan_cuda
+                plain = wkv6_ref if op == "wkv6" else mamba_scan_ref
+                full[f"{op}.{when}"] = rec_full_width(
+                    torch, cap, kern, plain, f"{name} {op} {when}")
+            else:
+                full.update(full_width_checks(
+                    torch, {op: cap}, idx[op],
+                    short=dict.fromkeys(idx[op], 32)))
+    del caps, held
     unsharded = axis_traffic(torch, cfg, plans, params, prompts, forced,
-                             caps={("prefill", 0): tally_off}, dev=dev)
-    vs = axis_logits_vs(torch, sharded, unsharded)
+                             steps, dev=dev, frames=frames, caps={
+                                 ("prefill", 0): tally_off} if cfg.moe
+                             else None)
+    vs = bounded = axis_logits_vs(torch, sharded, unsharded)
     moe = None
-    bounded = vs
     if cfg.moe:
-        mine = moe_summary(torch, tally, cfg, size, shardmap)
-        theirs = moe_summary(torch, tally_off, cfg, 0, False)
-        moe = {"first_prefill_tokens": len(prompts[0]),
+        n_moe = sum(cfg.is_moe_layer(li % cfg.layer_period)
+                    for li in range(cfg.n_layers))
+        mine = moe_summary(torch, tally, n_moe, size, shardmap)
+        theirs = moe_summary(torch, tally_off, n_moe, 0, False)
+        moe = {"first_prefill_tokens": len(prompts[0]), "moe_layers": n_moe,
                "dispatch": "apply_moe_shardmap" if shardmap else
                "apply_moe over the batch",
                "pairs": mine["pairs"], "kept_sharded": mine["kept"],
                "kept_unsharded_apply_moe": theirs["kept"],
                "layer0_choices_differ": choices_differ(
                    mine["layer0_topk"], theirs["layer0_topk"])}
-        check(mine["pairs"] == theirs["pairs"] == cfg.n_layers * len(
+        check(mine["pairs"] == theirs["pairs"] == n_moe * len(
             prompts[0]) * cfg.moe_top_k, f"MoE pairs {moe}")
         if shardmap:
             with same_dispatch_moe(torch, mlp, plans[0], shape):
                 same = axis_traffic(torch, cfg, plans, params, prompts,
-                                    forced, dev=dev)
+                                    forced, steps, dev=dev, frames=frames)
             bounded = axis_logits_vs(torch, sharded, same)
             moe["vs_unsharded_same_dispatch"] = bounded
             del same
-    check(bounded["max_rel_logit_err"] <= LM_LOGIT_RTOL,
-          f"{name} {shape}: sharded logits {bounded} beyond "
-          f"{LM_LOGIT_RTOL} of the unsharded padded model's")
-    flat_plans = (unpadded_plan(cfg),) * 2
-    unpadded = axis_traffic(torch, cfg, flat_plans, flat, prompts, forced,
-                            dev=dev)
+    witness = vs32 = None
+    if rec_op is None:
+        check(bounded["max_rel_logit_err"] <= LM_LOGIT_RTOL,
+              f"{name} {shape}: sharded logits {bounded} beyond "
+              f"{LM_LOGIT_RTOL} of the unsharded padded model's")
+    else:
+        plain_run = axis_traffic(torch, cfg, plans, params, prompts, forced,
+                                 steps, dev=dev, frames=frames, impl="ref")
+        witness = axis_logits_vs(torch, plain_run, unsharded)
+        del plain_run
+        for key in ("max_rel_logit_err", "mean_rel_logit_err"):
+            check(vs[key] <= AXIS_WITNESS_FACTOR * witness[key],
+                  f"{name} {shape}: sharded bf16 logits' {key} {vs[key]} "
+                  f"beyond {AXIS_WITNESS_FACTOR} x the unsharded model's "
+                  f"own gap to its plain versions, {witness[key]}")
+    unpadded = axis_traffic(torch, cfg, (unpadded_plan(cfg),) * 2, flat,
+                            prompts, forced, steps, dev=dev, frames=frames)
+    if rec_op is not None:          # float32 over the whole traffic
+        del params, flat
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = init_params(cfg32, plans[0], seed=seed, device=dev,
+                          max_seq=max_seq)
+        runs = [axis_traffic(torch, cfg32, plans, p32, prompts, forced,
+                             steps, m, dev=dev, frames=frames)
+                for m in (mesh, None)]
+        vs32 = axis_logits_vs(torch, *runs)
+        check(vs32["max_rel_logit_err"] <= RNN_F32_RTOL,
+              f"{name} {shape}: float32 sharded logits {vs32} beyond "
+              f"{RNN_F32_RTOL} of the unsharded padded model's")
+        del p32, runs
+        params = flat = None
     line = {
         "phase": f"model_axis.{name}.{shape['data']}x{shape['model']}",
         "arch": name, "mesh": shape, "virtual_shards": size,
-        "dtype": cfg.dtype, "reduced": None,
+        "dtype": cfg.dtype,
+        "reduced": None if cfg is full_cfg else
+        f"{cfg.n_layers} of {full_cfg.n_layers} layers: one period",
         "plans": {k: dataclasses.asdict(p) for k, p in
                   zip(("prefill", "decode"), plans)},
         "head_padding": {"q": [cfg.n_heads, plans[0].n_heads_padded],
                          "kv": [cfg.n_kv_heads, plans[0].n_kv_heads_padded],
                          "kv_sharded": plans[0].kv_sharded,
                          "decode_cache": "kv_heads" if by_heads else
-                         "kv_dh"},
-        "param_bytes_padded": tensor_bytes(params),
-        "param_bytes_unpadded": tensor_bytes(flat),
-        "peak_device_bytes": peak, "init_params_ms": init_ms,
-        "traffic": ARCH_TRAFFIC,
+                         "kv_dh",
+                         "vocab": [cfg.vocab_size, plans[0].vocab_padded]},
+        **pbytes, "peak_device_bytes": peak, "init_params_ms": init_ms,
+        "traffic": {"prompts": [len(p) for p in prompts],
+                    "steps": list(steps),
+                    "frames": None if frames is None else
+                    list(frames.shape)},
         "prefill_ms": {"sharded": sharded["prefill_ms"],
                        "unsharded_padded": unsharded["prefill_ms"],
                        "unpadded": unpadded["prefill_ms"]},
@@ -6434,11 +6636,15 @@ def phase_model_axis(torch, name: str, shape: dict, seed: int,
                            (("sharded", sharded),
                             ("unsharded_padded", unsharded),
                             ("unpadded", unpadded))},
-        "launches": launches, "collectives": collectives,
-        "kernels_full_width": full,
+        "launches": launches, "launches_expected": want,
+        "collectives": collectives, "kernels_full_width": full,
         "vs_unsharded_padded": vs, "logit_rtol": LM_LOGIT_RTOL,
-        "moe": moe, "phase_seconds": time.perf_counter() - t_phase}
-    del params, flat, sharded, unsharded, unpadded
+        "moe": moe, "unsharded_vs_plain": witness,
+        "witness_factor": None if witness is None else AXIS_WITNESS_FACTOR,
+        "vs_unsharded_padded_float32": vs32,
+        "float32_logit_rtol": None if vs32 is None else RNN_F32_RTOL,
+        "phase_seconds": time.perf_counter() - t_phase}
+    del params, flat, sharded, unsharded, unpadded, frames
     torch.cuda.empty_cache()
     return [line]
 
@@ -6622,9 +6828,9 @@ def main(argv=None) -> int:
     for name, fn in (("whisper", phase_whisper), ("train", phase_train)):
         for ln in run(name, lambda: fn(torch, args.seed)) or []:
             emit(ln)
-    for name, shape in MODEL_AXIS_CELLS:
+    for name, shape, steps in MODEL_AXIS_CELLS:
         for ln in run(f"model_axis.{name}.{shape['data']}x{shape['model']}",
-                      lambda: phase_model_axis(torch, name, shape,
+                      lambda: phase_model_axis(torch, name, shape, steps,
                                                args.seed)) or []:
             emit(ln)
     for ln in run("model_axis.train",
@@ -6647,10 +6853,12 @@ def main(argv=None) -> int:
                 arch: n[name] for arch, n in ARCH_LAUNCHES.items()}
         if name in rows and WHISPER_LAUNCHES:
             rows[name]["whisper_launches"] = WHISPER_LAUNCHES[name]
+    for name in ("flash_attention", "paged_attention", "wkv6",
+                 "mamba_scan"):
         if name in rows and MODEL_AXIS_LAUNCHES:   # virtual model meshes
             rows[name]["model_axis_launches"] = {
                 cell: {"total": n[name], "per_shard": n["per_shard"][name]}
-                for cell, n in MODEL_AXIS_LAUNCHES.items()}
+                for cell, n in MODEL_AXIS_LAUNCHES.items() if name in n}
     for name in ("paged_attention", "wkv6", "mamba_scan"):
         if name in rows:                # each phase's dense decode
             rows[name]["dense_decode_launches"] = {

@@ -11,7 +11,8 @@ the hybrid Mamba + attention + MoE ``jamba-v0.1-52b`` and the audio
 encoder-decoder ``whisper-base``: every architecture of the reference's
 registry. An unknown name raises ``KeyError``. ``SHAPES`` holds the
 reference's four input shapes (``ShapeConfig``), which a mesh plan and
-``launch.specs`` read.
+``launch.specs`` read; :func:`cell_runnable` says which (arch x shape)
+cells the dry run (``launch.dryrun``) lowers.
 """
 from __future__ import annotations
 
@@ -60,3 +61,15 @@ def get_arch(name: str) -> ModelConfig:
     if name in ARCHS:
         return ARCHS[name]
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+def cell_runnable(arch: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether the dry run lowers this (arch x shape) cell, and else the
+    documented reason (the reference's ``cell_runnable``, reason for
+    reason): ``long_500k`` needs sub-quadratic attention, so it runs for
+    the SSM and hybrid archs and is skipped for pure full-attention
+    ones."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, "long_500k skipped: pure full-attention arch " \
+                      "(O(S^2) attention; see DESIGN.md §5)"
+    return True, ""

@@ -16,6 +16,7 @@ the model shards adds them in their order on the axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -136,14 +137,29 @@ def _identity(arg) -> tuple:
     return (id(arg),)
 
 
+_share = [True]      # False inside :func:`each_shard_alone`
+
+
+@contextlib.contextmanager
+def each_shard_alone():
+    """While entered, :func:`replicated` calls ``fn`` for every shard, as
+    each device of a real mesh runs its own copy (``launch.op_count``
+    counts a device's work so)."""
+    _share.append(False)
+    try:
+        yield
+    finally:
+        _share.pop()
+
+
 def replicated(fn, *lists) -> list:
     """``fn`` over each shard's arguments (``lists[i][s]``), called once
     for each distinct tuple of argument objects: shards that hold the same
     tensors (on one device, replicated over an axis) share the result,
-    which each would compute equal."""
+    which each would compute equal (unless :func:`each_shard_alone`)."""
     memo, out = {}, []
-    for args in zip(*lists):
-        key = tuple(_identity(a) for a in args)
+    for s, args in enumerate(zip(*lists)):
+        key = tuple(_identity(a) for a in args) if _share[-1] else s
         if key not in memo:
             memo[key] = fn(*args)
         out.append(memo[key])

@@ -7,6 +7,13 @@ or ``None`` per dim); a tensor's block on shard ``s`` is, along each dim
 its spec names, chunk ``mesh.position(s, axes)`` of ``mesh.extent(axes)``
 equal chunks. The abstract trees live on the ``meta`` device: shapes and
 dtypes, no storage.
+
+A leaf of ``PARTS`` splits its product's output into equal parts that the
+model uses apart (Mamba's ``w_in`` ``[d, 2 di]`` gives ``xin`` and
+``z``): its block is a tuple, the shard's chunk of each part along the
+last dim, one view a part, so a shard holds ``di/m`` columns of ``xin``
+and its columns of ``z``, where chunk ``s`` of ``2 di`` would hold one
+half only.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from repro_torch.configs import ShapeConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import model as M
+from repro_torch.models.mamba import PARTS
 from repro_torch.sharding.axes import logical_axes, spec_for
 from repro_torch.sharding.rules import ShardPlan
 
@@ -96,21 +104,31 @@ def param_shardings(params, mesh: ModelMesh | None, rules: dict | None
     return specs
 
 
-def block(t: torch.Tensor, spec: tuple, mesh: ModelMesh, s: int
-          ) -> torch.Tensor:
+def parts_of(name: str) -> int:
+    """The parts a parameter's last dim holds (``PARTS``; 1 for most)."""
+    *path, leaf = name.split(".")
+    return PARTS.get(path[-1] if path else "", {}).get(leaf, 1)
+
+
+def block(t: torch.Tensor, spec: tuple, mesh: ModelMesh, s: int,
+          parts: int = 1):
     """Shard ``s``'s block of ``t`` under ``spec``: a view where it stays
     on ``t``'s device (a row block is contiguous, a column block strided),
-    else a copy on the shard's device. Raises ``ValueError`` where an
-    extent does not divide its dim."""
+    else a copy on the shard's device. With ``parts``, the last dim holds
+    ``parts`` equal parts and the block is a tuple: the shard's block of
+    each part. Raises ``ValueError`` where an extent does not divide its
+    dim."""
+    if parts > 1:
+        return tuple(block(c, spec, mesh, s) for c in t.chunk(parts, -1))
     for d, e in enumerate(spec):
         if e is None:
             continue
-        n = mesh.extent(e)
+        n, k = mesh.extent(e), mesh.position(s, e)
         if t.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
                              f"into {n} ({e})")
         size = t.shape[d] // n
-        t = t.narrow(d, mesh.position(s, e) * size, size)
+        t = t.narrow(d, k * size, size)
     return t.to(mesh.devices[s])
 
 
@@ -139,7 +157,7 @@ def shard_params(params, specs: dict, mesh: ModelMesh) -> list:
                     nxt = path[i + 1] if i + 1 < len(path) else None
                     node = node.setdefault(
                         key, [] if nxt is not None and nxt.isdigit() else {})
-            node[leaf] = block(t, specs[name], mesh, s)
+            node[leaf] = block(t, specs[name], mesh, s, parts_of(name))
         out.append(tree)
     return out
 
@@ -164,6 +182,7 @@ def gather_params(shards: list, specs: dict, mesh: ModelMesh) -> dict:
     out = {}
     for name, spec in specs.items():
         *path, leaf = name.split(".")
+        parts = parts_of(name)
         blocks = {}
         for s in range(mesh.size):
             key = tuple(0 if e is None else mesh.position(s, e)
@@ -172,6 +191,13 @@ def gather_params(shards: list, specs: dict, mesh: ModelMesh) -> dict:
                 node = shards[s]
                 for k in path:
                     node = node[int(k)] if k.isdigit() else node[k]
-                blocks[key] = node[leaf].to(mesh.devices[0])
-        out[name] = assemble(blocks, spec)
+                b = node[leaf]
+                blocks[key] = b.to(mesh.devices[0]) if parts == 1 else \
+                    tuple(t.to(mesh.devices[0]) for t in b)
+        if parts == 1:
+            out[name] = assemble(blocks, spec)
+        else:                  # each part put together, then the parts
+            out[name] = torch.cat([assemble(
+                {k: b[i] for k, b in blocks.items()}, spec)
+                for i in range(parts)], -1)
     return out

@@ -424,52 +424,58 @@ def cross_kv(p, cfg: ModelConfig, plan: ShardPlan, enc_out: torch.Tensor):
     """The encoder side's K, V once per sequence: enc_out [B,T,d] -> k, v
     [B,T,Hkv,dh], no RoPE and no qk-norm."""
     b, t, _ = enc_out.shape
-    hkv, dh = plan.n_kv_heads_padded, cfg.head_dim
-    return (dense(p["wk"], enc_out).reshape(b, t, hkv, dh),
-            dense(p["wv"], enc_out).reshape(b, t, hkv, dh))
+    dh = cfg.head_dim
+    return (dense(p["wk"], enc_out).reshape(b, t, -1, dh),
+            dense(p["wv"], enc_out).reshape(b, t, -1, dh))
 
 
-def _cross_out(p, cfg: ModelConfig, plan: ShardPlan, o: torch.Tensor
-               ) -> torch.Tensor:
+def _cross_out(p, cfg: ModelConfig, plan: ShardPlan, o: torch.Tensor,
+               head0: int = 0) -> torch.Tensor:
     """[B,S,Hq,dh] attention output -> head mask, ``wo`` -> [B,S,d]."""
-    b, s = o.shape[:2]
-    o = o * _head_mask(plan, cfg.n_heads, o.device)[None, None, :, None].to(
-        o.dtype)
+    b, s, hq = o.shape[:3]
+    o = o * _head_mask(plan, cfg.n_heads, o.device, head0, hq)[
+        None, None, :, None].to(o.dtype)
     return dense(p["wo"], o.reshape(b, s, -1))
 
 
 def cross_full(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
-               enc_kv: tuple, impl: str = "kernel") -> torch.Tensor:
+               enc_kv: tuple, impl: str = "kernel", head0: int = 0
+               ) -> torch.Tensor:
     """Decoder queries x [B,S,d] over the encoder's precomputed (k, v)
     [B,T,Hkv,dh] (:func:`cross_kv`), non-causal, scale ``dh ** -0.5``, no
     RoPE. The reference computes it with its XLA ``_sdpa`` whatever its
     ``impl``; here ``"kernel"`` runs the flash kernel (TPU kernel 6) with
-    ``Sq = S``, ``Sk = T``, and ``"ref"`` ``mha_ref``."""
+    ``Sq = S``, ``Sk = T``, and ``"ref"`` ``mha_ref``. A model shard
+    passes its weight slices, the K, V it computed (:func:`cross_kv` with
+    its blocks) and ``head0``, as to :func:`gqa_full`."""
     check_impl(impl)
     b, s, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, s, plan.n_heads_padded, cfg.head_dim)
-    k, v = (a.to(q.dtype).transpose(1, 2).contiguous() for a in enc_kv)
+    q = dense(p["wq"], x).reshape(b, s, -1, cfg.head_dim)
+    ka, va = shard_kv(*enc_kv, plan, head0, q.shape[2])
+    k, v = (a.to(q.dtype).transpose(1, 2).contiguous() for a in (ka, va))
     attend = flash_ops.flash_attention if impl == "kernel" else mha_ref
     o = attend(q.transpose(1, 2).contiguous(), k, v, causal=False)
-    return _cross_out(p, cfg, plan, o.transpose(1, 2))
+    return _cross_out(p, cfg, plan, o.transpose(1, 2), head0)
 
 
 def cross_decode(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
                  cross_k: torch.Tensor, cross_v: torch.Tensor,
-                 impl: str = "kernel") -> torch.Tensor:
+                 impl: str = "kernel", head0: int = 0) -> torch.Tensor:
     """:func:`cross_full` for one decoder token x [B,1,d] over the read-only
     cross cache [B,T,Hkv,dh]: the paged kernel (TPU kernel 5) reads it as
-    one page of T slots a sequence, the window ``0 <= slot < T``."""
+    one page of T slots a sequence, the window ``0 <= slot < T``. A model
+    shard whose KV heads shard passes its weight slices, its block of the
+    cross cache and ``head0``."""
     check_impl(impl)
     b, t = cross_k.shape[:2]
-    q = dense(p["wq"], x).reshape(b, plan.n_heads_padded, cfg.head_dim)
+    q = dense(p["wq"], x).reshape(b, -1, cfg.head_dim)
     tables, _, starts, _, _ = dense_window(b, 0, x.device)
     lengths = torch.full_like(starts, t)
     attend = paged_ops.paged_attention if impl == "kernel" \
         else paged_attention_ref
     o = attend(q, cross_k.to(q.dtype), cross_v.to(q.dtype), tables, lengths,
                starts)
-    return _cross_out(p, cfg, plan, o[:, None])
+    return _cross_out(p, cfg, plan, o[:, None], head0)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,11 @@ decode alike: the function of the reference's ``_ssm_sequential`` (its
 ``kernels.mamba_scan.ops.mamba_scan`` (the hand-written kernel on the
 card, the plain version on the CPU); ``"ref"`` names the plain version
 ``mamba_scan_ref`` on any device.
+
+On a model mesh (``models/parallel.py``) the block runs in two parts on
+each shard's ``di/m`` channels, :func:`mamba_in` and :func:`mamba_out`,
+between which the model axis adds the partial sums of ``w_x``'s
+row-parallel product (after which dt, B and C are replicated).
 """
 from __future__ import annotations
 
@@ -28,6 +33,10 @@ from repro_torch.sharding.rules import ShardPlan
 # leaves the reference uses in float32 whatever the activation dtype; the
 # port stores them in float32 too (the others are cast at each use)
 FLOAT32_LEAVES = frozenset({"dt_bias", "a_log", "d"})
+# leaves whose product's output splits into equal parts used apart
+# (``launch.specs.block`` gives a shard one view a part): ``w_in``'s
+# ``xin`` and ``z`` halves
+PARTS = {"mamba": {"w_in": 2}}
 # logical axes of the group's leaves (``sharding.axes.logical_axes``), as
 # the reference's ``init_mamba`` annotates them
 AXES = {"mamba": {"w_in": ("embed", "mlp"), "conv_w": (None, "mlp"),
@@ -77,24 +86,48 @@ def mamba_block(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor,
                 state, impl: str = "kernel"):
     """x [B,S,d]; state = (conv_state [B,K-1,di], h [B,di,n] float32).
     Returns (out [B,S,d], (conv_state, h_T))."""
-    check_impl(impl)
-    di, n, dr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.dt_rank
-    conv_state, h0 = state
-    f32 = torch.float32
-    xin, z = dense(p["w_in"], x).split(di, dim=-1)           # [B,S,di] x 2
+    xc, z, conv_state, xdbc = mamba_in(p, x, state[0])
+    out, h_new = mamba_out(p, cfg, xc, z, xdbc, state[1], impl)
+    return out, (conv_state, h_new)
+
+
+def mamba_in(p, x: torch.Tensor, conv_state: torch.Tensor):
+    """The block up to ``w_x``: (xc [B,S,di], z [B,S,di], the new conv
+    state, xdbc [B,S,dr+2n]). ``w_in``'s ``xin`` and ``z`` halves are two
+    products: a model shard passes its ``di/m`` columns of each as a pair
+    of views (``launch.specs``' ``PARTS``), its ``mlp`` block of the conv
+    and its rows of ``w_x``, and xdbc is then its partial sum."""
+    w = p["w_in"]
+    w_xin, w_z = w if isinstance(w, tuple) else w.chunk(2, dim=-1)
+    xin, z = dense(w_xin, x), dense(w_z, x)                  # [B,S,di] x 2
     xc, conv_state = _causal_conv(xin, p["conv_w"].to(x.dtype),
                                   p["conv_b"].to(x.dtype), conv_state)
     xc = F.silu(xc)
-    dt_r, b_in, c_in = dense(p["w_x"], xc).split([dr, n, n], dim=-1)
+    return xc, z, conv_state, dense(p["w_x"], xc)
+
+
+def mamba_out(p, cfg: ModelConfig, xc: torch.Tensor, z: torch.Tensor,
+              xdbc: torch.Tensor, h0: torch.Tensor, impl: str = "kernel"):
+    """The block from the summed xdbc on: dt, the selective scan (kernel
+    7 for ``impl="kernel"``) from ``h0`` over xc's channels, the gate and
+    ``w_out``. Returns (out [B,S,d], h_T); on a model shard out is its
+    partial sum."""
+    check_impl(impl)
+    n, dr = cfg.mamba_d_state, cfg.dt_rank
+    f32 = torch.float32
+    dt_r, b_in, c_in = xdbc.split([dr, n, n], dim=-1)
     pre = dense(p["w_dt"], dt_r).float() + p["dt_bias"].float()
     delta = torch.logaddexp(pre, torch.zeros((), dtype=f32,
-                                             device=x.device))  # softplus
+                                             device=xc.device))  # softplus
     a = -torch.exp(p["a_log"].float())                       # [di,n] (<0)
-    run = scan_ops.mamba_scan if impl == "kernel" else mamba_scan_ref
+    # on meta tensors both take the kernel's meta route: the plain
+    # recurrence would loop once per token
+    run = scan_ops.mamba_scan if impl == "kernel" or xc.is_meta \
+        else mamba_scan_ref
     y, h_new = run(xc.to(f32), delta, a, b_in.to(f32), c_in.to(f32),
                    p["d"].float(), h0.float())
-    y = y.to(x.dtype) * F.silu(z)
-    return dense(p["w_out"], y), (conv_state, h_new)
+    y = y.to(xc.dtype) * F.silu(z)
+    return dense(p["w_out"], y), h_new
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype, device) -> tuple:

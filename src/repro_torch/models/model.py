@@ -53,10 +53,10 @@ order, as ``forward``'s caches and the paged engine's pools are:
 ``interop.decode_cache_to_numpy`` crosses it to the reference's list per
 period position.
 
-``forward``, ``init_decode_cache`` and ``decode_step`` take ``mesh=`` (a
-``launch.mesh.ModelMesh``) with a plan made for it: the model then runs
-tensor-parallel on the mesh's shards (``models.parallel``), and its
-caches are per shard.
+``forward``, ``encode``, ``init_decode_cache``, ``fill_cross_cache`` and
+``decode_step`` take ``mesh=`` (a ``launch.mesh.ModelMesh``) with a plan
+made for it: every architecture then runs tensor-parallel on the mesh's
+shards (``models.parallel``), and its caches are per shard.
 """
 from __future__ import annotations
 
@@ -251,12 +251,16 @@ def init_params(cfg: ModelConfig, plan: ShardPlan, seed: int = 0,
 
 
 def encode(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
-           frames: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+           frames: torch.Tensor, impl: str = "kernel", mesh=None):
     """Whisper's encoder (the reference's ``_encode``) over the stub's
     frame embeddings [B, T, d]: sinusoid positions added, then each layer
     (``ln1``, non-causal ``gqa_full`` with RoPE as the reference applies
     it, ``ln2``, MLP), then ``ln_post``. Returns [B, T, d] in
-    ``cfg.dtype``."""
+    ``cfg.dtype``; with ``mesh``, each shard's ``[B_l, T, d]``
+    (``models.parallel.encode``)."""
+    if mesh is not None:
+        from repro_torch.models import parallel
+        return parallel.encode(params, cfg, plan, frames, mesh, impl)
     dtype = getattr(torch, cfg.dtype)
     _, t, _ = frames.shape
     x = frames.to(dtype) + sinusoid_positions(
@@ -443,11 +447,16 @@ def init_decode_cache(cfg: ModelConfig, plan: ShardPlan, batch: int,
 
 
 def fill_cross_cache(params: DecoderLM, cfg: ModelConfig, plan: ShardPlan,
-                     caches: dict, enc_out: torch.Tensor) -> dict:
+                     caches, enc_out, mesh=None):
     """Write each decoder layer's cross-attention K, V of ``enc_out``
     [B, enc_seq, d] (:func:`encode`'s output, through
     ``attention.cross_kv``) into Whisper's read-only cross caches, in
-    place; returns ``caches``."""
+    place; returns ``caches``. With ``mesh``, ``caches`` and ``enc_out``
+    are per shard (``models.parallel.fill_cross_cache``)."""
+    if mesh is not None:
+        from repro_torch.models import parallel
+        return parallel.fill_cross_cache(params, cfg, plan, caches, enc_out,
+                                         mesh)
     xk, xv = caches["attn"][2:]
     with torch.no_grad():
         for li, lp in enumerate(params.layers):

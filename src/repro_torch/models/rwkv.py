@@ -13,6 +13,15 @@ any T >= 1 runs.
 version on the CPU); ``"ref"`` names the plain version ``wkv6_ref`` on any
 device. Heads are the plan's ``n_heads_padded`` (equal to the real count
 on one device); padded heads are masked before the output projection.
+
+On a model mesh (``models/parallel.py``) :func:`time_mix` takes a
+shard's head blocks and its first head ``head0`` (the head count comes
+from the weights' shapes): the WKV recurrence, the group norm and the
+mask run on its heads, and ``w_o``'s rows give its partial sum. The
+channel mix splits into :func:`channel_mix_partial` (``w_k``
+column-parallel, ``w_v`` row-parallel) and :func:`channel_mix_gate`
+(the replicated ``w_r``), between which the model axis adds the partial
+sums.
 """
 from __future__ import annotations
 
@@ -94,12 +103,15 @@ def _group_norm(y, scale, bias, h: int, hs: int, eps: float = 1e-5):
 
 
 def time_mix(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor, state,
-             impl: str = "kernel"):
+             impl: str = "kernel", head0: int = 0):
     """RWKV6 time mixing. x [B,S,d]; state = (x_prev [B,1,d],
-    s [B,H,hs,hs] float32). Returns (out [B,S,d], (x[:, -1:], s_T))."""
+    s [B,H,hs,hs] float32). Returns (out [B,S,d], (x[:, -1:], s_T)). A
+    model shard passes its head blocks (``s`` its heads') and ``head0``:
+    out is then its partial sum."""
     check_impl(impl)
     b, s_len, _ = x.shape
-    hs, hp = cfg.rwkv_head_size, plan.n_heads_padded
+    hs = cfg.rwkv_head_size
+    hp = p["w_r"].shape[1] // hs
     x_prev, wkv_state = state
     xs = _token_shift(x, x_prev)
     mu = p["mu"].to(x.dtype)
@@ -112,13 +124,16 @@ def time_mix(p, cfg: ModelConfig, plan: ShardPlan, x: torch.Tensor, state,
     lora = torch.tanh(dense(p["w_lora_a"], xw))
     w_raw = p["w0"].float() + dense(p["w_lora_b"], lora, dtype=f32)
     w = torch.exp(-torch.exp(w_raw)).reshape(b, s_len, hp, hs)  # in (0,1)
-    run = wkv6_ops.wkv6 if impl == "kernel" else wkv6_ref
+    # on meta tensors both take the kernel's meta route: the plain
+    # recurrence would loop once per token
+    run = wkv6_ops.wkv6 if impl == "kernel" or x.is_meta else wkv6_ref
     y32, s_new = run(r.to(f32), k.to(f32), v.to(f32), w, p["u"].float(),
                      wkv_state.float())
     y = y32.to(x.dtype).reshape(b, s_len, hp * hs)
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], hp, hs).to(x.dtype)
     y = y * F.silu(g)
-    mask = (torch.arange(hp, device=x.device) < cfg.n_rwkv_heads).to(y.dtype)
+    mask = (torch.arange(head0, head0 + hp, device=x.device)
+            < cfg.n_rwkv_heads).to(y.dtype)
     y = y * mask.repeat_interleave(hs)[None, None, :]
     return dense(p["w_o"], y), (x[:, -1:], s_new)
 
@@ -135,10 +150,25 @@ def init_channel_mix(gen: torch.Generator, cfg: ModelConfig, device,
 def channel_mix(p, cfg: ModelConfig, x: torch.Tensor, state: torch.Tensor):
     """RWKV channel mixing. state = x_prev [B,1,d]. Returns (out,
     x[:, -1:])."""
-    xs = _token_shift(x, state)
-    mu = p["mu"].to(x.dtype)
-    xk = x + (xs - x) * mu[0]
-    xr = x + (xs - x) * mu[1]
-    k = torch.square(torch.relu(dense(p["w_k"], xk)))
-    out = torch.sigmoid(dense(p["w_r"], xr)) * dense(p["w_v"], k)
+    out = channel_mix_gate(p, x, state) * channel_mix_partial(p, x, state)
     return out, x[:, -1:]
+
+
+def _cm_mixed(p, x: torch.Tensor, state: torch.Tensor, i: int):
+    """The channel mix's token-shift mix ``i`` (0: key, 1: receptance)."""
+    xs = _token_shift(x, state)
+    return x + (xs - x) * p["mu"].to(x.dtype)[i]
+
+
+def channel_mix_partial(p, x: torch.Tensor, state: torch.Tensor
+                        ) -> torch.Tensor:
+    """``relu(xk w_k)^2 w_v``: on a model shard, its ``mlp`` columns of
+    ``w_k`` and rows of ``w_v``, a partial sum."""
+    k = torch.square(torch.relu(dense(p["w_k"], _cm_mixed(p, x, state, 0))))
+    return dense(p["w_v"], k)
+
+
+def channel_mix_gate(p, x: torch.Tensor, state: torch.Tensor
+                     ) -> torch.Tensor:
+    """``sigmoid(xr w_r)``, which multiplies the summed value."""
+    return torch.sigmoid(dense(p["w_r"], _cm_mixed(p, x, state, 1)))

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import sivf_torch
 from repro_torch.configs import ARCHS, get_arch
@@ -72,6 +73,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.sharding.axes, repro_torch.sharding.rules; "
             "import repro_torch.launch.mesh, repro_torch.launch.specs; "
             "import repro_torch.models.parallel; "
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline; "
+            "import repro_torch.launch.op_count; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'sivf')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -153,11 +156,19 @@ def test_unported_archs_raise_naming_their_roadmap_item(name):
                                  small.n_kv_heads, small.head_dim)
 
 
+def fake_cuda(args) -> list:
+    """CUDA tensors of ``args``' shapes and dtypes, made under an entered
+    ``FakeTensorMode`` (no card needed)."""
+    return [torch.empty(a.shape, dtype=a.dtype, device="cuda") for a in args]
+
+
 @pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
 def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
-    """A tensor that does not lie on the CPU (here on the ``meta`` device,
-    as no card is needed to make one) goes to the kernel's wrapper and
-    never to the plain version: an error the wrapper raises propagates."""
+    """A CUDA tensor (a fake one, as no card is needed to make it) goes to
+    the kernel's wrapper and never to the plain version: an error the
+    wrapper raises propagates. A ``meta`` tensor takes the ``meta`` route
+    (neither the wrapper nor the plain version), and the real wrapper
+    refuses a tensor that is not on a CUDA device."""
     class Launched(Exception):
         pass
 
@@ -180,11 +191,12 @@ def test_attention_ops_never_fall_back_off_the_cpu(name, monkeypatch):
                 torch.empty(1, 2, 5, 8))
     monkeypatch.setattr(wrapper, f"{name}_cuda", launch)
     monkeypatch.setattr(ops, ref, plain)
-    with pytest.raises(Launched):
-        getattr(ops, name)(*(a.to("meta") for a in args))
+    with pytest.raises(Launched), FakeTensorMode():
+        getattr(ops, name)(*fake_cuda(args))
+    assert getattr(ops, name)(*(a.to("meta") for a in args)).is_meta
     monkeypatch.undo()
     with pytest.raises(ValueError, match="CUDA"):   # the real wrapper
-        getattr(ops, name)(*(a.to("meta") for a in args))
+        getattr(wrapper, f"{name}_cuda")(*(a.to("meta") for a in args))
 
 
 def test_serve_engine_never_falls_back_off_the_cpu(monkeypatch):
@@ -236,9 +248,9 @@ RECURRENCES = {"wkv6": (wops, wkernel, "wkv6_ref"),
 
 @pytest.mark.parametrize("name", sorted(RECURRENCES))
 def test_recurrence_ops_never_fall_back_off_the_cpu(name, monkeypatch):
-    """A tensor that does not lie on the CPU (here on the ``meta`` device)
-    goes to the kernel's wrapper and never to the plain version; the real
-    wrapper refuses a tensor that is not on a CUDA device."""
+    """A CUDA tensor (a fake one) goes to the kernel's wrapper and never to
+    the plain version; a ``meta`` tensor takes the ``meta`` route; the
+    real wrapper refuses a tensor that is not on a CUDA device."""
     ops, wrapper, ref = RECURRENCES[name]
 
     class Launched(Exception):
@@ -252,12 +264,13 @@ def test_recurrence_ops_never_fall_back_off_the_cpu(name, monkeypatch):
 
     monkeypatch.setattr(wrapper, f"{name}_cuda", launch)
     monkeypatch.setattr(ops, ref, plain)
+    with pytest.raises(Launched), FakeTensorMode():
+        getattr(ops, name)(*fake_cuda(recurrence_args(name)))
     args = [a.to("meta") for a in recurrence_args(name)]
-    with pytest.raises(Launched):
-        getattr(ops, name)(*args)
+    assert all(t.is_meta for t in getattr(ops, name)(*args))
     monkeypatch.undo()
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(ops, name)(*args)
+        getattr(wrapper, f"{name}_cuda")(*args)
 
 
 @pytest.mark.parametrize("name", sorted(RECURRENCES))
@@ -338,7 +351,10 @@ def test_slice_modules_import_nothing_of_the_jax_package():
         port / "sharding" / f"{name}.py"
         for name in ("__init__", "axes", "rules")] + [
         port / "launch" / "mesh.py", port / "launch" / "specs.py",
-        port / "models" / "parallel.py"]
+        port / "models" / "parallel.py"] + [
+        port / "launch" / f"{name}.py"
+        for name in ("dryrun", "roofline", "op_count")] + [
+        port / "kernels" / "_meta.py"]
     for path in new:
         assert path in PORT_FILES
         assert not imported_roots(path) & FORBIDDEN, path

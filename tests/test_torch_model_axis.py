@@ -411,9 +411,11 @@ def test_mesh_train_step_matches_the_reference(name, ref):
     check_step(cfg, state["params"], got_mu, want, "train")
 
 
-def check_step(cfg, params, mu: dict, want, tag: str) -> None:
+def check_step(cfg, params, mu: dict, want, tag: str,
+               mu_tol: dict | None = None) -> None:
     """The updated parameters and first moments (by name) against the
-    reference's ``{tag}_params`` / ``{tag}_mu`` trees."""
+    reference's ``{tag}_params`` / ``{tag}_mu`` trees; the moments within
+    ``TOL`` of each leaf's largest, or ``mu_tol[key]`` where given."""
     tree = flatten(interop.params_to_numpy(cfg, params))
     mu_tree = flatten(interop.params_to_numpy(cfg, _as_module(params, mu)))
     for key, got in tree.items():
@@ -421,8 +423,8 @@ def check_step(cfg, params, mu: dict, want, tag: str) -> None:
         big = np.abs(m_ref) > 1e-3 * max(np.abs(m_ref).max(), 1e-30)
         assert np.abs(got - w)[big].max(initial=0.0) <= TOL, key
         assert np.abs(got - w).max() <= 2.1 * LR, key
-        assert np.abs(mu_tree[key] - m_ref).max() <= TOL * max(
-            np.abs(m_ref).max(), 1e-30), key
+        assert np.abs(mu_tree[key] - m_ref).max() <= (mu_tol or {}).get(
+            key, TOL) * max(np.abs(m_ref).max(), 1e-30), key
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -551,12 +553,27 @@ def test_prefill_caches_fill_the_mesh_decode_cache():
 
 
 def test_mesh_paths_refuse_what_they_do_not_run():
+    """RWKV6 runs on the mesh now (its forward's shape here; its numbers
+    in ``test_torch_model_axis_families.py``). Still refused: Whisper's
+    decode under rules set by hand that keep its KV heads off ``model``
+    (its cross cache would lie on ``head_dim``); a plan not made for the
+    mesh; a batch the data axis does not split."""
     cfg = get_arch("rwkv6-3b").reduced()
     plan = make_plan(cfg, SHAPE, "prefill", B)
-    with pytest.raises(NotImplementedError, match="one device"):
-        M.forward(None, cfg, plan, {"tokens": torch.zeros((2, 4),
-                                                          dtype=torch.int32)},
-                  mesh=MESH)
+    rw = M.init_params(cfg, plan, seed=0, device="cpu", max_seq=MAX_SEQ)
+    with torch.no_grad():
+        logits, _, _ = M.forward(rw, cfg, plan, {
+            "tokens": torch.zeros((2, 4), dtype=torch.int32)}, mesh=MESH)
+    assert logits.shape == (2, 4, plan.vocab_padded)
+    wh = get_arch("whisper-base").reduced()
+    pd = make_plan(wh, SHAPE, "decode", B)
+    r = dict(pd.rules_dict, kv_heads=None, kv_dh="model")
+    hand = dataclasses.replace(pd, rules=tuple(sorted(r.items())))
+    with pytest.raises(NotImplementedError, match="off the KV heads"):
+        M.init_decode_cache(wh, hand, B, MAX_SEQ, mesh=MESH)
+    with pytest.raises(NotImplementedError, match="off the KV heads"):
+        M.decode_step(None, wh, hand, torch.zeros((2, 1), dtype=torch.int32),
+                      None, 0, mesh=MESH)
     cfg = variant("phi3")
     params = params_of("phi3")
     with pytest.raises(ValueError, match="mesh plan"):
