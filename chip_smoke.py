@@ -273,6 +273,7 @@ N_QUERIES, NPROBE, TRAIN_ROWS = 1024, 32, 65536
 N_SEARCH = 6                      # unfiltered search batches per path
 CHECK_QUERIES = 64                # full-size queries held against plain
 RTOL = 1e-5                       # distance tolerance, card vs CPU state
+FP32_LIMIT_SHARE = 0.5            # kernel 1's share of RTOL against float64
 FP32_PEAK = 67e12                 # H100 SXM fp32 (non-tensor) FLOP/s
 SM_COUNT, BOOST_HZ = 132, 1.98e9  # H100 SXM
 LOOKUP_RATE = SM_COUNT * 32 * BOOST_HZ   # 4-byte shared-memory lookups/s
@@ -500,7 +501,8 @@ def phase_build() -> dict:
     keep its ``-Xptxas -v`` spill lines, one per kernel instance; report
     the recurrence kernels', the two fused searches' and the unfused
     pair's registers and spills per instance (the wkv6 instances for
-    dk = 128, prefill and decode, must spill nothing)."""
+    dk = 128, prefill and decode, and every instance of the raw scans,
+    sivf_fused_search and sivf_scan, must spill nothing)."""
     b = _build()
     secs = b.build_all()
     ptxas = {n: [ln.strip() for ln in b.build_log(n).splitlines()
@@ -517,6 +519,12 @@ def phase_build() -> dict:
     check(len(dk128) == 2 and all(
         f.get("spill_stores") == 0 and f.get("spill_loads") == 0
         for f in dk128), f"the wkv6 dk=128 instances spill: {dk128}")
+    raw_scans = fused_usage + unfused_usage["sivf_scan"]
+    check(raw_scans and all(f.get("spill_stores") == 0
+                            and f.get("spill_loads") == 0
+                            for f in raw_scans),
+          f"an instance of sivf_fused_search or sivf_scan spills: "
+          f"{raw_scans}")
     cuobjdump = str(Path(b.nvcc()).parent / "cuobjdump")
     sass = subprocess.run(
         [cuobjdump, "-sass", str(b.library_path("flash_attention"))],
@@ -808,8 +816,10 @@ def scan_edge_checks(torch, rng) -> tuple[list, float]:
     """The unfused scan kernel on each of its routes vs its plain version
     (``==``) on the synthetic pools and tables (``-1`` pads, an empty row,
     dead slots, an empty slab, bit 31 set; L2 and IP; C=32, 128 and 1024;
-    D=128, 37, 16 and 300, the last staged 128 columns at a time on the
-    grouped route; Q*T off the fill tiles' 256), and on an all-pad table;
+    D=128, 37, 16, 300 and 301, the last two staged 128 columns at a time
+    on the grouped route, 301 with 4-byte loads and a tail of one column
+    in the sums' lanes; Q*T off the fill tiles' 256), and on an all-pad
+    table;
     then ``topk`` of its output vs the fused kernel on the same table
     (``==``), at k=10 and at k=64 beyond the live rows."""
     from repro_torch.kernels.sivf_scan import sivf_scan as scan
@@ -820,7 +830,7 @@ def scan_edge_checks(torch, rng) -> tuple[list, float]:
     for metric in ("l2", "ip"):
         for c in (32, 128, 1024):
             for d, q, t in ((128, 33, 12), (37, 8, 5), (16, 4, 3),
-                            (300, 7, 9)):
+                            (300, 7, 9), (301, 7, 9)):
                 p = synthetic_pool(torch, rng, 24, c, d, dead_frac=0.3)
                 table = synthetic_table(rng, 24, q, t)
                 if t == 3:
@@ -1366,6 +1376,17 @@ def row(name, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
             "library_ms": library_ms}
 
 
+def fp32_share(torch, st, queries, d, lab) -> float:
+    """The share of the 1e-5 distance limit (``RTOL``) that kernel 1's
+    float32 L2 distances ``d`` use against the float64 distance of each
+    returned label's row, read from the index's planes ``st``: max
+    ``|d - exact| / (RTOL + RTOL exact)`` over the labels >= 0."""
+    at = lab.clamp(min=0).long()
+    x = st.data[st.att_slab[at].long(), st.att_slot[at].long()].double()
+    exact = (queries.double()[:, None] - x).square().sum(-1)
+    return over_limit(torch, d, exact.masked_fill(lab < 0, float("inf")))
+
+
 def host_sync_checks(torch, call, sleep_cycles: int = 200_000_000) -> dict:
     """Show that ``call()`` (one wrapper call, warmed first) reads no
     device value on the host: once under
@@ -1437,12 +1458,13 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         + args[2:]
     plan = fused.launch_plan(queries, table, st.data, K)
     dp, lp = sivf_fused_search_ref(*sub)
-    err = 0.0
+    err, shares = 0.0, {}
     for route in fused.ROUTES:                   # both routes, held alike
         dk, lk = fused.search_route(route, *sub)
         torch.cuda.synchronize()
         err = max(err, check_equal(f"fused full size/{route}", dk, lk, dp,
                                    lp))
+        shares[route] = fp32_share(torch, st, sub[0], dk, lk)
     # the plain version on all queries (timed once), and the wrapper's own
     # route held to it there: the scan's chunks hold up to 16 queries only
     # at the path's batch size
@@ -1452,7 +1474,11 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     dk, lk = sivf_fused_search_cuda(*args)
     err = max(err, check_equal("fused full size, all queries", dk, lk,
                                *full.pop()))
+    shares["all_queries"] = fp32_share(torch, st, queries, dk, lk)
     del dk, lk
+    check(max(shares.values()) <= FP32_LIMIT_SHARE,
+          f"fused full size: share of the 1e-5 limit against float64 "
+          f"{shares} > {FP32_LIMIT_SHARE}")
     syncs = host_sync_checks(torch, lambda: sivf_fused_search_cuda(*args))
     scratch = call_bytes(torch, lambda: sivf_fused_search_cuda(*args),
                          plan["scratch_bytes"], N_QUERIES * K * 8)
@@ -1481,11 +1507,13 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
     rows = [row("sivf_fused_search", src, rep,
                 main["launches"]["sivf_fused_search"], err, ms, plain_ms,
                 bytes_once, flops, hbm)]
-    rows[0].update(kernel_route=plan["route"], **scratch)
+    rows[0].update(kernel_route=plan["route"], **scratch,
+                   registers_and_spills=route_usage("sivf_fused_search",
+                                                    "grouped_scan_kernel"))
     lines = [{"phase": "fused_full_size",
               "queries_checked": {"default_route": N_QUERIES,
                                   **{r: CHECK_QUERIES for r in fused.ROUTES}},
-              "max_abs_err": err,
+              "max_abs_err": err, "fp32_limit_share": shares,
               "launches": main["launches"]["sivf_fused_search"],
               "route": plan["route"], "scratch": scratch,
               "shape": {"Q": N_QUERIES, "T": int(table.shape[1]), "C": c,
@@ -1508,12 +1536,13 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         fs, fc = compiled(torch, pred)
         kw = dict(attrs=st.attrs, fstruct=fs, fconsts=fc)
         dp, lp = sivf_fused_search_ref(*sub, **kw)
-        ferr = 0.0
+        ferr, fshares = 0.0, {}
         for route in fused.ROUTES:
             dk, lk = fused.search_route(route, *sub, **kw)
             torch.cuda.synchronize()
             ferr = max(ferr, check_equal(f"fused[{name}] full size/{route}",
                                          dk, lk, dp, lp))
+            fshares[route] = fp32_share(torch, st, sub[0], dk, lk)
         full = []
         fplain_ms = cuda_ms(
             lambda: full.append(sivf_fused_search_ref(*args, **kw)), reps=1,
@@ -1522,6 +1551,10 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         dk, lk = sivf_fused_search_cuda(*args, **kw)
         ferr = max(ferr, check_equal(f"fused[{name}] full size, all queries",
                                      dk, lk, dp, lp))
+        fshares["all_queries"] = fp32_share(torch, st, queries, dk, lk)
+        check(max(fshares.values()) <= FP32_LIMIT_SHARE,
+              f"fused[{name}] full size: share of the 1e-5 limit against "
+              f"float64 {fshares} > {FP32_LIMIT_SHARE}")
         check(torch.equal(lp, main["filtered"][name].labels),
               f"fused[{name}]: Index.search labels differ from the plain "
               "version's")
@@ -1540,10 +1573,12 @@ def phase_full_size(torch, hbm: float, main: dict) -> tuple[list, list]:
         if name == REPRESENTATIVE:
             entry.update(kernel_route=plan["route"], **call_bytes(
                 torch, lambda: sivf_fused_search_cuda(*args, **kw),
-                plan["scratch_bytes"], N_QUERIES * K * 8))
+                plan["scratch_bytes"], N_QUERIES * K * 8),
+                         registers_and_spills=route_usage(
+                             "sivf_fused_search", "grouped_scan_kernel"))
             rows.append(entry)
         by_sel[name] = {"ms": fms, "vs_unfiltered": fms / ms,
-                        "max_abs_err": ferr,
+                        "max_abs_err": ferr, "fp32_limit_share": fshares,
                         "passing_slots_scored": fn["passing_slots_scored"],
                         "bound_ms": entry["bound_ms"],
                         "bound_by": entry["bound_by"],
@@ -6011,12 +6046,16 @@ def phase_baselines(torch, wl: dict, dev="cuda") -> list:
             got["vs_probed_exact"] = {
                 "max_abs_dist_err": err, "tie_groups": ties,
                 "dist_err_over_limit": over_limit(torch, res.distances, od)}
-            got["sivf_vs_probed_exact"] = {   # a reading: kernel 1's rounding
+            got["sivf_vs_probed_exact"] = {   # kernel 1's rounding
                 "max_abs_dist_err": errs[1],
                 "rows_with_other_labels": int((sivf_res.labels.to(dev) != ol
                                                ).any(1).sum()),
                 "dist_err_over_limit": over_limit(torch, sivf_res.distances,
                                                   od)}
+            share = got["sivf_vs_probed_exact"]["dist_err_over_limit"]
+            check(share <= FP32_LIMIT_SHARE,
+                  f"SIVF's distances use {share} of the 1e-5 limit against "
+                  f"probed_exact (> {FP32_LIMIT_SHARE})")
             got["vs_sivf"] = {
                 "tie_gap": gap, "tie_groups": swaps,
                 "rows_with_other_labels": int((res.labels != sivf_res.labels

@@ -13,10 +13,20 @@ batches; then ``--queries`` queries of the same mixture searched at k 10,
 nprobe 32 by the reference (``core.search(impl="xla")``) and by the
 port's plain fused fold (``kernels.sivf_scan.ops.sivf_fused_search`` on
 CPU tensors, the function kernel 1 is held to bit for bit) over the
-reference's own planes and tables. Each returned distance is held to the
-float64 distance of its (query, row) pair; the share of the limit used is
-printed for both, with the labels' agreement. About 3 GB of memory and a
-few minutes::
+reference's own planes and tables. The fold sums ``q . x`` and
+``||q||^2`` over d in eight float32 lanes, term d into lane d mod 8, then
+the lanes pairwise (``ref.dot_lanes``); XLA's dot sums in its own
+blocks. Each returned distance is held to the float64 distance of its
+(query, row) pair; the share of the limit used (the largest, and the
+mean) is printed for both, with the labels' agreement. The script also
+prints, for each order of ``ORDERS``, the shares the fold would use if
+it summed ``q . x`` and ``||q||^2`` in that order, emulated in numpy on
+the same rows with the pool's stored norms: ``L`` lanes (term d into
+lane d mod L, the lanes then added pairwise), or blocks of ``B`` terms
+(each block summed in one chain from ``+0.0`` and added into a running
+total: two accumulators a query). Eight lanes is the port's own order,
+and the script checks that its emulation equals the fold bit for bit.
+About 3 GB of memory and a few minutes::
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/fp32_distance_error.py
 """
@@ -29,13 +39,52 @@ import time
 import numpy as np
 
 RTOL = 1e-5                      # chip_smoke.RTOL
+# Emulated orders of the float32 sum over d: ("lanes", L) or ("blocks", B).
+ORDERS = (("lanes", 1), ("lanes", 2), ("lanes", 4), ("lanes", 8),
+          ("lanes", 16), ("blocks", 8), ("blocks", 16), ("blocks", 32))
+
+
+def share(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| / (RTOL + RTOL |want|) at the finite ``want``."""
+    fin = np.isfinite(want)
+    return (np.abs(got.astype(np.float64) - want)
+            / (RTOL + RTOL * np.abs(want)))[fin]
 
 
 def over_limit(got: np.ndarray, want: np.ndarray) -> float:
     """max |got - want| / (RTOL + RTOL |want|) over finite ``want``."""
-    fin = np.isfinite(want)
-    return float((np.abs(got.astype(np.float64) - want)
-                  / (RTOL + RTOL * np.abs(want)))[fin].max())
+    return float(share(got, want).max())
+
+
+def lane_sum(q: np.ndarray, x: np.ndarray, lanes: int) -> np.ndarray:
+    """float32 ``q . x`` over the last axis in ``lanes`` lanes (a power of
+    two): term d into lane d mod lanes, one rounded product and one
+    rounded sum a term, then the lanes added pairwise."""
+    acc = [np.zeros(np.broadcast_shapes(q.shape, x.shape)[:-1], np.float32)
+           for _ in range(lanes)]
+    for d in range(x.shape[-1]):
+        acc[d % lanes] = acc[d % lanes] + q[..., d] * x[..., d]
+    while len(acc) > 1:
+        acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
+    return acc[0]
+
+
+def block_sum(q: np.ndarray, x: np.ndarray, block: int) -> np.ndarray:
+    """float32 ``q . x`` over the last axis in blocks of ``block`` terms:
+    each block summed in one chain from +0.0 (one rounded product and one
+    rounded sum a term), then added into a running total from +0.0."""
+    total = np.zeros(np.broadcast_shapes(q.shape, x.shape)[:-1], np.float32)
+    for b0 in range(0, x.shape[-1], block):
+        part = np.zeros_like(total)
+        for d in range(b0, min(b0 + block, x.shape[-1])):
+            part = part + q[..., d] * x[..., d]
+        total = total + part
+    return total
+
+
+def emulated_sum(q: np.ndarray, x: np.ndarray, order) -> np.ndarray:
+    kind, n = order
+    return lane_sum(q, x, n) if kind == "lanes" else block_sum(q, x, n)
 
 
 def main(argv=None) -> int:
@@ -89,9 +138,28 @@ def main(argv=None) -> int:
         exact = ((q64[:, None, :] - rows) ** 2).sum(-1)
         exact[lab < 0] = np.inf
         out[name] = {"dist_err_over_limit": over_limit(d, exact),
+                     "mean_err_over_limit": float(share(d, exact).mean()),
                      "max_abs_err": float(np.abs(d - exact)[
                          np.isfinite(exact)].max())}
     out["labels_equal_share"] = float((np.asarray(rl) == pl.numpy()).mean())
+    lab = pl.numpy()
+    live = lab >= 0
+    rows = base[np.clip(lab, 0, None)]                      # [Q, k, D]
+    exact = ((q64[:, None, :] - rows.astype(np.float64)) ** 2).sum(-1)
+    exact[~live] = np.inf
+    at = np.clip(lab, 0, None)
+    norms = np.asarray(state.norms)[np.asarray(state.att_slab)[at],
+                                    np.asarray(state.att_slot)[at]]
+    for order in ORDERS:
+        dot = emulated_sum(queries[:, None, :], rows, order)
+        qq = emulated_sum(queries, queries, order)[:, None]
+        d = (qq - np.float32(2.0) * dot) + norms
+        name = f"emulated_{order[1]}_{order[0]}"
+        out[name] = {"dist_err_over_limit": over_limit(d, exact),
+                     "mean_err_over_limit": float(share(d, exact).mean())}
+        if order == ("lanes", 8):
+            out["emulated_8_lanes_equals_port"] = bool(
+                np.array_equal(d[live], pd.numpy()[live]))
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out))
     return 0

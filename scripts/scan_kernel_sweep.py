@@ -43,7 +43,11 @@ too. At Q = 16 .. 256 a call is mostly host time, so each variant's call
 is also captured in a CUDA graph and its replays timed the same way
 (``graph_ms``: the device's time). Before it is timed, each variant is held
 to the plain version (``==`` on distances and labels) on the first 64
-queries, unfiltered and at 10 %. For ``pq`` the set-up line also gives a
+queries, unfiltered and at 10 %; for ``raw`` each variant's distances on
+all queries, unfiltered and at 10 %, are read against the float64
+distances of the rows they label (``fp32_limit_share``, the share of the
+1e-5 limit used: ``chip_smoke.fp32_share``). For ``pq`` the set-up line
+also gives a
 digest of the codebooks trained on the card and the index's recall@10, so
 that runs at one seed show whether training repeats itself.
 
@@ -241,6 +245,7 @@ def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
     import torch
     sys.path[:0] = [str(ROOT), str(tree / "src")]
     import chip_smoke as cs
+    import sivf_torch  # noqa: F401  (the core first: the kernels import it)
     from repro_torch.kernels import _build
     from repro_torch.kernels.sivf_scan import ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -292,6 +297,12 @@ def sweep(tree: Path, kernel: str, seed: int, reps: int) -> int:
                 torch.cuda.synchronize()
                 cs.check_equal(f"{vname} {sorted(kw)}", dk, lk, dp, lp)
             line["held_to_plain"] = True
+            if kernel == "raw":     # all queries, against float64
+                line["fp32_limit_share"] = {
+                    name: cs.fp32_share(torch, st, rows, *fn(
+                        rows, table, *planes, cs.K, **kw))
+                    for name, kw in (("unfiltered", {}), (
+                        cs.REPRESENTATIVE, filters[cs.REPRESENTATIVE]))}
             ms, gms = {}, {}
             for q in cs.SWEEP_QUERIES:
                 a = (rows[:q], table[:q].contiguous()) + planes

@@ -8,8 +8,9 @@
 // [Q, k] distances and labels, and the grouped route's scratch (below),
 // reach device memory. The arithmetic is the plain version's
 // (kernels/sivf_scan/ref.py) in the same order with the same roundings
-// (dot_row.cuh: each product and each sum rounded on its own, in index
-// order over d), so distances agree bit for bit.
+// (dot_row.cuh: term d of a sum over d into lane d mod 8 of eight float32
+// accumulators, each product and each sum rounded on its own, the lanes
+// combined pairwise), so distances agree bit for bit.
 //
 // What the result is. The reference folds its table row column by column
 // into a running top-k whose merge row is [running k | C candidates in
@@ -46,12 +47,14 @@
 //        next one's record read while this one is scored). A block
 //        compacts the slab's live (and, filtered, passing: the predicate
 //        runs once per slot for the whole batch) slots in slot order while
-//        the chunk's query rows are copied to shared memory; then each
-//        thread streams one live row through its own cp.async ring and
-//        keeps one accumulator per query (the queries' loads are warp
-//        broadcasts), through all of d in order; one instantiation for
-//        each count of queries. Then a warp selects each of its entries' k
-//        smallest under (d, position): rounds of warp minima on an
+//        the chunk's query rows are copied to shared memory; then the
+//        live rows are scored 32 at a time (slab_plan.cuh's score_chunk:
+//        the pass's rows staged in shared memory, a row a lane of each
+//        warp, warp w summing two of the eight lanes of every query, the
+//        query loads broadcasts to the warp, the warps' pairs added in
+//        shared memory; one instantiation for each count of queries).
+//        Then a warp selects each of its
+//        entries' k smallest under (d, position): rounds of warp minima on an
 //        order-preserving key (-0.0 keyed as +0.0), its entries' rounds
 //        side by side, each row of k written at once.
 //     3. merge: a block per query compacts its live table columns and
@@ -277,13 +280,16 @@ __device__ __forceinline__ void select_entries(
 __host__ __device__ constexpr size_t grouped_smem_bytes(int cap) {
   return sizeof(float) * ((size_t)kEntries * kQd +
                           (size_t)kEntries * (cap + 1) +
-                          (size_t)kThreads * kRingStride) +
+                          (size_t)kScoreFloats) +
          2 * sizeof(int) * (size_t)cap;
 }
 
 // 2. The scan: a chunk is up to kEntries entries of one slab.
+// 5 blocks an SM (96 registers a thread): fewer measured slower; the
+// filtered IP instance spills at 96, so it takes 4.
 template <bool kL2, bool kFiltered>
-__global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
+__global__ void __launch_bounds__(kThreads, kL2 || !kFiltered ? 5 : 4)
+    grouped_scan_kernel(
     const float* __restrict__ queries, const float* __restrict__ data,
     const int* __restrict__ ids, const float* __restrict__ norms,
     const int* __restrict__ bitmap, const int* __restrict__ attrs,
@@ -300,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
   float* dist = qs + kEntries * kQd;                // [kEntries][dstride]
   int* live = reinterpret_cast<int*>(dist + kEntries * dstride);  // [cap]
   int* labs = live + cap;                           // [cap] live rows' ids
-  float* ring = reinterpret_cast<float*>(labs + cap);  // [kThreads][kRingStride]
+  float* sm = reinterpret_cast<float*>(labs + cap);  // [kScoreFloats]
   __shared__ int s_ent[kEntries];
   __shared__ float s_qq[kEntries];
   __shared__ int s_warp[kWarps];
@@ -323,8 +329,7 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
     // the first kQd columns of the chunk's query rows, copied while the
     // slots are compacted
     const int len0 = min(kQd, d_dim);
-    stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0,
-                  vec4);
+    stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0);
     if (tid < ne) {
       const int e = entries[info.y + tid];
       s_ent[tid] = e;
@@ -360,44 +365,13 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
     int4 next = make_int4(-1, 0, 0, 0);             // read while scoring
     if (tid == 0 && c_next < total) next = chunks[c_next];
 
-    // thread tid scores live row r0 + tid against the chunk's queries,
-    // streaming the row from device memory; the queries' columns are
-    // staged kQd at a time (once a chunk when D <= kQd)
-    for (int r0 = 0; r0 < n_live; r0 += kRows) {
-      const int nr = min(kRows, n_live - r0);
-      const size_t slot = row0 + live[min(r0 + tid, n_live - 1)];
-      const float* x = data + slot * d_dim;
-      const int lab = ids[slot];
-      const float nrm = kL2 ? norms[slot] : 0.f;
-      float acc[kEntries];
-#pragma unroll
-      for (int i = 0; i < kEntries; ++i) acc[i] = 0.f;
-      for (int d0 = 0; d0 < d_dim; d0 += kQd) {
-        const int len = min(kQd, d_dim - d0);
-        if (d_dim > kQd && (d0 > 0 || r0 > 0)) {   // the next columns
-          __syncthreads();                          // done with the buffer
-          stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, d0,
-                        len, vec4);
-          cp_async_wait_all();
-          __syncthreads();
-        }
-        if (warp * 32 < nr) {                       // uniform per warp
-          float* my_ring = ring + tid * kRingStride;
-          if (vec4)
-            score_rows<true>(ne, x + d0, len, qs, my_ring, acc);
-          else
-            score_rows<false>(ne, x + d0, len, qs, my_ring, acc);
-        }
-      }
-      if (tid < nr) {
-        const int r = r0 + tid;
-        labs[r] = lab;
-#pragma unroll
-        for (int i = 0; i < kEntries; ++i)
-          if (i < ne)
-            dist[i * dstride + r] = sivf::distance<kL2>(s_qq[i], acc[i], nrm);
-      }
-    }
+    // the live rows scored against the chunk's queries (slab_plan.cuh)
+    for (int r = tid; r < n_live; r += kThreads) labs[r] = ids[row0 + live[r]];
+    score_chunk(ne, queries, entries + info.y, t_len, d_dim, data, row0, live,
+                n_live, vec4, qs, sm, [&](int j, int r, float dot) {
+                  dist[j * dstride + r] = sivf::distance<kL2>(
+                      s_qq[j], dot, kL2 ? norms[row0 + live[r]] : 0.f);
+                });
     __syncthreads();
     select_entries<kWarpEntries>(dist, dstride, ne, n_live, k, labs, s_ent,
                                  part_d, part_l);
@@ -552,10 +526,9 @@ extern "C" int sivf_fused_search_grouped_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const Scratch w = carve(scratch, n_queries, t_len, n_slabs, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte cp.async of payload and query rows: both 16-byte aligned
+  // 8-byte cp.async of payload rows: 16-byte aligned rows
   const bool vec4 = (d_dim % 4 == 0) &&
-                    (reinterpret_cast<size_t>(data) % 16 == 0) &&
-                    (reinterpret_cast<size_t>(queries) % 16 == 0);
+                    (reinterpret_cast<size_t>(data) % 16 == 0);
   auto* fn = metric_l2 ? (attrs ? &launch_grouped<true, true>
                                 : &launch_grouped<true, false>)
                        : (attrs ? &launch_grouped<false, true>

@@ -27,12 +27,12 @@
 //        next item's record read while this one is worked on), two kinds
 //        spread evenly over one sequence so that an SM mixes them:
 //        - a chunk: the slab's live slots are compacted in slot order while
-//          the chunk's query rows and ||q||^2 are staged; each thread
-//          streams one live row through its cp.async ring and keeps one
-//          accumulator per query (slab_plan.cuh's scoring); the distances
-//          land in shared memory in slot order (dead slots +inf, their
-//          labels -1), and each entry's C distances and labels are written
-//          as 16-byte stores, C * 4 contiguous bytes a plane;
+//          the chunk's query rows and ||q||^2 are staged; the live rows
+//          are scored 32 at a time (slab_plan.cuh's score_chunk); the
+//          distances land in shared memory in slot order
+//          (dead slots +inf, their labels -1), and each entry's C distances
+//          and labels are written as 16-byte stores, C * 4 contiguous
+//          bytes a plane;
 //        - a fill tile: kFill consecutive table entries, whose rows are
 //          contiguous in the outputs; the tile's table entries are read at
 //          once, then the rows of those outside [0, n_slabs) (not in the
@@ -133,15 +133,16 @@ __device__ __forceinline__ int4 item_of(long long w, long long n_chunks,
 }
 
 // Shared memory of the grouped kernel: staged query columns, the chunk's
-// distances, labels and live slots, and the rings.
+// distances, labels and live slots, and the scoring's rows and pairs.
 constexpr size_t grouped_smem_bytes(int cap) {
   return sizeof(float) * ((size_t)kEntries * kQd + (size_t)kEntries * cap +
-                          (size_t)kThreads * kRingStride) +
+                          (size_t)kScoreFloats) +
          2 * sizeof(int) * (size_t)cap;
 }
 
+// 5 blocks an SM (96 registers a thread): fewer measured slower.
 template <bool kL2>
-__global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
+__global__ void __launch_bounds__(kThreads, 5) grouped_scan_kernel(
     const float* __restrict__ queries, const int* __restrict__ table,
     const float* __restrict__ data, const int* __restrict__ ids,
     const float* __restrict__ norms, const int* __restrict__ bitmap,
@@ -155,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
   float* dist = qs + kEntries * kQd;                // [kEntries][cap]
   int* labs = reinterpret_cast<int*>(dist + kEntries * cap);   // [cap]
   int* live = labs + cap;                           // [cap] live slots
-  float* ring = reinterpret_cast<float*>(live + cap);  // [kThreads][kRingStride]
+  float* sm = reinterpret_cast<float*>(live + cap);  // [kScoreFloats]
   __shared__ int s_ent[kEntries];
   __shared__ float s_qq[kEntries];
   __shared__ int s_warp[kWarps];
@@ -201,8 +202,7 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
       const int slab = info.x, ne = info.z;
       const size_t row0 = (size_t)slab * cap;
       const int len0 = min(kQd, d_dim);
-      stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0,
-                    vec4);
+      stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim, 0, len0);
       if (tid < ne) {
         const int e = entries[info.y + tid];
         s_ent[tid] = e;
@@ -237,41 +237,13 @@ __global__ void __launch_bounds__(kThreads) grouped_scan_kernel(
       __syncthreads();
       // the next item's record, read while this chunk is scored
       if (tid == 0) nxt = item_of(w_next, nc, total, chunks);
-      // thread tid scores live row r0 + tid against the chunk's queries;
-      // the queries' columns are staged kQd at a time (once a chunk when
-      // D <= kQd)
-      for (int r0 = 0; r0 < n_live; r0 += kRows) {
-        const int nr = min(kRows, n_live - r0);
-        const int c = live[min(r0 + tid, n_live - 1)];
-        const float* x = data + (row0 + c) * d_dim;
-        const float nrm = kL2 ? norms[row0 + c] : 0.f;
-        float acc[kEntries];
-#pragma unroll
-        for (int i = 0; i < kEntries; ++i) acc[i] = 0.f;
-        for (int d0 = 0; d0 < d_dim; d0 += kQd) {
-          const int len = min(kQd, d_dim - d0);
-          if (d_dim > kQd && (d0 > 0 || r0 > 0)) {   // the next columns
-            __syncthreads();                          // done with the buffer
-            stage_queries(qs, queries, entries + info.y, ne, t_len, d_dim,
-                          d0, len, vec4);
-            cp_async_wait_all();
-            __syncthreads();
-          }
-          if (warp * 32 < nr) {                       // uniform per warp
-            float* my_ring = ring + tid * kRingStride;
-            if (vec4)
-              score_rows<true>(ne, x + d0, len, qs, my_ring, acc);
-            else
-              score_rows<false>(ne, x + d0, len, qs, my_ring, acc);
-          }
-        }
-        if (tid < nr) {
-#pragma unroll
-          for (int i = 0; i < kEntries; ++i)
-            if (i < ne)
-              dist[i * cap + c] = sivf::distance<kL2>(s_qq[i], acc[i], nrm);
-        }
-      }
+      // the live rows scored against the chunk's queries (slab_plan.cuh)
+      score_chunk(ne, queries, entries + info.y, t_len, d_dim, data, row0,
+                  live, n_live, vec4, qs, sm, [&](int j, int r, float dot) {
+                    const int c = live[r];
+                    dist[j * cap + c] = sivf::distance<kL2>(
+                        s_qq[j], dot, kL2 ? norms[row0 + c] : 0.f);
+                  });
       __syncthreads();
       // each entry's row of C distances and labels, 16 bytes a store
       for (int i = tid; i < ne * c4; i += kThreads) {
@@ -392,10 +364,9 @@ extern "C" int sivf_scan_grouped_launch(
   float* rest;
   const Plan p = carve_plan(scratch, n_queries, t_len, n_slabs, &rest);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte cp.async of payload and query rows: both 16-byte aligned
+  // 8-byte cp.async of payload rows: 16-byte aligned rows
   const bool vec4 = (d_dim % 4 == 0) &&
-                    (reinterpret_cast<size_t>(data) % 16 == 0) &&
-                    (reinterpret_cast<size_t>(queries) % 16 == 0);
+                    (reinterpret_cast<size_t>(data) % 16 == 0);
   auto* fn = metric_l2 ? &launch_grouped<true> : &launch_grouped<false>;
   return fn(queries, table, data, ids, norms, bitmap, out_d, out_l,
             n_queries, t_len, n_slabs, cap, d_dim, words, vec4, p, s);

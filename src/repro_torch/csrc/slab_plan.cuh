@@ -12,11 +12,15 @@
 // every output is keyed by (q, t). An entry outside [0, n_slabs) is not in
 // the plan.
 //
-// The scoring streams one slab row a thread through the thread's own
-// cp.async ring and keeps one accumulator per query of the chunk, the
-// queries' columns staged kQd at a time in shared memory; each product and
-// each sum is rounded on its own, in index order over d (dot_row.cuh's
-// arithmetic), so both kernels agree with the plain versions bit for bit.
+// The scoring (score_chunk) takes a chunk's live rows kPassRows at a time,
+// a row a lane of every warp: the pass's rows and the queries' columns are
+// staged kQd columns at a time in shared memory, and warp w sums lanes 2w
+// and 2w + 1 of dot_row.cuh's eight (term d into lane d mod 8), a float2
+// of accumulators per query of the chunk; each product and each sum is
+// rounded on its own. Each thread adds its two lanes, and the four warps'
+// pairs are added pairwise in shared memory, so both kernels agree with
+// the plain versions bit for bit. A warp's lanes read the same query
+// columns (one broadcast a load) and each its own row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,10 +36,16 @@ namespace group {
 constexpr int kThreads = 128;            // scan block: 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kEntries = 16;             // (q, t) entries of one chunk, at most
-constexpr int kRows = kThreads;          // live rows scored at once: one a thread
-constexpr int kQd = 128;                 // query columns staged at a time
-constexpr int kRing = 2;                 // float4 of a row in flight (cp.async)
-constexpr int kRingStride = 4 * kRing + 4;   // a thread's ring, padded (floats)
+constexpr int kQd = 128;                 // columns staged at a time
+static_assert(kQd % 16 == 0, "a staged column keeps its lane, d mod 8, "
+              "and its place in a block of 16");
+static_assert(kWarps == 4, "warp w sums lanes 2w and 2w + 1 of eight");
+constexpr int kPassRows = 32;            // live rows scored at once: a lane's
+constexpr int kXs = kQd + 4;             // a staged row's stride (floats)
+// the scoring's shared memory after the staged queries (floats): the
+// pass's rows [kPassRows][kXs], the warps' lane pairs
+// [kWarps][kEntries][kPassRows]
+constexpr int kScoreFloats = kPassRows * kXs + kWarps * kEntries * kPassRows;
 constexpr int kPlanThreads = 256;
 
 // The plan's device scratch, the head of each grouped route's workspace
@@ -79,7 +89,8 @@ inline Plan carve_plan(void* base, int n_queries, int t_len, int n_slabs,
   return p;
 }
 
-// 1a. Live entries per slab, and ||q||^2 of every query (in index order).
+// 1a. Live entries per slab, and ||q||^2 of every query (dot_row.cuh's
+// order).
 __global__ void plan_count(const int* __restrict__ table, long long n_entries,
                            int n_slabs, int* __restrict__ counts,
                            const float* __restrict__ queries, int n_queries,
@@ -182,8 +193,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
                    smem_addr(dst)), "l"(src) : "memory");
 }
 
@@ -192,120 +203,150 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                    smem_addr(dst)), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
-// acc[j] += q_j . x for the chunk's first kQ queries over `len` columns in
-// index order, each product and sum rounded on its own (dot_row.cuh);
-// x: this thread's row from the staged columns' first on, qs: [kEntries]
-// [kQd] staged query columns, zero from len to a multiple of 4.
-//  * kRingPath (16-byte aligned rows, len % 4 == 0): the row streams
-//    through this thread's ring of kRing float4 in shared memory by
-//    cp.async, each a commit group; only this thread reads its ring, so
-//    waiting on its own groups is enough: kRing copies in flight, no
-//    registers held for them.
-//  * otherwise: 4-byte loads, the next four columns read while these are
-//    used, zero past len (a zero times a zero adds +0.0, which leaves every
-//    sum as it is: a sum from +0.0 is never -0.0).
-template <bool kRingPath, int kQ>
-__device__ __forceinline__ void score_row(const float* __restrict__ x,
-                                          int len, const float* qs,
-                                          float* ring,
-                                          float (&acc)[kEntries]) {
-  auto add = [&](const float4 a, int i) {
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(qs + j * kQd + 4 * i);
-      float s = acc[j];
-      s = __fadd_rn(s, __fmul_rn(v.x, a.x));
-      s = __fadd_rn(s, __fmul_rn(v.y, a.y));
-      s = __fadd_rn(s, __fmul_rn(v.z, a.z));
-      s = __fadd_rn(s, __fmul_rn(v.w, a.w));
-      acc[j] = s;
-    }
-  };
-  const int n4 = (len + 3) >> 2;
-  if constexpr (kRingPath) {
-#pragma unroll
-    for (int u = 0; u < kRing; ++u) {
-      if (u < n4) cp_async16(ring + 4 * u, x + 4 * u);
-      cp_async_commit();
-    }
-    for (int i = 0; i < n4; ++i) {
-      cp_async_wait<kRing - 1>();        // copy i has landed
-      float* slot = ring + 4 * (i % kRing);
-      add(*reinterpret_cast<const float4*>(slot), i);
-      if (i + kRing < n4) cp_async16(slot, x + 4 * (i + kRing));
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-  } else {
-    auto load = [&](int i) {
-      const int c = 4 * i;
-      return make_float4(c < len ? __ldg(x + c) : 0.f,
-                         c + 1 < len ? __ldg(x + c + 1) : 0.f,
-                         c + 2 < len ? __ldg(x + c + 2) : 0.f,
-                         c + 3 < len ? __ldg(x + c + 3) : 0.f);
-    };
-    float4 cur = load(0);
-    for (int i = 0; i < n4; ++i) {
-      const float4 nxt = load(i + 1);
-      add(cur, i);
-      cur = nxt;
-    }
-  }
+// Where column c of a block of staged columns lies: in each block of 16,
+// warp w's four (2w, 2w + 1, 8 + 2w, 9 + 2w) side by side, so that one
+// 16-byte load gives a warp's lane its two lanes of two groups of eight.
+__device__ __forceinline__ int staged_at(int c) {
+  return (c & ~15) | (((c >> 1) & 3) << 2) | (((c >> 3) & 1) << 1) | (c & 1);
 }
 
-// score_row<ne>: one instantiation for each count of queries.
-template <bool kRingPath, int kQ = kEntries>
-__device__ __forceinline__ void score_rows(int ne, const float* __restrict__ x,
-                                           int len, const float* qs,
-                                           float* ring,
-                                           float (&acc)[kEntries]) {
-  if constexpr (kQ > 1) {
-    if (ne < kQ) {
-      score_rows<kRingPath, kQ - 1>(ne, x, len, qs, ring, acc);
-      return;
-    }
-  }
-  score_row<kRingPath, kQ>(x, len, qs, ring, acc);
-}
-
-// Copy columns [d0, d0 + len) of the query rows of `ne` entries (each
-// q * T + t) into qs [kEntries][kQd], asynchronously, and zero the columns
-// from len to a multiple of 4 (the caller waits, then syncs).
-__device__ __forceinline__ void stage_queries(
-    float* qs, const float* __restrict__ queries,
-    const int* __restrict__ entries, int ne, int t_len, int d_dim, int d0,
-    int len, bool vec4) {
+// Copy columns [d0, d0 + len) of the pass's nr rows (row i: slab row
+// row0 + live[i]) into xs [kPassRows][kXs] at staged_at, asynchronously,
+// and zero the columns from len to a multiple of 16 (the caller waits,
+// then syncs). vec4: the rows 16-byte aligned and d_dim % 4 == 0.
+__device__ __forceinline__ void stage_rows(float* xs,
+                                           const float* __restrict__ data,
+                                           size_t row0, const int* live,
+                                           int nr, int d_dim, int d0, int len,
+                                           bool vec4) {
   const int tid = threadIdx.x;
   if (vec4) {
     const int w4 = len >> 2;
-    for (int i = tid; i < ne * w4; i += kThreads) {
+    for (int i = tid; i < nr * w4; i += kThreads) {
       const int r = i / w4, c = 4 * (i - r * w4);
-      cp_async16(qs + r * kQd + c,
-                 queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
+      const float* src = data + (row0 + live[r]) * d_dim + d0 + c;
+      float* row = xs + r * kXs;
+      cp_async8(row + staged_at(c), src);
+      cp_async8(row + staged_at(c + 2), src + 2);
     }
   } else {
-    for (int i = tid; i < ne * len; i += kThreads) {
+    for (int i = tid; i < nr * len; i += kThreads) {
       const int r = i / len, c = i - r * len;
-      cp_async4(qs + r * kQd + c,
-                queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
+      cp_async4(xs + r * kXs + staged_at(c),
+                data + (row0 + live[r]) * d_dim + d0 + c);
     }
   }
-  const int pad = ((len + 3) & ~3) - len;
+  const int pad = ((len + 15) & ~15) - len;
+  for (int i = tid; i < nr * pad; i += kThreads)
+    xs[(i / pad) * kXs + staged_at(len + i % pad)] = 0.f;
+}
+
+// acc[j] += lanes 2w and 2w + 1 of q_j . x over `len` staged columns for
+// the chunk's first kQ queries, x this lane's row of xs: in each block of
+// 16 columns, group 2b's two columns, then group 2b + 1's, each product
+// and sum rounded on its own (dot_row.cuh). A column past len adds 0 * 0
+// to its lane, which leaves it as it is.
+template <int kQ>
+__device__ __forceinline__ void score_pass(const float* qs, const float* xs,
+                                           int len, float2 (&acc)[kEntries]) {
+  const int w4 = 4 * (threadIdx.x >> 5);
+  const float* x = xs + (threadIdx.x & 31) * kXs + w4;
+  for (int b = 0; b < ((len + 15) >> 4); ++b) {
+    const float4 a = *reinterpret_cast<const float4*>(x + 16 * b);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(qs + j * kQd + 16 * b + w4);
+      acc[j].x = __fadd_rn(acc[j].x, __fmul_rn(v.x, a.x));
+      acc[j].y = __fadd_rn(acc[j].y, __fmul_rn(v.y, a.y));
+      acc[j].x = __fadd_rn(acc[j].x, __fmul_rn(v.z, a.z));
+      acc[j].y = __fadd_rn(acc[j].y, __fmul_rn(v.w, a.w));
+    }
+  }
+}
+
+// score_pass<ne>: one instantiation for each count of queries.
+template <int kQ = kEntries>
+__device__ __forceinline__ void score_pass_n(int ne, const float* qs,
+                                             const float* xs, int len,
+                                             float2 (&acc)[kEntries]) {
+  if constexpr (kQ > 1) {
+    if (ne < kQ) {
+      score_pass_n<kQ - 1>(ne, qs, xs, len, acc);
+      return;
+    }
+  }
+  score_pass<kQ>(qs, xs, len, acc);
+}
+
+// Copy columns [d0, d0 + len) of the query rows of `ne` entries (each
+// q * T + t) into qs [kEntries][kQd] at staged_at, asynchronously, and
+// zero the columns from len to a multiple of 16 (the caller waits, then
+// syncs).
+__device__ __forceinline__ void stage_queries(
+    float* qs, const float* __restrict__ queries,
+    const int* __restrict__ entries, int ne, int t_len, int d_dim, int d0,
+    int len) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ne * len; i += kThreads) {
+    const int r = i / len, c = i - r * len;
+    cp_async4(qs + r * kQd + staged_at(c),
+              queries + (size_t)(entries[r] / t_len) * d_dim + d0 + c);
+  }
+  const int pad = ((len + 15) & ~15) - len;
   for (int i = tid; i < ne * pad; i += kThreads)
-    qs[(i / pad) * kQd + len + i % pad] = 0.f;
+    qs[(i / pad) * kQd + staged_at(len + i % pad)] = 0.f;
+}
+
+// Score a chunk of `ne` entries (entries[i]: q * T + t) of one slab against
+// its n_live live rows (row i: slab row row0 + live[i]) in passes of
+// kPassRows rows, and emit(j, i, dot) for each entry j and live row i.
+// qs [kEntries][kQd]: columns [0, min(kQd, d_dim)) of the entries' query
+// rows staged (or in flight) by stage_queries; the other columns are
+// staged here. sm: kScoreFloats floats, 16-byte aligned. Called by every
+// thread of the block; emit runs after a sync, and the caller syncs before
+// it reads what emit wrote.
+template <class Emit>
+__device__ __forceinline__ void score_chunk(
+    int ne, const float* __restrict__ queries, const int* entries, int t_len,
+    int d_dim, const float* __restrict__ data, size_t row0, const int* live,
+    int n_live, bool vec4, float* qs, float* sm, Emit emit) {
+  float* xs = sm;                                  // [kPassRows][kXs]
+  float* pairs = sm + kPassRows * kXs;             // [kWarps][kEntries][kPassRows]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int r0 = 0; r0 < n_live; r0 += kPassRows) {
+    const int nr = min(kPassRows, n_live - r0);
+    float2 acc[kEntries];
+#pragma unroll
+    for (int j = 0; j < kEntries; ++j) acc[j] = make_float2(0.f, 0.f);
+    for (int d0 = 0; d0 < d_dim; d0 += kQd) {
+      const int len = min(kQd, d_dim - d0);
+      __syncthreads();                             // xs, qs, pairs are free
+      if (d_dim > kQd && (d0 > 0 || r0 > 0))       // the next query columns
+        stage_queries(qs, queries, entries, ne, t_len, d_dim, d0, len);
+      stage_rows(xs, data, row0, live + r0, nr, d_dim, d0, len, vec4);
+      cp_async_wait_all();
+      __syncthreads();
+      if (lane < nr) score_pass_n(ne, qs, xs, len, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < kEntries; ++j)
+      if (j < ne)
+        pairs[(warp * kEntries + j) * kPassRows + lane] =
+            __fadd_rn(acc[j].x, acc[j].y);
+    __syncthreads();
+    constexpr int kW = kEntries * kPassRows;       // a warp's pairs
+    for (int i = tid; i < ne * nr; i += kThreads) {
+      const int j = i / nr, r = i - j * nr;
+      const float* p = pairs + j * kPassRows + r;
+      emit(j, r0 + r,
+           __fadd_rn(__fadd_rn(p[0], p[kW]), __fadd_rn(p[2 * kW], p[3 * kW])));
+    }
+  }
 }
 
 }  // namespace group

@@ -29,9 +29,12 @@ not ``-1`` and, for a filtered search, its attributes pass the compiled
 predicate (``core/filters.py``); anything else scores ``+inf`` / ``-1``
 before the fold, so it never displaces a passing row.
 
-Raw scores: dot products and ``||q||^2`` are summed in index order, one
-rounded product and one rounded sum per term (:func:`dot_in_order`).
-ADC scores: the ``m`` table lookups are summed in ascending subspace
+Raw scores: dot products and ``||q||^2`` are summed over d in eight
+float32 lane accumulators ``a0..a7``, each from ``+0.0``: term ``d`` goes
+into lane ``d mod 8``, one rounded product and one rounded sum per term
+(no fused multiply-add), and the result is ``((a0 + a1) + (a2 + a3)) +
+((a4 + a5) + (a6 + a7))`` (:func:`dot_lanes`). ADC scores: the ``m``
+table lookups are summed in ascending subspace
 order starting from the ``s = 0`` term. The CUDA kernels do the same
 arithmetic in the same order, so each agrees with its plain version bit
 for bit on every device; the reference's raw ``einsum`` sums in another
@@ -45,12 +48,22 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core.filters import eval_structure
 
 
-def dot_in_order(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``q [Q, D]`` . ``x [Q, C, D]`` -> ``[Q, C]``, summed over d in order."""
-    acc = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
-    for i in range(x.shape[2]):
-        acc = acc + q[:, i:i + 1] * x[:, :, i]
-    return acc
+def dot_lanes(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``q [Q, D]`` . ``x [Q, C, D]`` -> ``[Q, C]`` in eight lanes: term
+    ``d`` into lane ``d mod 8`` (the lanes of a group of eight columns step
+    together: one product and one sum a term; the lanes past ``D`` stay
+    ``+0.0``), then ``((a0 + a1) + (a2 + a3)) + ((a4 + a5) + (a6 + a7))``."""
+    d = x.shape[2]
+    acc = torch.zeros((*x.shape[:2], 8), dtype=torch.float32,
+                      device=x.device)
+    for i in range(0, d - 7, 8):
+        acc = acc + q[:, None, i:i + 8] * x[:, :, i:i + 8]
+    r = d % 8
+    if r:
+        acc[..., :r] = acc[..., :r] + q[:, None, d - r:] * x[:, :, d - r:]
+    acc = acc[..., 0::2] + acc[..., 1::2]
+    acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc[..., 0] + acc[..., 1]
 
 
 def adc_in_order(adc: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -118,12 +131,12 @@ def _scan_topk(score, table: torch.Tensor, ids: torch.Tensor,
 def _raw_score(queries: torch.Tensor, data: torch.Tensor,
                norms: torch.Tensor, metric: str):
     """``score(sc)`` of the raw fp32 scans: L2 ``||q||^2 - 2 q.x + ||x||^2``,
-    IP ``-q.x``, each sum in index order (:func:`dot_in_order`)."""
+    IP ``-q.x``, each sum over d in eight lanes (:func:`dot_lanes`)."""
     qf = queries.to(torch.float32)
-    qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
+    qq = dot_lanes(qf, qf.unsqueeze(1))                        # [Q, 1]
 
     def score(sc):
-        dot = dot_in_order(qf, data[sc].to(torch.float32))
+        dot = dot_lanes(qf, data[sc].to(torch.float32))
         return qq - 2.0 * dot + norms[sc] if metric == "l2" else -dot
 
     return score
@@ -220,7 +233,7 @@ def sivf_fused_search_split_ref(queries: torch.Tensor, table: torch.Tensor,
     kk = min(k, c)
     offsets, entries = plan(table, n_slabs)
     qf = queries.to(torch.float32)
-    qq = dot_in_order(qf, qf.unsqueeze(1))                     # [Q, 1]
+    qq = dot_lanes(qf, qf.unsqueeze(1))                        # [Q, 1]
     part_d = torch.full((qn * t_len, kk), torch.inf, dtype=torch.float32,
                         device=table.device)
     part_l = torch.full((qn * t_len, kk), -1, dtype=torch.int32,
@@ -234,7 +247,7 @@ def sivf_fused_search_split_ref(queries: torch.Tensor, table: torch.Tensor,
         if fstruct is not None:
             ok &= predicate_mask(attrs[s], fstruct, fconsts)
         x = data[s].to(torch.float32).expand(len(e), c, -1)
-        dot = dot_in_order(qf[q], x)                           # [n, C]
+        dot = dot_lanes(qf[q], x)                              # [n, C]
         d = qq[q] - 2.0 * dot + norms[s] if metric == "l2" else -dot
         sd, idx = torch.sort(torch.where(ok, d, torch.inf), dim=1,
                              stable=True)

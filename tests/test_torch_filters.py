@@ -8,7 +8,8 @@
     and the same compiled predicate go through the reference's XLA scans
     and the port's (the plain versions the CUDA kernels equal bit for
     bit). Raw payloads: labels ``==``, distances allclose(rtol=atol=1e-5)
-    (the port sums dot products in index order). PQ: fed the reference's
+    (the port sums dot products in eight lanes over d, the reference in
+    XLA's blocks). PQ: fed the reference's
     ADC table, distances and labels ``==``. Every node type, a nested
     ``And``, a predicate no row passes and k beyond the passing rows;
   * the ``Index``: filtered recall@10 is 1.0 against the

@@ -7,13 +7,12 @@ The chip workload's construction at a small size: rows of a mixture of
 queries of the same mixture searched at k 10, nprobe 32 by the
 reference (``core.search(impl="xla")``) and by the port's fused fold on
 CPU tensors over the reference's planes and tables (the function kernel
-1 is held to bit for bit). Labels ``==``. The share of the 1e-5 distance
-limit each uses against float64 shows the open fault: the fold sums
-``q . x`` in index order, one float32 accumulator, where XLA's dot sums
-in blocks, so the port's error is about three times the reference's
-(0.887 against 0.313 at 1M rows, 256 queries; kernel 1 reached 1.049 on
-the card). When the fault is repaired, this test turns into a bound of
-the port's share by the reference's.
+1 is held to bit for bit). Labels ``==``, and the port's share of the
+1e-5 distance limit against float64 is at most the reference's. The fold
+sums ``q . x`` and ``||q||^2`` in eight float32 lanes over d
+(``ref.dot_lanes``); while it summed in index order in one accumulator
+it used about three times the reference's share (0.887 against 0.313 at
+1M rows, 256 queries; kernel 1 reached 1.049 on the card).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +33,7 @@ def share_of_limit(d, lab, base, queries) -> float:
                   / (RTOL + RTOL * exact))[ok].max())
 
 
-def test_fused_fold_uses_more_of_the_limit_than_the_reference():
+def test_fused_fold_uses_no_more_of_the_limit_than_the_reference():
     rng = np.random.default_rng(0)
     centres = rng.normal(scale=3.0, size=(256, 128)).astype(np.float32)
     x = centres[rng.integers(0, 256, 20_016)] + rng.normal(
@@ -60,5 +59,5 @@ def test_fused_fold_uses_more_of_the_limit_than_the_reference():
     assert np.array_equal(np.asarray(rl), pl.numpy())
     ref = share_of_limit(np.asarray(rd), np.asarray(rl), base, queries)
     port = share_of_limit(pd.numpy(), pl.numpy(), base, queries)
-    assert ref < 0.5 and port < 1.0, (ref, port)
-    assert port > 2 * ref, (ref, port)        # the open fault
+    assert ref < 0.5, (ref, port)
+    assert port <= ref, (ref, port)

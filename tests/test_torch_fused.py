@@ -9,7 +9,8 @@ names ``pltpu.TPUCompilerParams``, which that version no longer has.)
 They also go through the port's ``sivf_fused_search`` on CPU tensors: its
 plain version, the function the CUDA kernel is held to bit for bit on
 the card. Labels ``==``; distances allclose(rtol=atol=1e-5), since the
-port sums dot products in index order and the reference does not.
+port sums dot products in eight lanes over d (``ref.dot_lanes``) and the
+reference in XLA's blocks.
 Tables stay tiny (Q <= 8, T <= 16).
 """
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import parity
+import sivf_torch  # noqa: F401  (the core first: the kernels import it)
 from repro import core as jcore
 from repro.kernels.sivf_scan import ops as jops
 from repro_torch.kernels.sivf_scan import fused, ops, ref
@@ -110,14 +112,55 @@ def test_cuda_route_refuses_cpu_tensors():
             torch.zeros((4, 32)), torch.zeros((4, 1), dtype=torch.int32), 5)
 
 
-def test_dot_in_order_matches_sequential_sum(rng):
-    q = rng.normal(size=(3, 7)).astype(np.float32)
-    x = rng.normal(size=(3, 5, 7)).astype(np.float32)
-    got = ref.dot_in_order(torch.from_numpy(q), torch.from_numpy(x)).numpy()
-    want = np.zeros((3, 5), np.float32)
-    for i in range(7):
-        want = want + q[:, i:i + 1] * x[:, :, i]
-    assert np.array_equal(got, want)
+def eight_lane_dot(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """``q [Q, D]`` . ``x [Q, C, D]`` in float32, one term at a time: term
+    ``d`` into lane ``d mod 8`` of eight accumulators from ``+0.0``, then
+    ``((a0 + a1) + (a2 + a3)) + ((a4 + a5) + (a6 + a7))``."""
+    a = [np.zeros(x.shape[:2], np.float32) for _ in range(8)]
+    for d in range(q.shape[1]):
+        a[d % 8] = a[d % 8] + q[:, d:d + 1] * x[:, :, d]
+    return (((a[0] + a[1]) + (a[2] + a[3]))
+            + ((a[4] + a[5]) + (a[6] + a[7])))
+
+
+@pytest.mark.parametrize("dim", [1, 3, 4, 7, 128, 130, 301])
+def test_dot_lanes_matches_eight_lane_emulation(rng, dim):
+    """The tails (D mod 8 != 0, some of them past a whole float4) and D
+    past the 128 columns the grouped route stages at a time."""
+    q = rng.normal(size=(3, dim)).astype(np.float32)
+    x = rng.normal(scale=3.0, size=(3, 5, dim)).astype(np.float32)
+    got = ref.dot_lanes(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, eight_lane_dot(q, x))
+    qq = ref.dot_lanes(torch.from_numpy(q), torch.from_numpy(q)[:, None])
+    assert np.array_equal(qq.numpy(), eight_lane_dot(q, q[:, None]))
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_fold_distances_take_the_eight_lane_order(rng, metric):
+    """Every distance the fold returns is ``-q.x`` (IP) or ``(||q||^2 -
+    2 q.x) + ||x||^2`` (L2) of its row with both sums in the eight-lane
+    order, bit for bit (D = 37: a tail of five columns)."""
+    n_slabs, c, dim, k = 6, 32, 37, 40
+    data = rng.normal(size=(n_slabs, c, dim)).astype(np.float32)
+    norms = (data ** 2).sum(-1).astype(np.float32)
+    ids = np.arange(n_slabs * c, dtype=np.int32).reshape(n_slabs, c)
+    bitmap = np.full((n_slabs, c // 32), -1, np.int32)     # every slot live
+    qs = rng.normal(size=(5, dim)).astype(np.float32)
+    table = rng.integers(0, n_slabs, (5, 3)).astype(np.int32)
+    d, lab = ops.sivf_fused_search(
+        torch.from_numpy(qs), torch.from_numpy(table), torch.from_numpy(data),
+        torch.from_numpy(ids), torch.from_numpy(norms),
+        torch.from_numpy(bitmap), k, metric=metric)
+    d, lab = d.numpy(), lab.numpy()
+    assert (lab >= 0).all()
+    rows = data.reshape(-1, dim)[lab]                       # [Q, k, D]
+    dot = eight_lane_dot(qs, rows)
+    if metric == "ip":
+        want = -dot
+    else:
+        qq = eight_lane_dot(qs, qs[:, None])
+        want = (qq - np.float32(2.0) * dot) + norms.reshape(-1)[lab]
+    assert np.array_equal(d, want)
 
 
 # ---------------------------------------------------------------------------

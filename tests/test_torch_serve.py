@@ -576,16 +576,39 @@ def test_maintenance_requests_bump_the_epoch(rng):
         assert eng.stats()["maintenance_passes"] == 1
 
 
+def tile_working_sets(index) -> list[int]:
+    """Distinct slabs of a tile whose queries all probe list ``l``, for
+    each ``l`` at nprobe 1: a tile pads to its bucket with zero rows, which
+    probe the list nearest the origin, so a tiered search of it must hold
+    that list's chain beside ``l``'s."""
+    from repro_torch.core import index as ix
+    from repro_torch.core import quantizer
+    st = index.state
+    pad = quantizer.probe(st.centroids, torch.zeros((1, DIM)), 1)
+    out = []
+    for lst in range(NL):
+        lists = torch.cat([torch.tensor([[lst]], dtype=torch.int32), pad])
+        table = ix.gather_tables(index.cfg, st, lists)
+        out.append(int(torch.unique(table[table >= 0]).numel()))
+    return out
+
+
 def test_tiered_engine_evicts_between_tiles_and_equals_all_resident(rng):
     """Tiles of different (k, filter) groups each probe one list (their
     queries sit on its centroid); the frames hold about two lists' slabs,
     so each tile's prefetch evicts frames of the tiles before it, and
-    every result is ``==`` the all-resident engine's."""
+    every result is ``==`` the all-resident engine's. Every tile's working
+    set (its list's chain and the zero pad rows' list's) fits the 16
+    frames before each cycle: the centroids come from a seeded generator,
+    not from the process's global one, whose state depends on the tests
+    that ran before this one."""
     cfg = dict(dim=DIM, n_lists=NL, n_slabs=96, capacity=32, n_max=8192,
                attributes=("tenant",))
     ids = np.arange(1600, dtype=np.int32)
     vecs = rng.normal(size=(1600, DIM)).astype(np.float32)
-    cents = sivf_torch.train_kmeans(torch.from_numpy(vecs), NL).numpy()
+    cents = sivf_torch.train_kmeans(
+        torch.from_numpy(vecs), NL,
+        generator=torch.Generator().manual_seed(0)).numpy()
     seed = sivf_torch.Index(sivf_torch.SIVFConfig(**cfg), cents,
                             device="cpu", min_bucket=8)
     seed.add(vecs, ids, attrs={"tenant": ids % 3})
@@ -614,6 +637,7 @@ def test_tiered_engine_evicts_between_tiles_and_equals_all_resident(rng):
                 reqs.append(("ingest", "add", (vecs[:64] + 0.5, ids[:64]),
                              {"attrs": {"tenant": ids[:64] % 3}}))
                 reqs.append(("ingest", "remove", ids[500:560], {}))
+            assert max(tile_working_sets(tiered)) <= 16
             ev0 = rt.evictions.total
             a, b = (cycle(e, reqs) for e in engines)
             for (_, op, _, _), x, y in zip(reqs, a, b):
