@@ -46,11 +46,16 @@ leading shard axis), any checkpoint loading onto any shard count, and
 (``core/maintenance.py``), atomically across a mesh's shards.
 
 Every handle records into a ``repro_torch.obs.Telemetry`` (the process
-default, disabled until ``sivf_torch.telemetry.enable()``, unless given
-``telemetry=``): the ``mutation.dispatch``, ``mutation.flush``,
-``maintenance.op`` and ``index.search`` spans, mutation and maintenance
-row counters, and the launch signatures :meth:`Index.compile_stats`
-counts.
+default unless given ``telemetry=``) while it records: enabled
+(``sivf_torch.telemetry.enable()``) or under a ``torch.profiler``
+session. It records the ``mutation.dispatch``, ``mutation.flush``,
+``maintenance.op`` and ``index.search`` spans, each call's root from its
+entry to its return, with the single-device path's stages inside
+(``probe`` / ``tables`` / ``adc`` / ``scan``; ``assign`` / ``stage`` /
+``decide`` / ``commit``; ``delete``; ``report``), the device-launching
+ones timed on the card; mutation and maintenance row counters, the slabs
+allocated and reclaimed, and the launch signatures
+:meth:`Index.compile_stats` counts.
 
 The reference's ``impl`` / ``block_q`` (TPU kernel and tiling choices)
 have no counterpart: the tensor's device picks the scan path.
@@ -83,6 +88,7 @@ from repro_torch.core.state import (
     clear_error as _clear_error,
     init_state,
 )
+from repro_torch.obs.trace import Span
 from repro_torch.utils import resolve_device
 
 
@@ -269,13 +275,13 @@ def _or_bits(err: torch.Tensor) -> torch.Tensor:
 
 
 _AUX_SCALARS = ("n_requested", "n_live_before", "errors", "n_live_after",
-                "n_overwritten")
+                "n_overwritten", "n_reclaimed")
 
 
 def _resolve_aux(auxes: list[dict]) -> list[dict]:
     """Copy a queue of device aux dicts to the host in ONE transfer.
 
-    Every aux value is int32 (five scalars a batch, plus a mesh's
+    Every aux value is int32 (six scalars a batch, plus a mesh's
     per-shard error vector ``shard_errors``), so the whole queue
     concatenates into one flat tensor crossing in a single ``.cpu()``,
     however long the queue.
@@ -304,16 +310,20 @@ class _SingleOps:
     """Single-device insert/delete/search with report accounting.
 
     The aux dict returned next to the new state holds *device* scalars
-    only; nothing is copied to the host until the handle resolves a report
-    (at once in eager mode, at ``flush()`` in deferred mode). An insert
-    still reads its commit decision on the host (``index._insert_impl``);
-    with ``want_plan`` (the tiered pool) it also returns the commit's plan,
-    on the device, for the host-store replay.
+    (``_AUX_SCALARS``: ``n_reclaimed`` counts the slabs the batch freed);
+    nothing is copied to the host until the handle resolves a report (at
+    once in eager mode, at ``flush()`` in deferred mode). An insert still
+    reads its commit decision on the host, and its aux carries the slabs
+    that commit took off the free stack as a host int
+    (``slabs_allocated``); with ``want_plan`` (the tiered pool) it also
+    returns the commit's plan, on the device, for the host-store replay.
+    Each op runs its stages under ``tel``'s spans, timed on the device.
     """
 
-    def __init__(self, cfg: SIVFConfig, use_tables: bool | None):
+    def __init__(self, cfg: SIVFConfig, use_tables: bool | None, tel):
         self.cfg = cfg
         self.use_tables = use_tables
+        self.tel = tel
 
     def _pre(self, state: SlabPoolState, ids: torch.Tensor):
         valid = (ids >= 0) & (ids < self.cfg.n_max)
@@ -328,12 +338,25 @@ class _SingleOps:
     def insert(self, state: SlabPoolState, vecs: torch.Tensor,
                ids: torch.Tensor, attrs: torch.Tensor | None = None,
                want_plan: bool = False):
+        cfg, span, dev = self.cfg, self.tel.span, state.device
         pb, aux = self._pre(state, ids)
-        vecs = vecs.to(self.cfg.dtype)
-        lists = quantizer.assign(state.centroids, vecs, self.cfg.metric)
-        out = ix._insert_impl(self.cfg, _clear_error(state), vecs, ids, lists,
-                              attrs=attrs, want_plan=want_plan)
+        vecs = vecs.to(cfg.dtype)
+        with span("assign", device=dev):
+            lists = quantizer.assign(state.centroids, vecs, cfg.metric)
+        # index._insert_impl's three steps, each a span
+        state = _clear_error(state)
+        with span("stage", device=dev):
+            stg = ix._insert_stage(cfg, state, vecs, ids, lists)
+        with span("decide"):
+            decision = stg.decision.tolist()    # the one host read
+        with span("commit", device=dev):
+            out = ix._insert_commit(cfg, state, stg, decision, attrs=attrs,
+                                    want_plan=want_plan)
         st, plan = out if want_plan else (out, None)
+        committed = bool(decision[0])
+        aux["slabs_allocated"] = int(decision[2]) if committed else 0
+        aux["n_reclaimed"] = stg.reclaimed if committed \
+            else torch.zeros((), dtype=torch.int32, device=dev)
         aux["errors"] = _or_bits(st.error)
         aux["n_live_after"] = st.n_live.clone()
         # overwritten == present-before AND the batch committed; on an
@@ -346,7 +369,9 @@ class _SingleOps:
 
     def delete(self, state: SlabPoolState, ids: torch.Tensor):
         _, aux = self._pre(state, ids)
-        st = ix._delete_impl(self.cfg, _clear_error(state), ids)
+        with self.tel.span("delete", device=state.device):
+            st, aux["n_reclaimed"] = ix._delete_impl(
+                self.cfg, _clear_error(state), ids)
         aux["errors"] = _or_bits(st.error)
         aux["n_live_after"] = st.n_live.clone()
         aux["n_overwritten"] = torch.zeros((), dtype=torch.int32,
@@ -358,7 +383,7 @@ class _SingleOps:
                fconsts: torch.Tensor | None = None):
         return ix.search(self.cfg, state, queries, k, nprobe,
                          use_tables=self.use_tables, fstruct=fstruct,
-                         fconsts=fconsts)
+                         fconsts=fconsts, tel=self.tel)
 
 
 class _MeshOps:
@@ -410,7 +435,8 @@ class _MeshOps:
     def insert(self, state, vecs: torch.Tensor, ids: torch.Tensor,
                attrs: torch.Tensor | None = None, want_plan: bool = False):
         valid, pb, aux = self._pre(state, ids)
-        out = self._insert[want_plan](self._clear(state), vecs, ids, attrs)
+        out = self._insert[want_plan](self._clear(state), vecs, ids, attrs,
+                                      aux)
         st, plan = out if want_plan else (out, None)
         errs = self._post(st, aux)
         # partial per-shard failure: only ids on committing shards count
@@ -424,7 +450,7 @@ class _MeshOps:
 
     def delete(self, state, ids: torch.Tensor):
         _, _, aux = self._pre(state, ids)
-        st = self._delete(self._clear(state), ids)
+        st = self._delete(self._clear(state), ids, aux)
         self._post(st, aux)
         aux["n_overwritten"] = torch.zeros((), dtype=torch.int32,
                                            device=state.device)
@@ -531,7 +557,8 @@ class Index:
                                   bool | None]] = []
         self._epoch = 0
         self._use_tables = use_tables
-        self._ops = _SingleOps(cfg, use_tables) if self._mesh is None \
+        self._ops = _SingleOps(cfg, use_tables, telemetry) \
+            if self._mesh is None \
             else _MeshOps(cfg, self._mesh, axis, use_tables)
         self._maint_cursor = 0      # round-robin recluster position
         self.last_maintain_ms: list[dict] = []
@@ -585,6 +612,12 @@ class Index:
         self._m_maint_rows = t.counter(
             "sivf_maintenance_rows_total",
             "live rows moved by committed maintenance ops")
+        self._m_slabs_allocated = t.counter(
+            "sivf_slabs_allocated_total",
+            "slabs committed adds took off the free stack")
+        self._m_slabs_reclaimed = t.counter(
+            "sivf_slabs_reclaimed_total",
+            "slabs adds and removes returned to the free stack")
         self._compiles_seen = 0
 
     # -- introspection ------------------------------------------------------
@@ -670,7 +703,7 @@ class Index:
         """Fold launch-signature growth into the telemetry registry
         (``sivf_jit_compile_events_total`` counts *new* signatures since
         construction)."""
-        if not self._telemetry.enabled:
+        if not self._telemetry.recording:
             return
         now = self._total_compiles()
         if now > self._compiles_seen:
@@ -817,6 +850,11 @@ class Index:
         (or tensor) in config order, covering every configured attribute.
         Without configured attributes, passing ``attrs`` raises.
         """
+        with self._telemetry.span("mutation.dispatch", root="auto",
+                                  op="add", epoch=self._epoch + 1):
+            return self._add(vecs, ids, attrs, strict)
+
+    def _add(self, vecs, ids, attrs, strict):
         self._require_trained()
         vecs = self._as_batch(vecs, np.float32)
         ids_a = self._as_batch(ids, np.int32, flat=True)
@@ -833,41 +871,39 @@ class Index:
                 "attrs= given but SIVFConfig(attributes=...) is empty")
         bucket = self._bucket(ids_a.shape[0])
         self._sigs["add"].add(bucket)
-        with self._telemetry.span("mutation.dispatch", root="auto",
-                                  op="add", epoch=self._epoch + 1):
-            pv = self._pad_rows(vecs, bucket)
-            pa = self._pad_attrs(attrs, bucket) if self.cfg.n_attrs \
-                else None
-            if self._tiered is None:
-                self._state, aux = self._ops.insert(
-                    self._state, pv, self._pad_ids(ids_a, bucket), pa)
-            else:
-                self._state, aux, plan = self._ops.insert(
-                    self._state, pv, self._pad_ids(ids_a, bucket), pa,
-                    want_plan=True)
-                # the commit plan waits for the host-store replay, with
-                # snapshots of the rows (the caller may reuse its buffers)
-                self._tiered.queue_plan(
-                    plan, pv.clone() if pv is vecs else pv,
-                    None if pa is None
-                    else (pa.clone() if pa is attrs else pa))
-        if self._telemetry.enabled:
+        pv = self._pad_rows(vecs, bucket)
+        pa = self._pad_attrs(attrs, bucket) if self.cfg.n_attrs else None
+        if self._tiered is None:
+            self._state, aux = self._ops.insert(
+                self._state, pv, self._pad_ids(ids_a, bucket), pa)
+        else:
+            self._state, aux, plan = self._ops.insert(
+                self._state, pv, self._pad_ids(ids_a, bucket), pa,
+                want_plan=True)
+            # the commit plan waits for the host-store replay, with
+            # snapshots of the rows (the caller may reuse its buffers)
+            self._tiered.queue_plan(
+                plan, pv.clone() if pv is vecs else pv,
+                None if pa is None
+                else (pa.clone() if pa is attrs else pa))
+        if self._telemetry.recording:
             self._m_mutations.inc(int(ids_a.shape[0]), op="add")
+            self._m_slabs_allocated.inc(aux["slabs_allocated"])
         return self._emit("add", aux, bucket, strict)
 
     def remove(self, ids, *, strict: bool | None = None
                ) -> "MutationReport | PendingReport":
         """Evict a batch of ids; absent ids count as ``rejected``."""
-        ids_a = self._as_batch(ids, np.int32, flat=True)
-        bucket = self._bucket(ids_a.shape[0])
-        self._sigs["remove"].add(bucket)
         with self._telemetry.span("mutation.dispatch", root="auto",
                                   op="remove", epoch=self._epoch + 1):
+            ids_a = self._as_batch(ids, np.int32, flat=True)
+            bucket = self._bucket(ids_a.shape[0])
+            self._sigs["remove"].add(bucket)
             self._state, aux = self._ops.delete(
                 self._state, self._pad_ids(ids_a, bucket))
-        if self._telemetry.enabled:
-            self._m_mutations.inc(int(ids_a.shape[0]), op="remove")
-        return self._emit("remove", aux, bucket, strict)
+            if self._telemetry.recording:
+                self._m_mutations.inc(int(ids_a.shape[0]), op="remove")
+            return self._emit("remove", aux, bucket, strict)
 
     def _emit(self, op: str, aux: dict, bucket: int, strict: bool | None):
         self._epoch += 1          # batch dispatched: the committed prefix
@@ -875,12 +911,16 @@ class Index:
             fut = PendingReport(self)
             self._pending.append((fut, op, aux, bucket, strict))
             return fut
-        return self._finalize(op, _resolve_aux([aux])[0], bucket,
-                              self.strict if strict is None else strict)
+        with self._telemetry.span("report"):
+            return self._finalize(op, _resolve_aux([aux])[0], bucket,
+                                  self.strict if strict is None else strict)
 
     def _finalize(self, op: str, aux: dict, bucket: int, strict: bool
                   ) -> MutationReport:
-        """Build a report from an aux dict already copied to the host."""
+        """Build a report from an aux dict already copied to the host (and
+        count its reclaimed slabs)."""
+        if self._telemetry.recording:
+            self._m_slabs_reclaimed.inc(int(aux["n_reclaimed"]))
         requested = int(aux["n_requested"])
         n0 = int(aux["n_live_before"])
         n1 = int(aux["n_live_after"])
@@ -968,6 +1008,13 @@ class Index:
         (:meth:`prefetch`) skips the first two stages, a stale one falls
         back to them.
         """
+        with self._telemetry.span("index.search", root="auto",
+                                  epoch=self._epoch) as span:
+            return self._search(span, queries, k, nprobe, filter,
+                                _prefetched)
+
+    def _search(self, span, queries, k, nprobe, filter, ticket
+                ) -> SearchResult:
         queries = self._as_batch(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
@@ -984,24 +1031,21 @@ class Index:
             fstruct = cf.structure
             fconsts = torch.tensor(cf.consts, dtype=torch.int32,
                                    device=self.device)
+            if isinstance(span, Span):   # formatted only when it records
+                span.attrs["filter"] = str(fstruct)
         nprobe = self.cfg.n_lists if nprobe is None \
             else min(int(nprobe), self.cfg.n_lists)
         q = queries.shape[0]
         bucket = self._bucket(q)
         padded = self._pad_rows(queries, bucket)
-        tel = self._telemetry
-        # the filter is formatted only for a span that records
-        with tel.span("index.search", root="auto", epoch=self._epoch,
-                      filter=None if fstruct is None or not tel.enabled
-                      else str(fstruct)):
-            if self._tiered is not None:
-                d, lab = self._tiered.search(
-                    self._state, padded, int(k), nprobe, fstruct, fconsts,
-                    epoch=self._epoch, ticket=_prefetched)
-            else:
-                self._sigs["search"].add((bucket, int(k), nprobe, fstruct))
-                d, lab = self._ops.search(self._state, padded, int(k),
-                                          nprobe, fstruct, fconsts)
+        if self._tiered is not None:
+            d, lab = self._tiered.search(
+                self._state, padded, int(k), nprobe, fstruct, fconsts,
+                epoch=self._epoch, ticket=ticket)
+        else:
+            self._sigs["search"].add((bucket, int(k), nprobe, fstruct))
+            d, lab = self._ops.search(self._state, padded, int(k),
+                                      nprobe, fstruct, fconsts)
         self._note_compiles()
         return SearchResult(distances=d[:q], labels=lab[:q], k=int(k),
                             nprobe=nprobe, padded_to=bucket)
@@ -1111,11 +1155,11 @@ class Index:
                                            int(aux["n_live"]))
             if committed:
                 self._epoch += 1            # a new committed prefix entry
-                if self._telemetry.enabled:
+                if self._telemetry.recording:
                     self._m_maint_rows.inc(rep.rows)
             elif first_abort is None:
                 first_abort = rep
-            if self._telemetry.enabled:
+            if self._telemetry.recording:
                 self._m_maint.inc(1, kind=op.kind,
                                   outcome="committed" if committed
                                   else "aborted")
@@ -1321,7 +1365,8 @@ class Index:
             self._mesh = backend
             self.device = backend.devices[0]
         else:
-            self._ops = _SingleOps(self.cfg, self._use_tables)
+            self._ops = _SingleOps(self.cfg, self._use_tables,
+                                   self._telemetry)
             self._mesh = None
         self._axis = axis
         self._state = state

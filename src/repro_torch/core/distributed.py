@@ -257,6 +257,14 @@ def _on(x: torch.Tensor | None, dev) -> torch.Tensor | None:
     return None if x is None else x.to(dev)
 
 
+def _sum_on(counts: list, dev) -> torch.Tensor:
+    """Per-shard int32 device scalars summed on ``dev`` (0 for none)."""
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    for c in counts:
+        total = total + c.to(dev)
+    return total
+
+
 def _stack_plans(plans: list) -> dict:
     dev = plans[0]["slab"].device
     return {k: torch.stack([p[k].to(dev) for p in plans])
@@ -267,27 +275,36 @@ def sharded_insert(cfg: SIVFConfig, mesh: ShardMesh, axis: str = "data",
                    want_plan: bool = False):
     """Broadcast-ingest op: each shard ingests the ids it owns.
 
-    Returns ``run(state, vecs, ext_ids, attrs=None) -> state``, updating
-    the shards in place (the returned state names the current planes).
-    Every shard stages the whole batch with the ids it does not own set
-    to -1, the shards' commit decisions cross in one copy, then each
-    commits or aborts on its own: an aborting shard keeps its previous
-    planes and raises its own error bits. ``want_plan=True`` returns
-    ``(state, plan)`` with the stacked ``[S, B]`` commit plan (rows a
-    shard did not own, or an aborted shard's whole batch, are -1).
+    Returns ``run(state, vecs, ext_ids, attrs=None, aux=None) -> state``,
+    updating the shards in place (the returned state names the current
+    planes). Every shard stages the whole batch with the ids it does not
+    own set to -1, the shards' commit decisions cross in one copy, then
+    each commits or aborts on its own: an aborting shard keeps its
+    previous planes and raises its own error bits. ``want_plan=True``
+    returns ``(state, plan)`` with the stacked ``[S, B]`` commit plan
+    (rows a shard did not own, or an aborted shard's whole batch, are
+    -1). A dict ``aux`` receives ``slabs_allocated`` (host int) and
+    ``n_reclaimed`` (device int32 on shard 0's device), each summed over
+    the committing shards.
     """
     n = _axis_size(mesh, axis)
 
     def run(state: ShardedState, vecs: torch.Tensor, ext_ids: torch.Tensor,
-            attrs: torch.Tensor | None = None):
+            attrs: torch.Tensor | None = None, aux: dict | None = None):
         stages = []
         for s, st in enumerate(state.shards):
             v, i, li = _shard_batch(cfg, st, s, n, vecs, ext_ids, None)
             stages.append(ix._insert_stage(cfg, st, v, i, li))
+        decisions = read_decisions(stages)
         outs = [ix._insert_commit(cfg, st, stg, dec, None,
                                   _on(attrs, st.device), want_plan)
-                for st, stg, dec in zip(state.shards, stages,
-                                        read_decisions(stages))]
+                for st, stg, dec in zip(state.shards, stages, decisions)]
+        if aux is not None:
+            ok = [(stg, dec) for stg, dec in zip(stages, decisions)
+                  if dec[0]]
+            aux["slabs_allocated"] = sum(int(dec[2]) for _, dec in ok)
+            aux["n_reclaimed"] = _sum_on(
+                [stg.reclaimed for stg, _ in ok], state.device)
         if not want_plan:
             return ShardedState(outs)
         return (ShardedState([o[0] for o in outs]),
@@ -298,13 +315,18 @@ def sharded_insert(cfg: SIVFConfig, mesh: ShardMesh, axis: str = "data",
 
 def sharded_delete(cfg: SIVFConfig, mesh: ShardMesh, axis: str = "data"):
     """Broadcast-delete op: non-owners miss in their address tables and
-    change nothing. Returns ``run(state, ext_ids) -> state`` (in place, no
-    host read)."""
+    change nothing. Returns ``run(state, ext_ids, aux=None) -> state`` (in
+    place, no host read); a dict ``aux`` receives ``n_reclaimed``, the
+    shards' reclaimed slabs summed on shard 0's device."""
     _axis_size(mesh, axis)
 
-    def run(state: ShardedState, ext_ids: torch.Tensor) -> ShardedState:
-        return ShardedState([ix._delete_impl(cfg, st, ext_ids.to(st.device))
-                             for st in state.shards])
+    def run(state: ShardedState, ext_ids: torch.Tensor,
+            aux: dict | None = None) -> ShardedState:
+        outs = [ix._delete_impl(cfg, st, ext_ids.to(st.device))
+                for st in state.shards]
+        if aux is not None:
+            aux["n_reclaimed"] = _sum_on([n for _, n in outs], state.device)
+        return ShardedState([st for st, _ in outs])
 
     return run
 
@@ -574,7 +596,7 @@ def reshard_state(cfg: SIVFConfig, state, n_from: int, n_to: int,
                             torch.from_numpy(rows["codes"])).numpy()
     else:
         vecs = np.asarray(rows["data"], np.float32)
-    if tel.enabled:
+    if tel.recording:
         # the bytes that cross the host on this flatten-and-rebuild path
         moved = sum(rows[k].nbytes for k in ("ids", "lists", "data",
                                              "codes", "attrs"))

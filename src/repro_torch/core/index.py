@@ -45,6 +45,7 @@ from repro_torch.core.state import (
     host_live_mask,
     memory_report,
 )
+from repro_torch.obs.trace import OFF
 from repro_torch.utils import ceil_div, exclusive_cumsum
 
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -95,9 +96,9 @@ def _dedupe_keep_last(ext_ids: torch.Tensor, valid: torch.Tensor
 class _InsertStage:
     """An insert batch up to its commit decision (:func:`_insert_stage`)."""
 
-    __slots__ = ("vecs", "ext_ids", "staged", "sl", "order", "rank",
-                 "space_l", "n_new_l", "offs_l", "pool_ok", "chain_ok",
-                 "range_bit", "decision")
+    __slots__ = ("vecs", "ext_ids", "staged", "reclaimed", "sl", "order",
+                 "rank", "space_l", "n_new_l", "offs_l", "pool_ok",
+                 "chain_ok", "range_bit", "decision")
 
 
 def _insert_stage(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
@@ -108,7 +109,9 @@ def _insert_stage(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     delete planes (``state`` stays intact), sorts the batch by list and
     plans each list's capacity. ``decision`` is the int64 device vector
     ``(ok, valid rows, new slabs)`` that :func:`_insert_commit` needs on
-    the host: a mesh reads every shard's in one copy.
+    the host: a mesh reads every shard's in one copy. ``reclaimed`` is
+    the device count of slabs the staged overwrite-deletes reclaim, which
+    the pool gives up only if the batch commits.
     """
     b = vecs.shape[0]
     c = cfg.capacity
@@ -126,7 +129,8 @@ def _insert_stage(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
     present = valid0 & (state.att_slab[eid0] >= 0)
     staged = dataclasses.replace(
         state, **{f: getattr(state, f).clone() for f in _DELETE_PLANES})
-    staged = _delete_impl(cfg, staged, torch.where(present, ext_ids, -1))
+    staged, reclaimed = _delete_impl(cfg, staged,
+                                     torch.where(present, ext_ids, -1))
 
     # -- sort batch by target list; rank within list -----------------------
     lists_key = torch.where(valid0, lists.to(_I32), nl)
@@ -148,6 +152,7 @@ def _insert_stage(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
 
     st = _InsertStage()
     st.vecs, st.ext_ids, st.staged = vecs, ext_ids, staged
+    st.reclaimed = reclaimed
     st.sl, st.order, st.rank = sl, order, rank
     st.space_l, st.n_new_l = space_l, n_new_l
     st.offs_l = exclusive_cumsum(n_new_l)
@@ -344,8 +349,10 @@ def insert(cfg: SIVFConfig, state: SlabPoolState, vecs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _delete_impl(cfg: SIVFConfig, state: SlabPoolState,
-                 ext_ids: torch.Tensor) -> SlabPoolState:
-    """Batched delete, in place and without a host sync.
+                 ext_ids: torch.Tensor
+                 ) -> tuple[SlabPoolState, torch.Tensor]:
+    """Batched delete, in place and without a host sync: the state and
+    the number of slabs the batch reclaimed (a device int32 scalar).
 
     The reference walks every batch row in a ``fori_loop``
     (``repro/core/index.py:361``). Its loop condition reads only
@@ -388,14 +395,15 @@ def _delete_impl(cfg: SIVFConfig, state: SlabPoolState,
     # reclaimed slabs first, in row order; the count stays on the device
     from repro_torch.kernels.reclaim.ops import reclaim_slabs
     slabs = s[torch.argsort((~do).to(torch.uint8), stable=True)]
-    reclaim_slabs(state, slabs, do.sum(dtype=_I32).reshape(1))
-    return state
+    n_reclaimed = do.sum(dtype=_I32)
+    reclaim_slabs(state, slabs, n_reclaimed.reshape(1))
+    return state, n_reclaimed
 
 
 def delete(cfg: SIVFConfig, state: SlabPoolState, ext_ids: torch.Tensor
            ) -> SlabPoolState:
     """Batched lazy eviction. ``ext_ids`` [B]; -1 entries are no-ops."""
-    return _delete_impl(cfg, state, ext_ids)
+    return _delete_impl(cfg, state, ext_ids)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +478,8 @@ def scan_slabs_topk_pq(cfg: SIVFConfig, state: SlabPoolState,
 def _scan_dispatch(cfg: SIVFConfig, state: SlabPoolState,
                    queries: torch.Tensor, table: torch.Tensor, k: int,
                    fstruct: tuple | None = None,
-                   fconsts: torch.Tensor | None = None
+                   fconsts: torch.Tensor | None = None,
+                   adc: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Route a slab table through the fused scan->top-k for its device.
 
@@ -478,14 +487,16 @@ def _scan_dispatch(cfg: SIVFConfig, state: SlabPoolState,
     hand-written kernels (``kernels/sivf_scan/fused.py``,
     ``kernels/sivf_scan/pq_fused.py``) or raises. This replaces the
     reference's ``impl="xla" | "pallas"`` switch. With ``cfg.pq`` the ADC
-    table is built once per query batch and that one table scores.
+    table (``adc``, built here when omitted) is built once per query
+    batch and that one table scores.
     """
     if fstruct is not None and cfg.n_attrs == 0:
         raise ValueError("filtered search needs SIVFConfig(attributes=...)")
     from repro_torch.kernels.sivf_scan import ops
     filt = dict(attrs=state.attrs, fstruct=fstruct, fconsts=fconsts)
     if cfg.pq is not None:
-        adc = pqmod.adc_tables(state.pq_codebooks, queries, cfg.metric)
+        if adc is None:
+            adc = pqmod.adc_tables(state.pq_codebooks, queries, cfg.metric)
         return ops.sivf_pq_fused_search(adc, table, state.codes, state.ids,
                                         state.bitmap, k, **filt)
     return ops.sivf_fused_search(
@@ -495,20 +506,32 @@ def _scan_dispatch(cfg: SIVFConfig, state: SlabPoolState,
 
 def search(cfg: SIVFConfig, state: SlabPoolState, queries: torch.Tensor,
            k: int, nprobe: int, use_tables: bool | None = None,
-           fstruct: tuple | None = None, fconsts: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, torch.Tensor]:
+           fstruct: tuple | None = None, fconsts: torch.Tensor | None = None,
+           tel=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k search. queries [Q, D] -> (distances [Q, k], labels [Q, k]).
 
     ``use_tables`` selects the dense-table slab lookup (default from the
     config) or the pointer walk; both feed the same fused scan->top-k.
     ``fstruct``/``fconsts`` come from ``filters.compile_filter`` (the
-    constants as an int32 tensor on the state's device).
+    constants as an int32 tensor on the state's device). With ``tel`` (a
+    ``repro_torch.obs.Telemetry``) each stage is a span timed on the
+    device too: ``probe``, ``tables``, ``adc`` (PQ only) and ``scan``.
     """
     ut = cfg.track_tables if use_tables is None else use_tables
+    span = (OFF if tel is None else tel).span
+    dev = state.device
     queries = queries.to(cfg.dtype)
-    lists = quantizer.probe(state.centroids, queries, nprobe, cfg.metric)
-    table = (gather_tables if ut else walk_chains)(cfg, state, lists)
-    return _scan_dispatch(cfg, state, queries, table, k, fstruct, fconsts)
+    with span("probe", device=dev):
+        lists = quantizer.probe(state.centroids, queries, nprobe, cfg.metric)
+    with span("tables", device=dev):
+        table = (gather_tables if ut else walk_chains)(cfg, state, lists)
+    adc = None
+    if cfg.pq is not None:
+        with span("adc", device=dev):
+            adc = pqmod.adc_tables(state.pq_codebooks, queries, cfg.metric)
+    with span("scan", device=dev):
+        return _scan_dispatch(cfg, state, queries, table, k, fstruct,
+                              fconsts, adc)
 
 
 # ---------------------------------------------------------------------------

@@ -451,7 +451,7 @@ class TieredRuntime:
             if frames:
                 self._upload(np.asarray(frames, np.int32),
                              np.asarray(slabs, np.int32))
-            if self.tel.enabled:
+            if self.tel.recording:
                 m = self._m_cache
                 m.inc(stats["hits"], event="hit")
                 m.inc(stats["misses"], event="miss")
@@ -569,7 +569,7 @@ class TieredRuntime:
         if self.pin:
             self._staged = torch.cuda.Event()
             self._staged.record()
-        if self.tel.enabled:
+        if self.tel.recording:
             self._m_bytes.inc(int(buf.numel()), direction="h2d",
                               stage="prefetch")
         self.h2d_copies += 1
@@ -787,7 +787,7 @@ class MeshTieredRuntime:
                 if frames:
                     sub._upload(np.asarray(frames, np.int32),
                                 np.asarray(slabs, np.int32))
-            if self.tel.enabled:
+            if self.tel.recording:
                 m = self.shards[0]._m_cache
                 m.inc(stats["hits"], event="hit")
                 m.inc(stats["misses"], event="miss")

@@ -1,18 +1,21 @@
 """repro_torch.obs — telemetry of the port (counterpart of ``repro/obs``).
 
-Three pieces, plain Python and numpy:
+Three pieces, plain Python and numpy (the tracer reads torch's profiler
+flag and times device stages with CUDA events):
 
   * :mod:`repro_torch.obs.metrics` — Counter / Gauge / Histogram registry
     with label sets, fixed log2 latency buckets, windowed + cumulative
     counter reads, and the shared percentile helpers.
   * :mod:`repro_torch.obs.trace`   — span-based tracing
-    (``Telemetry.span()``), per-stage histograms, the slow-query log.
+    (``Telemetry.span()``), per-stage histograms, the slow-query log,
+    the span log (``Telemetry.spans()``) with device-timed stages.
   * :mod:`repro_torch.obs.export`  — Prometheus text renderer + JSON
     snapshot.
 
 A process-wide default :class:`Telemetry` (disabled, the no-op fast
-path, until :func:`enable` is called) backs ``sivf_torch.telemetry``;
-handles (``Index``, ``ServeEngine``) use it unless given their own.
+path, until :func:`enable` is called or while ``torch.profiler``
+records) backs ``sivf_torch.telemetry``; handles (``Index``,
+``ServeEngine``) use it unless given their own.
 """
 from __future__ import annotations
 

@@ -285,7 +285,7 @@ class ServeEngine:
         except Backpressure as e:
             self._note_backpressure(tenant, e)
             raise
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_requests.inc(tenant=tenant, op="search")
             self._m_rows.inc(int(q.shape[0]), tenant=tenant, op="search")
             self._m_queue_depth.set(depth)
@@ -333,14 +333,14 @@ class ServeEngine:
         except Backpressure as e:
             self._note_backpressure(tenant, e)
             raise
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_requests.inc(tenant=tenant, op=op)
             self._m_rows.inc(int(ids_a.shape[0]), tenant=tenant, op=op)
             self._m_queue_depth.set(depth)
         return fut
 
     def _note_backpressure(self, tenant: str, e: Backpressure) -> None:
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_backpressure.inc(tenant=tenant, kind=e.kind.value)
 
     def submit_add(self, tenant: str, vecs, ids, attrs=None) -> ServeFuture:
@@ -380,7 +380,7 @@ class ServeEngine:
         except Backpressure as e:
             self._note_backpressure(tenant, e)
             raise
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_requests.inc(tenant=tenant, op="maintain")
             self._m_queue_depth.set(depth)
         return fut
@@ -493,7 +493,7 @@ class ServeEngine:
             "serve.tile", root=True, epoch=epoch,
             tenant=",".join(sorted({r.tenant for r in chunk})),
             filter=None if cfilter is None else str(cfilter.structure),
-            rows=int(qmat.shape[0])) if self._tel.enabled else None
+            rows=int(qmat.shape[0])) if self._tel.recording else None
         t0 = self._clock()
         try:
             res = self._index.search(qmat, k, nprobe, filter=cfilter,
@@ -509,7 +509,7 @@ class ServeEngine:
         self._n_searches += len(chunk)
         self._coalesce_sizes.append(int(qmat.shape[0]))
         self._max_tile = max(self._max_tile, res.padded_to)
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_coalesce.observe(int(qmat.shape[0]))
         # launch signatures are per filter STRUCTURE, not per constant set
         self._kn_groups.add((k, res.nprobe,
@@ -544,7 +544,7 @@ class ServeEngine:
                 r.future.set_exception(e)
                 continue
             self._n_maintenance += 1
-            if self._tel.enabled:
+            if self._tel.recording:
                 self._m_epoch.set(self._index.epoch)
             r.future.set_result(ServeMaintenanceResult(
                 reports=tuple(reports), epoch=self._index.epoch,
@@ -569,11 +569,11 @@ class ServeEngine:
             return
         self._n_flushes += 1
         now = self._clock()
-        if self._tel.enabled:
+        if self._tel.recording:
             self._m_epoch.set(self._index.epoch)
         while self._mut_inflight:
             req, pending, epoch = self._mut_inflight.popleft()
-            if self._tel.enabled:
+            if self._tel.recording:
                 self._tel.record_duration(
                     "serve.mutation_queue", now - req.t_submit,
                     attach=False)
@@ -596,7 +596,7 @@ class ServeEngine:
             off = 0
             for r in chunk:
                 nq = r.queries.shape[0]
-                if self._tel.enabled:
+                if self._tel.recording:
                     self._tel.record_duration(
                         "serve.queue", t0 - r.t_submit, attach=False)
                 r.future.set_result(ServeSearchResult(

@@ -9,6 +9,11 @@ Quickstart::
     ...serve traffic...
     snap = telemetry.snapshot()          # JSON-able dict
     text = telemetry.render_prometheus() # text exposition for a scrape
+    log = telemetry.spans()              # the span log, device times too
+
+The default records while enabled and, disabled, while a
+``torch.profiler`` session records: profiling the process traces the
+index's stages.
 
 Handles constructed with an explicit ``telemetry=`` record into their
 own instance instead; ``engine.telemetry()`` / ``index.telemetry()``
@@ -21,7 +26,7 @@ from repro_torch.obs import Telemetry, disable, enable
 
 __all__ = ["Telemetry", "enable", "disable", "get", "snapshot",
            "snapshot_json", "render_prometheus", "slow_queries",
-           "roll_window"]
+           "spans", "roll_window"]
 
 
 def get() -> Telemetry:
@@ -47,6 +52,12 @@ def render_prometheus() -> str:
 def slow_queries() -> list[dict]:
     """Current slow-query log entries, slowest first."""
     return _obs.default().slow_queries()
+
+
+def spans() -> dict:
+    """The default Telemetry's span log (``Telemetry.spans``):
+    ``{"spans": [record, ...], "wrapped": bool}``."""
+    return _obs.default().spans()
 
 
 def roll_window() -> None:

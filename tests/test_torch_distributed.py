@@ -332,7 +332,8 @@ def test_deferred_mesh_matches_eager(rng, monkeypatch):
                         or real(t, *a, **k))
     got = deferred.flush()
     monkeypatch.undo()
-    assert len(copies) == 1 and copies[0] == (4 * (5 + 2),)
+    # four batches, each its six aux scalars and its two shards' bits
+    assert len(copies) == 1 and copies[0] == (4 * (6 + 2),)
     assert got == want == [f.result() for f in futs]
     assert got[2].shard_errors == (sivf_torch.ErrorCode.ID_RANGE,
                                    sivf_torch.ErrorCode.NONE)  # 5000 % 2

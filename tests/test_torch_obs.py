@@ -25,6 +25,7 @@ import sivf_torch
 from repro_torch.obs.trace import _NOOP
 
 D, NL = 16, 8
+PORT_FAMILIES = ("sivf_slabs_allocated_total", "sivf_slabs_reclaimed_total")
 OBS = {"ref": jobs, "port": tobs}
 
 
@@ -272,13 +273,25 @@ def test_index_spans_and_counters_match_the_reference(rng, device_slabs):
     ops_on(np.random.default_rng(seed), j, qs, True)
     ops_on(np.random.default_rng(seed), t, qs, False)
     snap_j, snap_t = j.telemetry(), t.telemetry()
-    assert sorted(snap_t["metrics"]) == sorted(snap_j["metrics"])
-    assert stage_counts(tt) == stage_counts(jt)
+    # the reference's families and stages, the same counts; beside them
+    # the port's own: the slab counters and the stages inside its calls
+    assert sorted(snap_t["metrics"]) == sorted(
+        list(snap_j["metrics"]) + list(PORT_FAMILIES))
+    ref_names = set(stage_counts(jt))
+    port = stage_counts(tt)
+    assert {n: c for n, c in port.items() if n in ref_names} == \
+        stage_counts(jt)
     want = {"index.search", "mutation.dispatch", "mutation.flush",
             "maintenance.op"}
     if device_slabs:
         want |= {"plan", "prefetch", "scan"}
-    assert set(stage_counts(tt)) == want
+    assert ref_names == want
+    # two adds, one remove and (untiered) three searches, all deferred
+    added = {"assign": 2, "stage": 2, "decide": 2, "commit": 2,
+             "delete": 1}
+    if not device_slabs:
+        added |= {"probe": 3, "tables": 3, "scan": 3}
+    assert {n: c for n, c in port.items() if n not in ref_names} == added
     for name in ("sivf_index_mutation_rows_total",
                  "sivf_maintenance_ops_total",
                  "sivf_maintenance_rows_total",
@@ -288,7 +301,7 @@ def test_index_spans_and_counters_match_the_reference(rng, device_slabs):
                 snap_j["metrics"][name]["series"], name
     # the slow log's roots and their attributes (durations aside)
     keys = [(e["span"], e.get("op"), e.get("epoch"), e.get("kind"),
-             e.get("filter"), sorted(e["stages_ms"]))
+             e.get("filter"), sorted(set(e["stages_ms"]) & ref_names))
             for e in tt.slow_queries()]
     assert sorted(keys, key=repr) == sorted(
         [(e["span"], e.get("op"), e.get("epoch"), e.get("kind"),
@@ -330,3 +343,229 @@ def test_tiered_cache_counters_equal_stats(rng):
     entries = [e for e in tt.slow_queries() if e["span"] == "index.search"]
     assert entries and {"plan", "prefetch", "scan"} <= \
         set(entries[0]["stages_ms"])
+
+
+# ---------------------------------------------------------------------------
+# the span log: recording rule, the stages inside each call, device times
+# ---------------------------------------------------------------------------
+
+def small_index(tel, pq=False, deferred=False, n_lists=NL):
+    """A CPU index recording into ``tel`` (PQ: codebooks trained here)."""
+    rng = np.random.default_rng(5)
+    cfg = sivf_torch.SIVFConfig(
+        dim=D, n_lists=n_lists, n_slabs=64, capacity=32, n_max=4096,
+        pq=sivf_torch.PQConfig(m=4, nbits=4) if pq else None)
+    idx = sivf_torch.Index(cfg, rng.normal(size=(n_lists, D)).astype(
+        np.float32), device="cpu", telemetry=tel, deferred=deferred)
+    if pq:
+        idx.train(rng.normal(size=(512, D)).astype(np.float32))
+    return idx, rng
+
+
+def one_of_each(idx, rng, n=200, start=0):
+    """An add of ``n`` new ids, a search of 3 queries, a remove of half."""
+    ids = np.arange(start, start + n, dtype=np.int32)
+    idx.add(rng.normal(size=(n, D)).astype(np.float32), ids)
+    idx.search(rng.normal(size=(3, D)).astype(np.float32), k=5, nprobe=3)
+    idx.remove(ids[: n // 2])
+
+
+def test_a_profiler_session_records_while_the_switch_is_off():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tel = tobs.Telemetry(enabled=False)
+    idx, rng = small_index(tel)
+    assert tel.recording is False
+    one_of_each(idx, rng)
+    assert tel.spans() == {"spans": [], "wrapped": False}
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tel.recording is True and tel.enabled is False
+        one_of_each(idx, rng, start=1000)
+    assert tel.recording is False
+    names = [r["name"] for r in tel.spans()["spans"]]
+    assert names.count("index.search") == 1
+    assert names.count("mutation.dispatch") == 2
+    counts = stage_counts(tel)
+    assert counts["index.search"] == 1 and counts["probe"] == 1
+    one_of_each(idx, rng, start=2000)          # outside again: nothing
+    assert [r["name"] for r in tel.spans()["spans"]] == names
+    assert stage_counts(tel) == counts
+    assert torch.autograd.profiler._is_profiler_enabled is False
+
+
+def test_the_off_path_hands_out_noop_and_makes_no_event(monkeypatch):
+    import torch
+
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event on the off path")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_event)
+    tel = tobs.Telemetry(enabled=False)
+    assert tel.span("probe", device=torch.device("cuda", 0)) is _NOOP
+    assert tel.span("index.search", root="auto") is _NOOP
+    assert tobs.trace.OFF.span("scan", device=torch.device("cuda")) is _NOOP
+    idx, rng = small_index(tel, pq=True)
+    one_of_each(idx, rng)
+    assert tel.spans()["spans"] == []
+    # recording on a CPU device makes no event either
+    tel.enabled = True
+    one_of_each(idx, rng, start=1000)
+    assert tel.spans()["spans"]
+
+
+CHILDREN = {("index.search", False): ["probe", "tables", "scan"],
+            ("index.search", True): ["probe", "tables", "adc", "scan"],
+            ("add", False): ["assign", "stage", "decide", "commit",
+                             "report"],
+            ("remove", False): ["delete", "report"]}
+
+
+@pytest.mark.parametrize("pq", [False, True])
+def test_each_root_holds_its_stages_in_order(pq):
+    import time
+    tel = tobs.Telemetry(enabled=True)
+    idx, rng = small_index(tel, pq=pq)
+    assert tel.spans()["spans"] == []        # set-up records no span
+    t0 = time.perf_counter_ns()
+    one_of_each(idx, rng)
+    t1 = time.perf_counter_ns()
+    log = tel.spans()
+    assert log["wrapped"] is False
+    recs = log["spans"]
+    roots = [r for r in recs if r["parent"] is None]
+    assert [(r["name"], r["attrs"].get("op")) for r in roots] == [
+        ("mutation.dispatch", "add"), ("index.search", None),
+        ("mutation.dispatch", "remove")]
+    for r in roots:
+        assert r["root"] == r["id"]
+        assert t0 <= r["t0_ns"] <= r["t1_ns"] <= t1
+        kids = sorted((c for c in recs if c["parent"] == r["id"]),
+                      key=lambda c: c["t0_ns"])
+        key = (r["attrs"].get("op", r["name"]),
+               pq and r["name"] == "index.search")
+        assert [c["name"] for c in kids] == CHILDREN[key]
+        prev = r["t0_ns"]
+        for c in kids:
+            assert c["root"] == r["id"]
+            assert prev <= c["t0_ns"] <= c["t1_ns"] <= r["t1_ns"]
+            prev = c["t1_ns"]
+            assert c["device_ms"] is None       # a CPU device
+        assert r["device_ms"] is None
+        # nothing below the stages
+        assert not [g for g in recs if g["parent"] in
+                    {c["id"] for c in kids}]
+    assert len(recs) == 3 + sum(len(CHILDREN[k]) for k in (
+        ("add", False), ("index.search", pq), ("remove", False)))
+
+
+def test_the_span_log_is_bounded_and_says_it_wrapped(monkeypatch):
+    monkeypatch.setattr(tobs.trace, "SPAN_LOG_SIZE", 8)
+    tel = tobs.Telemetry(enabled=True)
+    for i in range(5):
+        with tel.span("x", root=True, i=i):
+            pass
+    log = tel.spans()
+    assert log["wrapped"] is False
+    assert [r["attrs"]["i"] for r in log["spans"]] == list(range(5))
+    for i in range(5, 20):
+        with tel.span("x", root=True, i=i):
+            pass
+    log = tel.spans()
+    assert log["wrapped"] is True
+    assert [r["attrs"]["i"] for r in log["spans"]] == list(range(12, 20))
+
+
+class FakeEvent:
+    """A CUDA event stand-in: ``query()`` reads its completion flag, and
+    ``elapsed_time`` the two events' fake timestamps."""
+    made = 0
+    clock = [0.0]
+
+    def __init__(self, enable_timing=False):
+        FakeEvent.made += 1
+        self.done, self.t = False, None
+
+    def record(self, stream=None):
+        self.t, self.done = FakeEvent.clock[0], False
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done
+        return end.t - self.t
+
+
+def test_device_times_resolve_at_the_root_or_in_spans(monkeypatch):
+    import torch
+    synced = []
+    recorded = []
+    monkeypatch.setattr(FakeEvent, "made", 0)
+    orig_record = FakeEvent.record
+
+    def record(self, stream=None):
+        orig_record(self, stream)
+        recorded.append(self)
+
+    monkeypatch.setattr(FakeEvent, "record", record)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda idx=None: idx)
+
+    def synchronize(idx=None):
+        synced.append(idx)
+        for e in recorded:
+            e.done = True
+
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    dev = torch.device("cuda", 0)
+    tel = tobs.Telemetry(enabled=True)
+
+    def call(work_ms, done):
+        with tel.span("index.search", root="auto"):
+            for name, ms in zip(("probe", "scan"), work_ms):
+                with tel.span(name, device=dev):
+                    FakeEvent.clock[0] += ms
+            with tel.span("decide"):            # a host-only stage
+                pass
+            for e in recorded:                  # the device catches up
+                e.done = e.done or done
+
+    call((1.5, 2.0), done=True)      # complete when the root closes
+    by = {r["name"]: r for r in tel.spans()["spans"]}
+    assert synced == []              # resolved by query(), no synchronise
+    assert by["probe"]["device_ms"] == 1.5 and by["scan"]["device_ms"] == 2.0
+    assert by["decide"]["device_ms"] is None
+    assert by["index.search"]["device_ms"] is None
+    assert FakeEvent.made == 4
+    call((0.25, 0.5), done=False)    # still running when the root closes
+    recs = tel.spans()["spans"]      # one synchronise resolves them
+    assert synced == [0]
+    assert [r["device_ms"] for r in recs if r["name"] in ("probe", "scan")
+            ] == [1.5, 2.0, 0.25, 0.5]
+    assert FakeEvent.made == 4       # the pool gave the first pair back
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+def test_slab_counters_equal_the_slabs_stats_shows_moving(deferred):
+    tel = tobs.Telemetry(enabled=True)
+    idx, rng = small_index(tel, deferred=deferred, n_lists=4)
+    alloc = tel.counter("sivf_slabs_allocated_total")
+    recl = tel.counter("sivf_slabs_reclaimed_total")
+    used0 = idx.stats()["slabs_used"]
+    moves = []
+    ids = np.arange(1200, dtype=np.int32)
+    vecs = rng.normal(size=(1200, D)).astype(np.float32)
+    for op in (lambda: idx.add(vecs[:700], ids[:700]),
+               lambda: idx.add(vecs[700:], ids[700:]),
+               lambda: idx.add(vecs[:300] + 1.0, ids[:300]),  # overwrites
+               lambda: idx.remove(ids[:900]),
+               lambda: idx.remove(ids[900:1100]),
+               lambda: idx.add(vecs[:50], ids[:50])):
+        op()
+        idx.flush()
+        used = idx.stats()["slabs_used"]
+        moves.append((used - used0, alloc.get() - recl.get()))
+    assert [m for m, _ in moves] == [c for _, c in moves]
+    assert alloc.get() > 0 and recl.get() > 0
+    assert recl.get() <= alloc.get()
